@@ -1,0 +1,419 @@
+"""Smoke run of otmb_tpu_torch on one NVIDIA GPU.
+
+Builds the CUDA kernels K1 (stencil), K2 (Thomas solve) and K4 (fused
+assembly) from otmb_tpu_torch/csrc, then:
+
+  1. prints the card (nvidia-smi name and power limit), the torch and CUDA
+     versions and the kernel build time;
+  2. drives the main path at the ACCESS 1-degree size (360x300x50,
+     tripolar, seed 0) through the public API, with the launch counts set
+     to 0 just before: grid metrics -> indices -> face fluxes ->
+     transportmatrix, the fused assembly (K4), 200 explicit Euler steps
+     (K1) and the refined ideal age (K1 + K2, f64 defects through K1);
+  3. checks that K1, K2 and K4 each launched during that run;
+  4. holds each kernel against its plain PyTorch version at the main
+     path's shapes, on both topologies, with the tolerances stated below;
+  5. holds the card's slice at the 18x14x6 test size against the golden
+     operator and ages in tests/data/golden_tile.npz;
+  6. times each kernel and its plain version with CUDA events.
+
+Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
+device and exits non-zero, printing no result, without one, and whenever
+a kernel does not build or launch, disagrees, or a check fails. The last
+line is {"ok": true, "device": {...}}; the line before it lists the
+kernels with their launch counts, errors and times.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+NX, NY, NZ = 360, 300, 50  # ACCESS 1-degree grid
+BIPOLAR_SHAPE = (180, 150, 50)  # (nx, ny, nz): the bipolar checks run at half the width
+SEED = 0
+YEAR_S = 365.25 * 24 * 3600
+GOLDEN = Path(__file__).resolve().parent / "tests" / "data" / "golden_tile.npz"
+
+# Tolerances, as max|kernel - plain| / max|plain| over the field or leg.
+TOL_F64 = 1e-12
+# f32: the kernel and the plain version round the same products (no FMA
+# contraction on either side), so K1 agrees to a few ulps of the field's
+# largest value; K4 forms masses and face areas in another order than
+# assemble_transport and sums the vertical closure by carry instead of
+# cumsum, so it may differ by ~100 ulps of the leg's largest value.
+TOL_K1_F32 = 1e-6
+TOL_K4_F32 = 2e-5
+# K2 runs the plain version's operations in its order without FMA: exact.
+TOL_K2 = 0.0
+# 200 f32 Euler steps at dt = 0.25/max|diag|: the f32 coefficients conserve
+# volume-weighted mass to ~1e-7 per unit dt*|T|, so the drift stays far
+# below this bound.
+TOL_MASS_F32 = 1e-4
+TOL_AGE = 1e-8
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """(max abs error, max abs error / max |ref|), in f64."""
+    got, ref = got.double(), ref.double()
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    return err, err / scale if scale else err
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def build_case(P, nx, ny, nz, kind, dtype, device):
+    """Synthetic dataset, grid metrics and indices on the device."""
+    ds = P.synthetic_dataset(nx=nx, ny=ny, nz=nz, topology=kind, seed=SEED)
+    gm = P.makegridmetrics(
+        areacello=ds.areacello, volcello=ds.volcello, lon=ds.lon, lat=ds.lat,
+        lev=ds.lev, lon_vertices=ds.lon_vertices, lat_vertices=ds.lat_vertices,
+        dtype=dtype, device=device,
+    )
+    require(gm.topology.kind == kind, f"detected {gm.topology.kind}, expected {kind}")
+    return ds, gm, P.makeindices(gm.v3d)
+
+
+def density(ds, rng: np.random.Generator) -> np.ndarray:
+    """A 3D density field about 1035 kg/m^3, NaN on land."""
+    rho = 1025.0 + 20.0 * rng.random(ds.umo.shape)
+    return np.where(ds.wet3d, rho, np.nan)
+
+
+def cuda_ms(fn, launches: int, repeats: int = 5) -> float:
+    """Per-call time (ms): the median over `repeats` of the CUDA-event time
+    of `launches` back-to-back calls, divided by `launches`, so the wrapper's
+    host work overlaps the device work as it does in a loop."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+def phase_main_path(P, device, card):
+    """The 1-degree main path, with the kernels' launch counts taken."""
+    from otmb_tpu_torch.ops import assemble, stencil, tridiag
+
+    for mod in (stencil, tridiag, assemble):
+        mod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    ds, gm, idx = build_case(P, NX, NY, NZ, "tripolar", torch.float32, device)
+    phi = P.facefluxesfrommasstransport(umo=ds.umo, vmo=ds.vmo, gridmetrics=gm, indices=idx)
+    ops = P.transportmatrix(phi=phi, mlotst=ds.mlotst, gridmetrics=gm, indices=idx)
+    T = P.assemble_T(ds.umo, ds.vmo, ds.mlotst, gm)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    wet = idx.wet3d
+    for leg in T._fields:
+        require(bool(torch.isfinite(T[leg]).all()), f"K4 leg {leg} not finite")
+    k4_rel = max(rel_err(T[leg], ops.T[leg])[1] for leg in T._fields)
+    require(k4_rel <= TOL_K4_F32, f"K4 vs transportmatrix {k4_rel:.3e} > {TOL_K4_F32}")
+    log(f"[slice] 1-degree {NX}x{NY}x{NZ} tripolar seed {SEED}: {idx.nwet} wet cells, "
+        f"metrics+fluxes+transportmatrix+assemble_T {t_setup:.3f} s, "
+        f"K4 T vs transportmatrix T max rel {k4_rel:.3e}")
+
+    # propagation: 200 f32 Euler steps through K1
+    v = torch.where(wet, gm.v3d, 0.0).double()
+    rng = np.random.default_rng(SEED)
+    chi0 = torch.as_tensor(
+        np.where(ds.wet3d, 1.0 + 0.1 * rng.standard_normal(wet.shape), 0.0),
+        dtype=torch.float32, device=device)
+    dt = 0.25 / float(T.diag.abs().max())
+    t0 = time.perf_counter()
+    chi = P.euler_propagate(T, chi0, dt, 200, gm.topology)
+    torch.cuda.synchronize()
+    t_prop = time.perf_counter() - t0
+    m0 = float((chi0.double() * v).sum())
+    m1 = float((chi.double() * v).sum())
+    drift = abs(m1 - m0) / abs(m0)
+    require(bool(torch.isfinite(chi).all()), "propagated tracer not finite")
+    require(bool((chi[~wet] == 0).all()), "propagated tracer nonzero on land")
+    require(drift < TOL_MASS_F32, f"mass drift {drift:.3e} >= {TOL_MASS_F32}")
+    log(f"[propagate] 200 f32 Euler steps at dt={dt:.6g} s: {t_prop:.3f} s wall, "
+        f"relative tracer-mass drift {drift:.3e} (bound {TOL_MASS_F32})")
+
+    # refined ideal age: f32 inner BiCGStab (K1 + K2), f64 defects (K1 f32,f64)
+    stats = {}
+    t0 = time.perf_counter()
+    gamma, res = P.ideal_age(T, wet, gm.topology, tol=TOL_AGE, refine=True, stats=stats)
+    torch.cuda.synchronize()
+    t_age = time.perf_counter() - t0
+    for i, p in enumerate(stats["passes"]):
+        log(f"[ideal_age] pass {i}: rel_start {p['rel_start']:.3e} inner_tol "
+            f"{p.get('inner_tol', float('nan')):.3e} inner_iters {p.get('inner_iters')} "
+            f"wall {p.get('wall_s', float('nan')):.3f} s")
+    g = gamma[wet]
+    mean_age = float((g * v[wet]).sum() / v[wet].sum()) / YEAR_S
+    require(bool(torch.isfinite(g).all()) and bool((g > 0).all()), "ideal age not finite and positive")
+    require(res <= TOL_AGE, f"ideal age residual {res:.3e} > {TOL_AGE}")
+    log(f"[ideal_age] refined, tol {TOL_AGE}: relative residual {res:.3e} after "
+        f"{stats['refinements']} passes, {t_age:.3f} s wall, volume-weighted mean age "
+        f"{mean_age:.3f} yr")
+
+    launches = {"K1": stencil.LAUNCHES, "K2": tridiag.LAUNCHES, "K4": assemble.LAUNCHES}
+    log(f"[launches] main path: {launches}")
+    for name, n in launches.items():
+        require(n > 0, f"{name} was not launched on the main path")
+    return ds, gm, idx, T, launches
+
+
+def phase_k4(P, device, cases):
+    """K4 against assemble_transport(...).T on the card."""
+    worst = {}
+    for kind, ds, gm64, gm32 in cases:
+        rng = np.random.default_rng(SEED)
+        rho3d = density(ds, rng)
+        wet_explicit = ds.wet3d.copy()
+        wet_explicit[:, ds.wet3d.shape[1] // 2, :] = False  # a dry latitude row: new coasts
+        wet_explicit[-1] = False  # and a shallower floor
+        for gm, tol in ((gm64, TOL_F64), (gm32, TOL_K4_F32)):
+            for upwind in (True, False):
+                for rho_name, rho in (("scalar", P.RHO_DEFAULT), ("3d", rho3d)):
+                    for wet_name, wet3d in (("v3d", None), ("explicit", wet_explicit)):
+                        if wet_name == "explicit" and not (upwind and rho_name == "scalar"):
+                            continue
+                        got = P.assemble_T(ds.umo, ds.vmo, ds.mlotst, gm, wet3d=wet3d,
+                                           rho=rho, upwind=upwind)
+                        wet_t = (torch.isfinite(gm.v3d) if wet3d is None
+                                 else torch.as_tensor(wet3d, device=device) & torch.isfinite(gm.v3d))
+                        rho_t = rho if rho_name == "scalar" else torch.as_tensor(
+                            rho, dtype=gm.v3d.dtype, device=device)
+                        ref = P.assemble_transport(ds.umo, ds.vmo, ds.mlotst, gm, wet_t,
+                                                   rho=rho_t, upwind=upwind).T
+                        errs = [rel_err(got[leg], ref[leg]) for leg in ref._fields]
+                        abs_err, rel = max(errs, key=lambda e: e[1])
+                        dtype = str(gm.v3d.dtype).replace("torch.", "")
+                        tag = (f"{kind} {dtype} {'upwind' if upwind else 'centered'} "
+                               f"rho={rho_name} wet={wet_name}")
+                        require(rel <= tol, f"K4 {tag}: max rel {rel:.3e} > {tol}")
+                        log(f"[K4] {tag}: max abs {abs_err:.3e} max rel {rel:.3e} (tol {tol})")
+                        worst[(kind, dtype)] = max(worst.get((kind, dtype), 0.0), abs_err)
+    return worst
+
+
+def phase_k1(P, device, ops_cases):
+    """K1 against ops.apply.apply_stencil on the card."""
+    from otmb_tpu_torch.ops.apply import apply_stencil
+
+    worst = {}
+    for kind, T64, topo, wet in ops_cases:
+        rng = np.random.default_rng(SEED + 1)
+        chi64 = torch.where(wet, torch.as_tensor(rng.standard_normal(wet.shape), device=device), 0.0)
+        dt = 0.25 / float(T64.diag.abs().max())
+        for op_name, c in (("T", T64), ("T'", P.transpose_coeffs(T64, topo))):
+            cases = (
+                ("f64,f64", c, chi64, TOL_F64),
+                ("f32,f64", c.to(torch.float32), chi64, TOL_F64),
+                ("f32,f32", c.to(torch.float32), chi64.float(), TOL_K1_F32),
+                ("bf16,f32", c.to(torch.bfloat16), chi64.float(), TOL_K1_F32),
+            )
+            for types, coeffs, chi, tol in cases:
+                for mode in ("apply", "euler"):
+                    if mode == "apply":
+                        got = P.stencil_apply(coeffs, chi, topo)
+                        ref = apply_stencil(coeffs, chi, topo)
+                    else:
+                        got = P.euler_step(coeffs, chi, dt, topo)
+                        ref = chi - dt * apply_stencil(coeffs, chi, topo)
+                    abs_err, rel = rel_err(got, ref)
+                    tag = f"{kind} {op_name} ({types}) {mode}"
+                    require(rel <= tol, f"K1 {tag}: max rel {rel:.3e} > {tol}")
+                    log(f"[K1] {tag}: max abs {abs_err:.3e} max rel {rel:.3e} (tol {tol})")
+                    worst[(kind, types, op_name, mode)] = abs_err
+    return worst
+
+
+def phase_k2(P, device, ops_cases):
+    """K2 against the plain Thomas sweep on the guarded shifted diagonal of T."""
+    from otmb_tpu_torch.ops.tridiag import tridiag_solve_plain
+
+    worst = {}
+    for kind, T64, topo, wet in ops_cases:
+        rng = np.random.default_rng(SEED + 2)
+        b64 = torch.where(wet, torch.as_tensor(rng.standard_normal(wet.shape), device=device), 0.0)
+        surf = torch.zeros_like(b64)
+        surf[0] = 1.0
+        shifted = T64.diag + torch.where(wet, surf, 0.0)
+        for dtype in (torch.float64, torch.float32):
+            cast = lambda x: x.to(dtype).contiguous()
+            diag = torch.where(cast(shifted) != 0, cast(shifted), 1.0)
+            args = (cast(T64.bottom), diag, cast(T64.top), cast(b64))
+            got = P.tridiag_solve(*args)
+            ref = tridiag_solve_plain(*args)
+            abs_err, rel = rel_err(got, ref)
+            tag = f"{kind} {str(dtype).replace('torch.', '')}"
+            require(abs_err <= TOL_K2, f"K2 {tag}: max abs {abs_err:.3e} > {TOL_K2}")
+            log(f"[K2] {tag}: max abs {abs_err:.3e} (exact equality required)")
+            worst[tag] = abs_err
+    return worst
+
+
+def phase_golden(P, device):
+    """The card's slice at the 18x14x6 test size against the golden tile."""
+    golden = np.load(GOLDEN)
+    for kind in ("tripolar", "bipolar"):
+        ds = P.synthetic_dataset(nx=18, ny=14, nz=6, topology=kind, seed=3)
+        gm = P.makegridmetrics(
+            areacello=ds.areacello, volcello=ds.volcello, lon=ds.lon, lat=ds.lat,
+            lev=ds.lev, lon_vertices=ds.lon_vertices, lat_vertices=ds.lat_vertices,
+            dtype=torch.float64, device=device)
+        idx = P.makeindices(gm.v3d)
+        T = P.assemble_T(ds.umo, ds.vmo, ds.mlotst, gm)
+        mat = P.coeffs_to_scipy(T, idx, gm.topology).tocoo()
+        order = np.lexsort((mat.col, mat.row))
+        require(np.array_equal(mat.row[order], golden[f"{kind}_rows"]), f"golden rows {kind}")
+        require(np.array_equal(mat.col[order], golden[f"{kind}_cols"]), f"golden cols {kind}")
+        vals = golden[f"{kind}_vals"]
+        val_rel = float(np.abs(mat.data[order] - vals).max() / np.abs(vals).max())
+        require(val_rel <= TOL_F64, f"golden values {kind}: {val_rel:.3e}")
+        age, res = P.ideal_age(T, idx.wet3d, gm.topology, tol=1e-12)
+        age_wet = age[idx.wet3d].cpu().numpy()
+        ref_age = golden[f"{kind}_age_wet"]
+        age_rel = float(np.abs(age_wet - ref_age).max() / np.abs(ref_age).max())
+        require(res < 1e-10, f"golden age residual {kind}: {res:.3e}")
+        require(bool(np.allclose(age_wet, ref_age, rtol=1e-8, atol=1e-2)), f"golden age {kind}")
+        log(f"[golden] {kind} 18x14x6 on the card: operator pattern equal, values max rel "
+            f"{val_rel:.3e}, ideal age residual {res:.3e}, age max rel {age_rel:.3e}")
+
+
+def phase_times(P, card, T, gm, idx):
+    """CUDA-event medians of each kernel and its plain version at 1-degree f32."""
+    from otmb_tpu_torch.models.transport import assemble_transport
+    from otmb_tpu_torch.ops.apply import apply_stencil
+    from otmb_tpu_torch.ops.tridiag import tridiag_solve_plain
+
+    ds = P.synthetic_dataset(nx=NX, ny=NY, nz=NZ, topology="tripolar", seed=SEED)
+    dev = gm.v3d.device
+    umo = torch.as_tensor(ds.umo, dtype=torch.float32, device=dev)
+    vmo = torch.as_tensor(ds.vmo, dtype=torch.float32, device=dev)
+    ml = torch.as_tensor(ds.mlotst, dtype=torch.float32, device=dev)
+    topo = gm.topology
+    wet = idx.wet3d
+    chi = wet.float()
+    dt = 0.25 / float(T.diag.abs().max())
+    diag = torch.where(T.diag != 0, T.diag, 1.0)
+    lower, upper = T.bottom.contiguous(), T.top.contiguous()
+    pairs = {
+        "K1 apply": (lambda: P.stencil_apply(T, chi, topo),
+                     lambda: apply_stencil(T, chi, topo), 50, 10),
+        "K1 euler_step": (lambda: P.euler_step(T, chi, dt, topo),
+                          lambda: chi - dt * apply_stencil(T, chi, topo), 50, 10),
+        "K2": (lambda: P.tridiag_solve(lower, diag, upper, chi),
+               lambda: tridiag_solve_plain(lower, diag, upper, chi), 50, 5),
+        "K4": (lambda: P.assemble_T(umo, vmo, ml, gm),
+               lambda: assemble_transport(umo, vmo, ml, gm, wet).T, 20, 5),
+    }
+    times = {}
+    for name, (kernel, plain, calls_k, calls_p) in pairs.items():
+        # plain, kernel, kernel, plain: each time is the lower of its two runs
+        p1 = cuda_ms(plain, calls_p)
+        k1 = cuda_ms(kernel, calls_k)
+        k2 = cuda_ms(kernel, calls_k)
+        p2 = cuda_ms(plain, calls_p)
+        times[name] = (min(k1, k2), min(p1, p2))
+        log(f"[time] {name} at {NX}x{NY}x{NZ} f32: kernel {times[name][0]:.4f} ms, plain "
+            f"{times[name][1]:.4f} ms per call (CUDA events over back-to-back calls, median "
+            f"of 5; card {card})")
+    return times
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs only on an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    import otmb_tpu_torch as P
+    from otmb_tpu_torch import _build
+
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"[device] {card}")
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: {_build.build_seconds:.1f} s build, "
+        f"{time.perf_counter() - t0:.1f} s to load")
+
+    ds, gm32, idx, T32, launches = phase_main_path(P, device, card)
+
+    # kernel checks at the main path's shapes, on both topologies
+    _, gm64, _ = build_case(P, NX, NY, NZ, "tripolar", torch.float64, device)
+    bnx, bny, bnz = BIPOLAR_SHAPE
+    bds, bgm64, bidx = build_case(P, bnx, bny, bnz, "bipolar", torch.float64, device)
+    _, bgm32, _ = build_case(P, bnx, bny, bnz, "bipolar", torch.float32, device)
+    k4_worst = phase_k4(P, device, [("tripolar", ds, gm64, gm32),
+                                    ("bipolar", bds, bgm64, bgm32)])
+    T64 = P.assemble_transport(ds.umo, ds.vmo, ds.mlotst, gm64, idx.wet3d).T
+    bT64 = P.assemble_transport(bds.umo, bds.vmo, bds.mlotst, bgm64, bidx.wet3d).T
+    ops_cases = [("tripolar", T64, gm64.topology, idx.wet3d),
+                 ("bipolar", bT64, bgm64.topology, bidx.wet3d)]
+    k1_worst = phase_k1(P, device, ops_cases)
+    k2_worst = phase_k2(P, device, ops_cases)
+    phase_golden(P, device)
+    del gm64, bgm64, bgm32, T64, bT64
+    torch.cuda.empty_cache()
+
+    times = phase_times(P, card, T32, gm32, idx)
+    torch.cuda.synchronize()
+    kernels = [
+        {"name": "K1 stencil apply/euler_step", "route": "cuda",
+         "source": "otmb_tpu_torch/csrc/stencil.cu",
+         "replaces": "otmb_tpu/ops/stencil_pallas.py:42", "launches": launches["K1"],
+         "max_abs_err": k1_worst[("tripolar", "f32,f32", "T", "apply")],
+         "ms": times["K1 apply"][0], "plain_ms": times["K1 apply"][1]},
+        {"name": "K2 tridiag_solve", "route": "cuda",
+         "source": "otmb_tpu_torch/csrc/tridiag.cu",
+         "replaces": "otmb_tpu/ops/tridiag_pallas.py:39", "launches": launches["K2"],
+         "max_abs_err": k2_worst["tripolar float32"],
+         "ms": times["K2"][0], "plain_ms": times["K2"][1]},
+        {"name": "K4 assemble_T", "route": "cuda",
+         "source": "otmb_tpu_torch/csrc/assemble.cu",
+         "replaces": "otmb_tpu/ops/assemble_pallas.py:60", "launches": launches["K4"],
+         "max_abs_err": k4_worst[("tripolar", "float32")],
+         "ms": times["K4"][0], "plain_ms": times["K4"][1]},
+    ]
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

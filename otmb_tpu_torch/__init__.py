@@ -1,0 +1,93 @@
+"""otmb_tpu_torch — the ocean transport-operator engine on PyTorch and CUDA.
+
+The port of `otmb_tpu` (JAX/Pallas) to one NVIDIA H100. Grid metrics,
+fluxes and the seven-leg stencil operator are plain PyTorch on the device
+of the input tensors; the hot kernels are hand-written CUDA for sm_90a,
+built from `csrc/` at first use:
+
+  * K1 `stencil_apply` / `euler_step` / `euler_propagate` — the 7-point
+    stencil (csrc/stencil.cu);
+  * K2 `tridiag_solve` — the per-column Thomas solve that preconditions
+    the Krylov solves (csrc/tridiag.cu);
+  * K4 `assemble_T` — the fused assembly of T from raw transports
+    (csrc/assemble.cu).
+
+A CUDA tensor always goes to the kernel; a CPU tensor takes the kernel's
+plain PyTorch version. This package never imports jax or otmb_tpu.
+"""
+
+from .config import (
+    EARTH_RADIUS,
+    KAPPA_H_DEFAULT,
+    KAPPA_VDEEP_DEFAULT,
+    KAPPA_VML_DEFAULT,
+    RHO_DEFAULT,
+    TransportConfig,
+)
+from .grid.geometry import GridMetrics, PerDirection, makegridmetrics
+from .grid.indices import Indices, as2d, as3d, makeindices, wet_vector
+from .grid.topology import GridTopology, detect_topology
+from .models.solvers import (
+    explicit_euler_propagate,
+    explicit_euler_step,
+    ideal_age,
+    solve_shifted,
+    solve_shifted_ir,
+)
+from .models.transport import TransportOperators, assemble_transport, transportmatrix
+from .ops.apply import (
+    apply_stencil,
+    apply_stencil_transpose,
+    operator_diagnostics,
+    transpose_coeffs,
+)
+from .ops.assemble import assemble_T
+from .ops.coeffs import StencilCoeffs, add_coeffs
+from .ops.fluxes import FaceFluxes, facefluxes, facefluxesfrommasstransport
+from .ops.stencil import euler_propagate, euler_step, stencil_apply
+from .ops.tridiag import tridiag_solve
+from .utils.sparse_export import coeffs_to_scipy
+from .utils.synthetic import synthetic_dataset
+
+__all__ = [
+    "EARTH_RADIUS",
+    "FaceFluxes",
+    "GridMetrics",
+    "GridTopology",
+    "Indices",
+    "KAPPA_H_DEFAULT",
+    "KAPPA_VDEEP_DEFAULT",
+    "KAPPA_VML_DEFAULT",
+    "PerDirection",
+    "RHO_DEFAULT",
+    "StencilCoeffs",
+    "TransportConfig",
+    "TransportOperators",
+    "add_coeffs",
+    "apply_stencil",
+    "apply_stencil_transpose",
+    "as2d",
+    "as3d",
+    "assemble_T",
+    "assemble_transport",
+    "coeffs_to_scipy",
+    "detect_topology",
+    "euler_propagate",
+    "euler_step",
+    "explicit_euler_propagate",
+    "explicit_euler_step",
+    "facefluxes",
+    "facefluxesfrommasstransport",
+    "ideal_age",
+    "makegridmetrics",
+    "makeindices",
+    "operator_diagnostics",
+    "solve_shifted",
+    "solve_shifted_ir",
+    "stencil_apply",
+    "synthetic_dataset",
+    "transportmatrix",
+    "transpose_coeffs",
+    "tridiag_solve",
+    "wet_vector",
+]

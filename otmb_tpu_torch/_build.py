@@ -1,0 +1,125 @@
+"""Build the CUDA kernels in `csrc/` into one shared library and load it.
+
+The sources have a plain C interface (no PyTorch headers), so `nvcc`
+compiles them in seconds; the library is loaded with `ctypes`, and every
+pointer and the stream are passed as `ctypes.c_void_p`. The build happens
+at the first kernel launch of a process, never on import, and again
+whenever a source or a flag changes: the library's file name carries a
+hash of both. The build directory `_build/` is not committed.
+
+No fast-math flag is ever passed: land is NaN by convention and the
+kernels test it with `isnan`, and the one division of each kernel must
+stay IEEE. `-fmad=false` keeps `a*b + c` as two roundings, so each
+kernel rounds exactly where its plain PyTorch version does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false", "-Xptxas=-v",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+#: Wall seconds the build took in this process (0.0 when the library was
+#: already built), None before the first load.
+build_seconds: float | None = None
+
+_lib: ctypes.CDLL | None = None
+_functions: dict[str, ctypes._CFuncPtr] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"), "/usr/local/cuda"):
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libotmb_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile `csrc/*.cu` into the library unless it exists; raise with
+    the compiler's output if nvcc fails."""
+    global build_seconds
+    path = library_path()
+    if path.exists():
+        build_seconds = 0.0
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, path)
+    return path
+
+
+def library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        _lib = ctypes.CDLL(str(build()))
+        _lib.otmb_cuda_error_string.argtypes = [ctypes.c_int]
+        _lib.otmb_cuda_error_string.restype = ctypes.c_char_p
+        _lib.otmb_set_device.argtypes = [ctypes.c_int]
+        _lib.otmb_set_device.restype = ctypes.c_int
+    return _lib
+
+
+def launch(name: str, argtypes: list, device: torch.device, *args) -> None:
+    """Call the C entry point `name` on `device`, on PyTorch's current
+    stream there (appended as the last argument); raise on a CUDA error."""
+    lib = library()
+    check(lib.otmb_set_device(device.index), "cudaSetDevice")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    check(function(name, argtypes)(*args, stream), name)
+
+
+def function(name: str, argtypes: list) -> ctypes._CFuncPtr:
+    """The C entry point `name` with its argument types declared; it
+    returns a cudaError_t."""
+    fn = _functions.get(name)
+    if fn is None:
+        fn = getattr(library(), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _functions[name] = fn
+    return fn
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        msg = library().otmb_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")

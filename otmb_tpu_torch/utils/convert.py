@@ -1,0 +1,46 @@
+"""State carried over from the JAX package, handed over as numpy arrays.
+
+`coeffs_from_numpy` and `gridmetrics_from_numpy` build the port's
+StencilCoeffs and GridMetrics from the fields of `otmb_tpu`'s (after
+`np.asarray` on each), on a given device and dtype, so both packages can
+compute on identical operators and grids.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..grid.geometry import GridMetrics, PerDirection
+from ..grid.topology import GridTopology
+from ..ops.coeffs import StencilCoeffs
+
+
+def _tensor(x, device, dtype) -> torch.Tensor:
+    return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def coeffs_from_numpy(legs: dict, device=None, dtype: torch.dtype = torch.float64) -> StencilCoeffs:
+    """StencilCoeffs from {leg name: (nz, ny, nx) array}."""
+    return StencilCoeffs(**{name: _tensor(legs[name], device, dtype)
+                            for name in StencilCoeffs._fields})
+
+
+def gridmetrics_from_numpy(*, area2d, v3d, thkcello, lon, lat, lon_vertices, lat_vertices,
+                           z3d, zt, edge_length: dict, distance_to_edge: dict,
+                           distance_to_neighbour: dict, topology: str, device=None,
+                           dtype: torch.dtype = torch.float64) -> GridMetrics:
+    """GridMetrics from the JAX GridMetrics fields: the per-direction fields
+    as {direction: array} dicts and the topology as its kind; the shape
+    comes from v3d."""
+    t = lambda x: _tensor(x, device, dtype)
+    per_dir = lambda d: PerDirection(**{k: t(d[k]) for k in ("east", "west", "north", "south")})
+    nz, ny, nx = np.shape(v3d)
+    return GridMetrics(
+        area2d=t(area2d), v3d=t(v3d), thkcello=t(thkcello), lon=t(lon), lat=t(lat),
+        lon_vertices=t(lon_vertices), lat_vertices=t(lat_vertices), z3d=t(z3d), zt=t(zt),
+        edge_length=per_dir(edge_length),
+        distance_to_edge=per_dir(distance_to_edge),
+        distance_to_neighbour=per_dir(distance_to_neighbour),
+        topology=GridTopology(kind=topology, nx=nx, ny=ny, nz=nz),
+    )
