@@ -1,7 +1,8 @@
 """Smoke run of otmb_tpu_torch on one NVIDIA GPU.
 
-Builds the CUDA kernels K1 (stencil), K2 (Thomas solve) and K4 (fused
-assembly) from otmb_tpu_torch/csrc, then:
+Builds the CUDA kernels K1 (stencil), K2 (Thomas solve), K3 (fused Krylov
+step), K4 (fused assembly) and K10 (bandwidth probe) from
+otmb_tpu_torch/csrc, one nvcc per source in parallel, then:
 
   1. prints the card (nvidia-smi name and power limit), the torch and CUDA
      versions and the kernel build time;
@@ -15,7 +16,23 @@ assembly) from otmb_tpu_torch/csrc, then:
      path's shapes, on both topologies, with the tolerances stated below;
   5. holds the card's slice at the 18x14x6 test size against the golden
      operator and ages in tests/data/golden_tile.npz;
-  6. times each kernel and its plain version with CUDA events.
+  6. times each kernel and its plain version with CUDA events;
+  7. at 1 degree, the refined sequestration time and the refined ideal age
+     with BiCGStab(2) inner solves (K3 on T' and on T), counts reset
+     before and read after;
+  8. drives the 0.25-degree main path (1440x1080x75, tripolar, seed 0,
+     f32): grid metrics -> assemble_T (K4) -> the refined ideal age with
+     BiCGStab(2) inner solves on K3 and f64 defects through K1, counts
+     reset before and read after;
+  9. holds K3 against the composition of the K2 and K1 kernels and its
+     plain version at 0.25 degrees (tripolar) and 720x540x75 (bipolar),
+     in f32 and f64, on T and T', for each use the engine makes of it;
+ 10. runs the K10 probe (its launches read around the bandwidth
+     measurement), holds it against its plain version, and reports the
+     measured bandwidth and the fractions of it that K1, K2 and K3 reach
+     at 0.25 degrees;
+ 11. times K1, K2, K3 and one BiCGStab(2) cycle (fused and unfused) at
+     0.25 degrees, and K10.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 device and exits non-zero, printing no result, without one, and whenever
@@ -58,6 +75,23 @@ TOL_K2 = 0.0
 # below this bound.
 TOL_MASS_F32 = 1e-4
 TOL_AGE = 1e-8
+
+QUARTER = (1440, 1080, 75)  # (nx, ny, nz): the 0.25-degree grid
+HALF = (720, 540, 75)  # the bipolar K3 checks run at half the 0.25-degree width
+# The 0.25-degree refined age: the best relative residual the JAX reference
+# reached at this size was 3.6e-6 (BENCH_LATEST.txt:33).
+TOL_QUARTER = 1e-5
+# The 1-degree BiCGStab(2) age against the BiCGStab(1) age of the main path
+# (volume-weighted means, both solves at residual <= 1e-8).
+TOL_MEAN_AGE = 1e-6
+# K3's z and out run K2's and K1's operations in their order without FMA
+# contraction: exact. Its dot sums f64 products in f64 in a fixed order;
+# against the f64 dot of the plain out it may differ by the rounding of the
+# value type, bounded by TOL_K3_DOT * sum |rhat * out|.
+TOL_K3 = 0.0
+TOL_K3_DOT = {torch.float32: 1e-5, torch.float64: 1e-12}
+# K10 adds the same f32 values in the same order as its plain version.
+TOL_K10 = 0.0
 
 
 def log(msg: str) -> None:
@@ -124,10 +158,7 @@ def cuda_ms(fn, launches: int, repeats: int = 5) -> float:
 
 def phase_main_path(P, device, card):
     """The 1-degree main path, with the kernels' launch counts taken."""
-    from otmb_tpu_torch.ops import assemble, stencil, tridiag
-
-    for mod in (stencil, tridiag, assemble):
-        mod.LAUNCHES = 0
+    read = reset_launches()
     t0 = time.perf_counter()
     ds, gm, idx = build_case(P, NX, NY, NZ, "tripolar", torch.float32, device)
     phi = P.facefluxesfrommasstransport(umo=ds.umo, vmo=ds.vmo, gridmetrics=gm, indices=idx)
@@ -182,11 +213,11 @@ def phase_main_path(P, device, card):
         f"{stats['refinements']} passes, {t_age:.3f} s wall, volume-weighted mean age "
         f"{mean_age:.3f} yr")
 
-    launches = {"K1": stencil.LAUNCHES, "K2": tridiag.LAUNCHES, "K4": assemble.LAUNCHES}
+    launches = {name: n for name, n in read().items() if name in ("K1", "K2", "K4")}
     log(f"[launches] main path: {launches}")
     for name, n in launches.items():
         require(n > 0, f"{name} was not launched on the main path")
-    return ds, gm, idx, T, launches
+    return ds, gm, idx, T, launches, mean_age
 
 
 def phase_k4(P, device, cases):
@@ -337,15 +368,268 @@ def phase_times(P, card, T, gm, idx):
     }
     times = {}
     for name, (kernel, plain, calls_k, calls_p) in pairs.items():
-        # plain, kernel, kernel, plain: each time is the lower of its two runs
-        p1 = cuda_ms(plain, calls_p)
-        k1 = cuda_ms(kernel, calls_k)
-        k2 = cuda_ms(kernel, calls_k)
-        p2 = cuda_ms(plain, calls_p)
-        times[name] = (min(k1, k2), min(p1, p2))
+        times[name] = time_pair(kernel, plain, calls_k, calls_p)
         log(f"[time] {name} at {NX}x{NY}x{NZ} f32: kernel {times[name][0]:.4f} ms, plain "
             f"{times[name][1]:.4f} ms per call (CUDA events over back-to-back calls, median "
             f"of 5; card {card})")
+    return times
+
+
+def time_pair(kernel, plain, calls_k: int, calls_p: int) -> tuple[float, float]:
+    """(kernel ms, plain ms) per call, timed plain, kernel, kernel, plain; each
+    time is the lower of its two runs."""
+    p1 = cuda_ms(plain, calls_p)
+    k1 = cuda_ms(kernel, calls_k)
+    k2 = cuda_ms(kernel, calls_k)
+    p2 = cuda_ms(plain, calls_p)
+    return min(k1, k2), min(p1, p2)
+
+
+def reset_launches():
+    from otmb_tpu_torch.ops import assemble, krylov, stencil, tridiag
+    from otmb_tpu_torch.utils import profiling
+
+    mods = {"K1": stencil, "K2": tridiag, "K3": krylov, "K4": assemble, "K10": profiling}
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+    return lambda: {name: mod.LAUNCHES for name, mod in mods.items()}
+
+
+def surface_mask(wet: torch.Tensor, dtype) -> torch.Tensor:
+    surf = torch.zeros(wet.shape, dtype=dtype, device=wet.device)
+    surf[0] = 1.0
+    return torch.where(wet, surf, 0.0)
+
+
+def mean_years(gamma: torch.Tensor, v3d: torch.Tensor, wet: torch.Tensor) -> float:
+    v = v3d[wet].double()
+    return float((gamma[wet].double() * v).sum() / v.sum()) / YEAR_S
+
+
+def log_passes(tag: str, stats: dict) -> None:
+    for i, p in enumerate(stats["passes"]):
+        log(f"[{tag}] pass {i}: rel_start {p['rel_start']:.3e} reverted {p['reverted']} "
+            f"inner_tol {p.get('inner_tol', float('nan')):.3e} inner_iters "
+            f"{p.get('inner_iters')} inner_stop {p.get('inner_stop')} inner_end_rel "
+            f"{p.get('inner_end_rel', float('nan')):.3e} wall {p.get('wall_s', float('nan')):.3f} s"
+            + (" STAGNATED" if p.get("stagnated") else ""))
+
+
+def phase_sequestration(P, gm, idx, T, mean_age_b1):
+    """At 1 degree: the refined sequestration time (K3 on T') and the refined
+    ideal age with BiCGStab(2) inner solves (K3 on T)."""
+    wet = idx.wet3d
+    read = reset_launches()
+    stats = {}
+    t0 = time.perf_counter()
+    seq, res = P.sequestration_time(T, wet, gm.topology, tol=TOL_AGE, refine=True,
+                                    algorithm="bicgstab2", stats=stats)
+    torch.cuda.synchronize()
+    t_seq = time.perf_counter() - t0
+    counts = read()
+    log_passes("sequestration", stats)
+    require(bool(torch.isfinite(seq[wet]).all()) and bool((seq[wet] > 0).all()),
+            "sequestration time not finite and positive")
+    require(res <= TOL_AGE, f"sequestration residual {res:.3e} > {TOL_AGE}")
+    require(counts["K3"] > 0, "K3 was not launched by the sequestration time")
+    log(f"[sequestration] 1-degree refined, BiCGStab(2) inner, tol {TOL_AGE}: relative "
+        f"residual {res:.3e} after {stats['refinements']} passes, {t_seq:.3f} s wall, "
+        f"volume-weighted mean {mean_years(seq, gm.v3d, wet):.6f} yr; launches {counts}")
+
+    read = reset_launches()
+    stats = {}
+    t0 = time.perf_counter()
+    gamma, res = P.ideal_age(T, wet, gm.topology, tol=TOL_AGE, refine=True,
+                             algorithm="bicgstab2", stats=stats)
+    torch.cuda.synchronize()
+    t_age = time.perf_counter() - t0
+    counts = read()
+    log_passes("ideal_age b2", stats)
+    mean_b2 = mean_years(gamma, gm.v3d, wet)
+    rel = abs(mean_b2 - mean_age_b1) / abs(mean_age_b1)
+    require(res <= TOL_AGE, f"BiCGStab(2) ideal age residual {res:.3e} > {TOL_AGE}")
+    require(counts["K3"] > 0, "K3 was not launched by the BiCGStab(2) ideal age")
+    require(rel <= TOL_MEAN_AGE, f"BiCGStab(2) mean age {mean_b2:.9f} yr vs BiCGStab(1) "
+            f"{mean_age_b1:.9f} yr: {rel:.3e} > {TOL_MEAN_AGE}")
+    log(f"[ideal_age b2] 1-degree refined, BiCGStab(2) inner, tol {TOL_AGE}: relative "
+        f"residual {res:.3e} after {stats['refinements']} passes, {t_age:.3f} s wall, mean "
+        f"age {mean_b2:.9f} yr vs BiCGStab(1) {mean_age_b1:.9f} yr (rel {rel:.3e}, bound "
+        f"{TOL_MEAN_AGE}); launches {counts}")
+
+
+def phase_quarter(P, device):
+    """The 0.25-degree main path through the public API, launches counted."""
+    nx, ny, nz = QUARTER
+    read = reset_launches()
+    t0 = time.perf_counter()
+    ds, gm, idx = build_case(P, nx, ny, nz, "tripolar", torch.float32, device)
+    t_grid = time.perf_counter() - t0
+    T = P.assemble_T(ds.umo, ds.vmo, ds.mlotst, gm)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    del ds
+    wet = idx.wet3d
+    log(f"[quarter] {nx}x{ny}x{nz} tripolar seed {SEED}: {idx.nwet} wet cells; dataset + grid "
+        f"metrics + indices {t_grid:.3f} s, + assemble_T {t_setup:.3f} s")
+    stats = {}
+    t0 = time.perf_counter()
+    gamma, res = P.ideal_age(T, wet, gm.topology, tol=TOL_AGE, refine=True,
+                             algorithm="bicgstab2", stats=stats)
+    torch.cuda.synchronize()
+    t_age = time.perf_counter() - t0
+    counts = read()
+    log_passes("quarter", stats)
+    inner = sum(p.get("inner_iters") or 0 for p in stats["passes"])
+    g_ok = bool(torch.isfinite(gamma[wet]).all()) and bool((gamma[wet] > 0).all())
+    mean_age = mean_years(gamma, gm.v3d, wet) if g_ok else float("nan")
+    log(f"[quarter] refined ideal age, BiCGStab(2) inner on K3, tol {TOL_AGE}: relative "
+        f"residual {res:.3e} after {stats['refinements']} passes ({inner} inner matvec pairs), "
+        f"{t_age:.3f} s wall, volume-weighted mean age {mean_age:.6f} yr; launches {counts}")
+    require(g_ok, "0.25-degree ideal age not finite and positive")
+    require(res <= TOL_QUARTER, f"0.25-degree ideal age residual {res:.3e} > {TOL_QUARTER}")
+    for name in ("K1", "K2", "K3", "K4"):
+        require(counts[name] > 0, f"{name} was not launched on the 0.25-degree path")
+    del gamma
+    return gm, idx, T, counts
+
+
+def k3_operator(c, wet, topo, transpose: bool, dtype):
+    """The ideal-age system in the engine's form (surface restoring folded
+    into the diagonal of A, or of A'), and its Thomas legs."""
+    from otmb_tpu_torch.models.solvers import _system
+
+    sys_ = _system(c, dtype, topo, extra_diag=surface_mask(wet, dtype), transpose=transpose)
+    return sys_.a, sys_.m_legs
+
+
+def phase_k3(P, device, cases):
+    """K3 against the composition of the K2 and K1 kernels and against its
+    plain version: z and out exact, d within TOL_K3_DOT, d repeatable."""
+    from otmb_tpu_torch.ops.krylov import fused_krylov_step_plain, krylov_scratch
+
+    worst = {}
+    for kind, T, topo, wet in cases:
+        gen = torch.Generator(device=device).manual_seed(SEED + 3)
+        vec = lambda: torch.where(wet, torch.randn(wet.shape, generator=gen, device=device,
+                                                   dtype=torch.float64), 0.0)
+        x1_64, x2_64, rhat_64 = vec(), vec(), vec()
+        for transpose in (False, True):
+            for dtype in (torch.float32, torch.float64):
+                a, m = k3_operator(T, wet, topo, transpose, dtype)
+                x1, x2, rhat = x1_64.to(dtype), x2_64.to(dtype), rhat_64.to(dtype)
+                c2 = torch.tensor(-0.37, dtype=dtype, device=device)
+                scratch = krylov_scratch(*m)
+                for combine, dot in ((True, True), (True, False), (False, False)):
+                    kw = dict(with_combine=combine, with_dot=dot)
+                    z, out, d = P.fused_krylov_step(a, *m, x1, x2, c2, rhat, topo,
+                                                    scratch=scratch, **kw)
+                    want_z = x1 + c2 * x2 if combine else x1
+                    want_out = P.stencil_apply(a, P.tridiag_solve(*m, want_z), topo)
+                    _, pout, _ = fused_krylov_step_plain(a, *m, x1, x2, c2, rhat, topo, **kw)
+                    err_z = rel_err(z, want_z)[0]
+                    err_out = max(rel_err(out, want_out)[0], rel_err(out, pout)[0])
+                    op = "T'" if transpose else "T"
+                    tag = (f"{kind} {op} {str(dtype).replace('torch.', '')} combine={combine} "
+                           f"dot={dot}")
+                    require(err_z <= TOL_K3 and err_out <= TOL_K3,
+                            f"K3 {tag}: z max abs {err_z:.3e}, out max abs {err_out:.3e}")
+                    msg = f"z and out exact vs K2+K1 and plain (max abs {err_out:.1e})"
+                    if dot:
+                        ref = torch.dot(rhat.double().flatten(), pout.double().flatten())
+                        scale = float((rhat.double() * pout.double()).abs().sum())
+                        derr = abs(float(d) - float(ref))
+                        bound = TOL_K3_DOT[dtype] * scale
+                        _, _, d2 = P.fused_krylov_step(a, *m, x1, x2, c2, rhat, topo,
+                                                       scratch=scratch, **kw)
+                        require(derr <= bound, f"K3 {tag}: |d - d_ref| {derr:.3e} > {bound:.3e}")
+                        require(torch.equal(d, d2), f"K3 {tag}: d differs between two calls")
+                        msg += (f"; |d - d_ref| {derr:.3e} <= {bound:.3e} "
+                                f"({TOL_K3_DOT[dtype]} * sum|rhat*out|), repeatable")
+                    log(f"[K3] {tag}: {msg}")
+                    worst[(kind, str(dtype), op)] = max(worst.get((kind, str(dtype), op), 0.0),
+                                                        err_out)
+                    del z, out, d, want_z, want_out, pout
+                del a, m, x1, x2, rhat, scratch
+                torch.cuda.empty_cache()
+    return worst
+
+
+def phase_probe(P, device, card, k_times):
+    """K10: the bandwidth measurement (its launches counted), the check
+    against the plain version, and the fractions of the measured bandwidth
+    that K1, K2 and K3 reach at 0.25 degrees."""
+    from otmb_tpu_torch.utils.profiling import probe_sum_plain
+
+    read = reset_launches()
+    thunk, nbytes = P.dma_peak_probe(nstreams=7, mbytes=200, device=device)
+    ms = cuda_ms(thunk, 20)
+    counts = read()
+    require(counts["K10"] > 0, "K10 was not launched by the bandwidth measurement")
+    gbps = nbytes / (ms * 1e-3) / 1e9
+    gen = torch.Generator(device=device).manual_seed(0)  # the probe's own streams
+    streams = [torch.randn((200, 512, 512), generator=gen, device=device) for _ in range(7)]
+    got, want = thunk(), probe_sum_plain(streams)
+    err = rel_err(got, want)[0]
+    require(err <= TOL_K10, f"K10 vs plain: max abs {err:.3e} > {TOL_K10}")
+    k_ms, p_ms = time_pair(thunk, lambda: probe_sum_plain(streams), 20, 5)
+    log(f"[K10] 7 x 200 MiB f32 streams in, 1 out: max abs vs plain {err:.1e} (exact "
+        f"required); {nbytes / 1e9:.3f} GB per call in {ms:.4f} ms = {gbps:.1f} GB/s measured "
+        f"(card {card}); launches {counts['K10']}")
+    nx, ny, nz = QUARTER
+    cells = nx * ny * nz
+    # compulsory traffic: every input read once, every output written once (f32)
+    streams_of = {"K1 apply": 9, "K2": 5, "K3": 15}
+    fractions = {}
+    for name, n in streams_of.items():
+        rate = n * cells * 4 / (k_times[name][0] * 1e-3) / 1e9
+        fractions[name] = rate / gbps
+        log(f"[roofline] {name} at {nx}x{ny}x{nz} f32: {n} compulsory streams, "
+            f"{n * cells * 4 / 1e9:.3f} GB in {k_times[name][0]:.4f} ms = {rate:.1f} GB/s, "
+            f"{100 * fractions[name]:.1f} % of K10's {gbps:.1f} GB/s")
+    del streams, got, want
+    return counts["K10"], err, (k_ms, p_ms), gbps, fractions
+
+
+def phase_times_quarter(P, card, T, gm, idx):
+    """CUDA-event times at 0.25 degrees, f32: K1, K2, K3 and their plain
+    versions, and one BiCGStab(2) cycle fused (K3) and unfused (K2 + K1 +
+    eager vector algebra)."""
+    from otmb_tpu_torch.models import solvers as S
+    from otmb_tpu_torch.ops.apply import apply_stencil
+    from otmb_tpu_torch.ops.krylov import fused_krylov_step_plain, krylov_scratch
+    from otmb_tpu_torch.ops.tridiag import tridiag_solve_plain
+
+    topo, wet = gm.topology, idx.wet3d
+    nx, ny, nz = QUARTER
+    b = wet.float()
+    sys_ = S._system(T, torch.float32, topo, extra_diag=surface_mask(wet, torch.float32))
+    a, m = sys_.a, sys_.m_legs
+    gen = torch.Generator(device=b.device).manual_seed(SEED + 4)
+    x2 = torch.where(wet, torch.randn(wet.shape, generator=gen, device=b.device), 0.0)
+    c2 = torch.tensor(-0.37, dtype=torch.float32, device=b.device)
+    scratch = krylov_scratch(*m)
+    pairs = {
+        "K1 apply": (lambda: P.stencil_apply(a, b, topo), lambda: apply_stencil(a, b, topo),
+                     20, 5),
+        "K2": (lambda: P.tridiag_solve(*m, b), lambda: tridiag_solve_plain(*m, b), 20, 3),
+        "K3": (lambda: P.fused_krylov_step(a, *m, b, x2, c2, x2, topo, scratch=scratch),
+               lambda: fused_krylov_step_plain(a, *m, b, x2, c2, x2, topo), 20, 3),
+    }
+    times = {}
+    for name, (kernel, plain, calls_k, calls_p) in pairs.items():
+        times[name] = time_pair(kernel, plain, calls_k, calls_p)
+        log(f"[time] {name} at {nx}x{ny}x{nz} f32: kernel {times[name][0]:.4f} ms, plain "
+            f"{times[name][1]:.4f} ms per call (CUDA events over back-to-back calls, median "
+            f"of 5; card {card})")
+    state = S._initial_state("bicgstab2", b)
+    fused = S._fused_step(sys_, scratch)
+    unfused = S._unfused_step(sys_)
+    times["cycle"] = time_pair(lambda: S._bicgstab2_cycles(fused, state, 1),
+                               lambda: S._bicgstab2_cycles(unfused, state, 1), 5, 5)
+    log(f"[time] one BiCGStab(2) cycle (4 applications of A o M, 2 matvec pairs) at "
+        f"{nx}x{ny}x{nz} f32: fused (K3) {times['cycle'][0]:.4f} ms, unfused (K2 + K1 + eager "
+        f"algebra) {times['cycle'][1]:.4f} ms (CUDA events over back-to-back cycles, median "
+        f"of 5; card {card})")
     return times
 
 
@@ -369,7 +653,7 @@ def main() -> int:
     log(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: {_build.build_seconds:.1f} s build, "
         f"{time.perf_counter() - t0:.1f} s to load")
 
-    ds, gm32, idx, T32, launches = phase_main_path(P, device, card)
+    ds, gm32, idx, T32, launches, mean_age = phase_main_path(P, device, card)
 
     # kernel checks at the main path's shapes, on both topologies
     _, gm64, _ = build_case(P, NX, NY, NZ, "tripolar", torch.float64, device)
@@ -389,6 +673,21 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     times = phase_times(P, card, T32, gm32, idx)
+    phase_sequestration(P, gm32, idx, T32, mean_age)
+    del ds, gm32, idx, T32
+    torch.cuda.empty_cache()
+
+    qgm, qidx, qT, qlaunches = phase_quarter(P, device)
+    qtimes = phase_times_quarter(P, card, qT, qgm, qidx)
+    hnx, hny, hnz = HALF
+    hds, hgm, hidx = build_case(P, hnx, hny, hnz, "bipolar", torch.float32, device)
+    hT = P.assemble_T(hds.umo, hds.vmo, hds.mlotst, hgm)
+    del hds
+    k3_worst = phase_k3(P, device, [("tripolar", qT, qgm.topology, qidx.wet3d),
+                                    ("bipolar", hT, hgm.topology, hidx.wet3d)])
+    del qgm, qidx, qT, hgm, hidx, hT
+    torch.cuda.empty_cache()
+    k10_launches, k10_err, k10_times, _, _ = phase_probe(P, device, card, qtimes)
     torch.cuda.synchronize()
     kernels = [
         {"name": "K1 stencil apply/euler_step", "route": "cuda",
@@ -406,6 +705,15 @@ def main() -> int:
          "replaces": "otmb_tpu/ops/assemble_pallas.py:60", "launches": launches["K4"],
          "max_abs_err": k4_worst[("tripolar", "float32")],
          "ms": times["K4"][0], "plain_ms": times["K4"][1]},
+        {"name": "K3 fused_krylov_step", "route": "cuda",
+         "source": "otmb_tpu_torch/csrc/krylov.cu",
+         "replaces": "otmb_tpu/ops/krylov_pallas.py:68", "launches": qlaunches["K3"],
+         "max_abs_err": k3_worst[("tripolar", str(torch.float32), "T")],
+         "ms": qtimes["K3"][0], "plain_ms": qtimes["K3"][1]},
+        {"name": "K10 dma_peak_probe", "route": "cuda",
+         "source": "otmb_tpu_torch/csrc/probe.cu",
+         "replaces": "otmb_tpu/utils/profiling.py:214", "launches": k10_launches,
+         "max_abs_err": k10_err, "ms": k10_times[0], "plain_ms": k10_times[1]},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -9,8 +9,13 @@ built from `csrc/` at first use:
     stencil (csrc/stencil.cu);
   * K2 `tridiag_solve` — the per-column Thomas solve that preconditions
     the Krylov solves (csrc/tridiag.cu);
+  * K3 `fused_krylov_step` — the fused half-step of the BiCGStab(2)
+    engine: combination, Thomas solve, stencil and dot in one pass
+    (csrc/krylov.cu);
   * K4 `assemble_T` — the fused assembly of T from raw transports
-    (csrc/assemble.cu).
+    (csrc/assemble.cu);
+  * K10 `dma_peak_probe` — the many-stream bandwidth probe
+    (csrc/probe.cu).
 
 A CUDA tensor always goes to the kernel; a CPU tensor takes the kernel's
 plain PyTorch version. This package never imports jax or otmb_tpu.
@@ -31,7 +36,9 @@ from .models.solvers import (
     explicit_euler_propagate,
     explicit_euler_step,
     ideal_age,
+    sequestration_time,
     solve_shifted,
+    solve_shifted_chunked,
     solve_shifted_ir,
 )
 from .models.transport import TransportOperators, assemble_transport, transportmatrix
@@ -44,8 +51,10 @@ from .ops.apply import (
 from .ops.assemble import assemble_T
 from .ops.coeffs import StencilCoeffs, add_coeffs
 from .ops.fluxes import FaceFluxes, facefluxes, facefluxesfrommasstransport
+from .ops.krylov import fused_krylov_step
 from .ops.stencil import euler_propagate, euler_step, stencil_apply
 from .ops.tridiag import tridiag_solve
+from .utils.profiling import dma_peak_probe
 from .utils.sparse_export import coeffs_to_scipy
 from .utils.synthetic import synthetic_dataset
 
@@ -72,17 +81,21 @@ __all__ = [
     "assemble_transport",
     "coeffs_to_scipy",
     "detect_topology",
+    "dma_peak_probe",
     "euler_propagate",
     "euler_step",
     "explicit_euler_propagate",
     "explicit_euler_step",
     "facefluxes",
     "facefluxesfrommasstransport",
+    "fused_krylov_step",
     "ideal_age",
     "makegridmetrics",
     "makeindices",
     "operator_diagnostics",
+    "sequestration_time",
     "solve_shifted",
+    "solve_shifted_chunked",
     "solve_shifted_ir",
     "stencil_apply",
     "synthetic_dataset",

@@ -1,11 +1,12 @@
 """Build the CUDA kernels in `csrc/` into one shared library and load it.
 
 The sources have a plain C interface (no PyTorch headers), so `nvcc`
-compiles them in seconds; the library is loaded with `ctypes`, and every
-pointer and the stream are passed as `ctypes.c_void_p`. The build happens
-at the first kernel launch of a process, never on import, and again
-whenever a source or a flag changes: the library's file name carries a
-hash of both. The build directory `_build/` is not committed.
+compiles them in seconds: one `nvcc -c` per source, all started together,
+then one link. The library is loaded with `ctypes`, and every pointer and
+the stream are passed as `ctypes.c_void_p`. The build happens at the first
+kernel launch of a process, never on import, and again whenever a source
+or a flag changes: the library's file name carries a hash of both. The
+build directory `_build/` is not committed.
 
 No fast-math flag is ever passed: land is NaN by convention and the
 kernels test it with `isnan`, and the one division of each kernel must
@@ -30,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "-Xptxas=-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 #: Wall seconds the build took in this process (0.0 when the library was
@@ -65,23 +66,43 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile `csrc/*.cu` into the library unless it exists; raise with
-    the compiler's output if nvcc fails."""
+    """Compile `csrc/*.cu` into the library unless it exists: one compiler
+    process per source, run in parallel, then the link. Raise with the
+    compiler's output if any step fails."""
     global build_seconds
     path = library_path()
     if path.exists():
         build_seconds = 0.0
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    stem = path.with_suffix("").name
+    tag = f"{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objects = [BUILD_DIR / f"{stem}-{src.stem}.{tag}.o" for src in sources]
+    tmp = path.with_suffix(f".{tag}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objects)]
+    logs, failed = [], []
+    for src, proc in zip(sources, procs):
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name} ==\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{out}")
+    if not failed:
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                               *map(str, objects)], capture_output=True, text=True)
+        logs.append(f"== link ==\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n{link.stderr}")
     build_seconds = time.perf_counter() - t0
-    path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    path.with_suffix(".log").write_text("\n".join(logs))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, path)
     return path
 

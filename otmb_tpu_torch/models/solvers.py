@@ -1,33 +1,51 @@
 """Time stepping and matrix-free steady-state solves for the transport operator.
 
 Counterpart of the main-path subset of `otmb_tpu.models.solvers`: explicit
-Euler through the K1 kernel, right-preconditioned BiCGStab with the
-Jacobi or the vertical-line Thomas preconditioner (K2), mixed-precision
-iterative refinement, and the ideal-age workload.
+Euler through the K1 kernel; one host-driven Krylov engine that runs
+right-preconditioned BiCGStab(1) or BiCGStab(2) with the Jacobi or the
+vertical-line Thomas preconditioner (K2), and BiCGStab(2) on the fused
+Krylov-step kernel K3; mixed-precision iterative refinement; and the ideal
+age and sequestration time workloads.
 
-The Krylov loop runs on the host and keeps its scalars on the device; it
-reads the residual back every `_CHECK_EVERY` iterations. The scalar shift
+The engine keeps its scalars on the device and reads the residual back to
+the host once per chunk of `chunk` matvec pairs (`CHUNK` by default, for
+every solve). Between reads it decides nothing; at each read it keeps the
+best iterate, and stops on convergence, on a stall (three chunks without
+a 2 % gain), on divergence or on a non-finite recurrence. The first chunk
+is also read after 1, 2, 4, ... iterations, for convergence only, so a
+solve that converges in a few iterations stops there rather than
+iterating on past convergence, where an f32 recurrence can break down. The scalar shift
 and the extra diagonal are folded into the stencil diagonal, so a matvec
 is one K1 launch. Tracer fields are dense (nz, ny, nx) with zeros on
 land, and every operator application keeps them so.
+
+Where the JAX package picks its solver by grid size (a workaround for the
+TPU runtime), this module routes by argument: `algorithm` picks the
+Krylov method, and the same engine runs at every size.
 """
 
 from __future__ import annotations
 
 import math
+import sys
 import time
 import warnings
+from typing import Callable, NamedTuple
 
 import torch
 
 from ..grid.topology import GridTopology
 from ..ops.apply import transpose_coeffs
 from ..ops.coeffs import StencilCoeffs
+from ..ops.krylov import fused_krylov_step, krylov_scratch
 from ..ops.stencil import euler_propagate, euler_step, stencil_apply
 from ..ops.tridiag import tridiag_solve
 
-#: Iterations between host reads of the BiCGStab residual.
-_CHECK_EVERY = 8
+#: Matvec pairs (BiCGStab(1) iterations, half BiCGStab(2) cycles) between
+#: host reads of the residual: the one cadence of every Krylov solve.
+CHUNK = 50
+
+ALGORITHMS = ("bicgstab", "bicgstab2")
 
 
 def explicit_euler_step(coeffs: StencilCoeffs, chi: torch.Tensor, dt: float,
@@ -48,11 +66,16 @@ def _jacobi_preconditioner(diag: torch.Tensor):
     return lambda x: inv * x
 
 
+def _guarded(shifted_diag: torch.Tensor) -> torch.Tensor:
+    """The Thomas diagonal: the shifted diagonal with land's 0 -> 1."""
+    return torch.where(shifted_diag != 0, shifted_diag, 1.0)
+
+
 def _tridiag_preconditioner(coeffs: StencilCoeffs, shifted_diag: torch.Tensor):
     """Vertical-line preconditioner: a per-column Thomas solve (K2) of
     M = diag(shifted) + T_top + T_bottom, the stiff vertical-diffusion part
     of T. Land columns get a unit diagonal."""
-    diag = torch.where(shifted_diag != 0, shifted_diag, 1.0)
+    diag = _guarded(shifted_diag)
     # lower = bottom couples to k+1, upper = top to k-1
     return lambda b: tridiag_solve(coeffs.bottom, diag, coeffs.top, b)
 
@@ -65,37 +88,370 @@ def _nonzero(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x == 0, 1.0, x)
 
 
-def _bicgstab(a_op, b: torch.Tensor, M, tol: float, maxiter: int):
-    """Right-preconditioned BiCGStab, the algorithm and breakdown guards of
-    `_bicgstab_matrix_free` (otmb_tpu/models/solvers.py). Stops once
-    ||r|| <= tol * ||b|| (read every `_CHECK_EVERY` iterations), at
-    maxiter, or when the recurrence is no longer finite. Returns
-    (x, iterations)."""
-    atol2 = (tol * float(torch.linalg.vector_norm(b))) ** 2
-    x = torch.zeros_like(b)
-    r = p = rhat0 = b
-    rho = _dot(r, r)
-    it = 0
-    while it < maxiter:
-        if it % _CHECK_EVERY == 0:
-            rr = float(_dot(r, r))
-            if rr <= atol2 or not math.isfinite(rr):
-                break
+def _axpy(y: torch.Tensor, a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y + a x for a 0-d tensor a, in one pass over the fields."""
+    return torch.addcmul(y, a, x)
+
+
+class _System(NamedTuple):
+    """One shifted system (shift * I + D_extra + A) x = b in the engine's
+    form: `a` is A with shift + extra folded into its diagonal, `M` the
+    preconditioner, `m_legs` the Thomas legs (lower, guarded diagonal,
+    upper) when M is the tridiagonal one."""
+
+    a: StencilCoeffs
+    topology: GridTopology
+    M: Callable[[torch.Tensor], torch.Tensor]
+    m_legs: tuple | None
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        return stencil_apply(self.a, x, self.topology)
+
+
+def _system(coeffs: StencilCoeffs, dtype: torch.dtype, topology: GridTopology, shift=0.0,
+            extra_diag: torch.Tensor | None = None, transpose: bool = False,
+            preconditioner: str = "tridiag") -> _System:
+    """The engine's system in `dtype`. For T' the stencil form of T' is
+    built once (`transpose_coeffs`); its vertical legs are the transposed
+    operator's, so the Thomas M is built from them too."""
+    if transpose:
+        coeffs = transpose_coeffs(coeffs, topology)
+    coeffs = coeffs.to(dtype)
+    extra = 0.0 if extra_diag is None else extra_diag.to(dtype)
+    shifted = shift + extra + coeffs.diag
+    a = coeffs._replace(diag=shifted)
+    if preconditioner == "tridiag":
+        m_legs = (coeffs.bottom, _guarded(shifted), coeffs.top)
+        return _System(a, topology, lambda v: tridiag_solve(*m_legs, v), m_legs)
+    if preconditioner == "jacobi":
+        return _System(a, topology, _jacobi_preconditioner(shifted), None)
+    raise ValueError(f"unknown preconditioner {preconditioner!r}")
+
+
+class _State1(NamedTuple):
+    """BiCGStab(1) state, in x-space."""
+
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    rhat: torch.Tensor
+    rho: torch.Tensor
+
+
+class _State2(NamedTuple):
+    """BiCGStab(2) state, in the right-preconditioned y-space (x = M y);
+    `x` is y."""
+
+    x: torch.Tensor
+    r: torch.Tensor
+    u: torch.Tensor
+    rhat: torch.Tensor
+    rho: torch.Tensor
+    alpha: torch.Tensor
+    omega: torch.Tensor
+
+
+def _jitter_rhat(r: torch.Tensor, jitter: int) -> torch.Tensor:
+    """A perturbed shadow vector for divergence restarts
+    (`otmb_tpu/models/solvers.py:_jitter_rhat`): a +-10 % * jitter
+    modulation alternating along k, j or i (cycling with the restart's
+    ordinal), which keeps land's zeros and the overlap with r but changes
+    every <rhat, .> projection, so a restart does not replay the blow-up."""
+    if jitter == 0:
+        return r
+    axis = (r.ndim - 3) + (jitter - 1) % 3
+    n = r.shape[axis]
+    sign = ((torch.arange(n, device=r.device) % 2) * 2 - 1).to(r.dtype)
+    sign = sign.reshape([n if d == axis else 1 for d in range(r.ndim)])
+    return r * (1.0 + torch.tensor(0.1 * jitter, dtype=r.dtype) * sign)
+
+
+def _initial_state(algorithm: str, b: torch.Tensor):
+    """The state at x = 0: r = rhat = b."""
+    zero = torch.zeros_like(b)
+    if algorithm == "bicgstab":
+        return _State1(zero, b, b, b, _dot(b, b))
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    return _State2(zero, b, zero, b, one, torch.zeros_like(one), one)
+
+
+def _restart_state(sys_: _System, algorithm: str, step, x: torch.Tensor, b: torch.Tensor,
+                   jitter: int):
+    """A fresh Krylov space at the iterate `x`: the true residual
+    r = b - A x (b - A M y for BiCGStab(2), through the engine's `step`),
+    rhat = r jittered by `jitter`, and rho = <rhat, r> (the JAX package
+    seeds BiCGStab(1)'s rho with <r, r>, inconsistent with a jittered
+    rhat)."""
+    if algorithm == "bicgstab":
+        r = b - sys_.apply(x)
+        rhat = _jitter_rhat(r, jitter)
+        return _State1(x, r, r, rhat, _dot(rhat, r))
+    r = b - step(x, None, None, None)[1]
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    return _State2(x, r, torch.zeros_like(r), _jitter_rhat(r, jitter), one,
+                   torch.zeros_like(one), one)
+
+
+def _bicgstab_steps(sys_: _System, st: _State1, nsteps: int) -> _State1:
+    """`nsteps` iterations of right-preconditioned BiCGStab, with the
+    breakdown guards of the JAX package's `_sr_chunk1`."""
+    x, r, p, rhat, rho = st
+    A, M = sys_.apply, sys_.M
+    for _ in range(nsteps):
         phat = M(p)
-        v = a_op(phat)
-        alpha = rho / _nonzero(_dot(rhat0, v))
-        s = r - alpha * v
+        v = A(phat)
+        alpha = rho / _nonzero(_dot(rhat, v))
+        s = _axpy(r, -alpha, v)
         shat = M(s)
-        t = a_op(shat)
+        t = A(shat)
         omega = _dot(t, s) / _nonzero(_dot(t, t))
-        x = x + alpha * phat + omega * shat
-        r = s - omega * t
-        rho_new = _dot(rhat0, r)
+        x = _axpy(_axpy(x, alpha, phat), omega, shat)
+        r = _axpy(s, -omega, t)
+        rho_new = _dot(rhat, r)
         beta = (rho_new / _nonzero(rho)) * (alpha / _nonzero(omega))
-        p = r + beta * (p - omega * v)
+        p = _axpy(r, beta, _axpy(p, -omega, v))
         rho = rho_new
-        it += 1
-    return x, it
+    return _State1(x, r, p, rhat, rho)
+
+
+def _unfused_step(sys_: _System):
+    """The Krylov half-step as separate passes: the combination x1 + c x2,
+    M (K2), A (K1) and the dot <rhat, out>, each its own launch."""
+
+    def step(x1, x2, c, rhat):
+        z = x1 if x2 is None else _axpy(x1, c, x2)
+        out = sys_.apply(sys_.M(z))
+        return z, out, (None if rhat is None else _dot(rhat, out))
+
+    return step
+
+
+def _fused_step(sys_: _System, scratch):
+    """The Krylov half-step as one K3 launch (`ops/krylov.py`)."""
+
+    def step(x1, x2, c, rhat):
+        return fused_krylov_step(sys_.a, *sys_.m_legs, x1, x2, c, rhat, sys_.topology,
+                                 with_combine=x2 is not None, with_dot=rhat is not None,
+                                 scratch=scratch)
+
+    return step
+
+
+def _bicgstab2_cycles(step, st: _State2, ncycles: int) -> _State2:
+    """`ncycles` of BiCGStab(l=2) (Sleijpen & Fokkema 1993) on K = A o M,
+    in y-space. `step(x1, x2, c, rhat)` returns (z = x1 + c x2, K z,
+    <rhat, K z>); the algebra is that of the JAX package's
+    `_sr_chunk2_fused`, and with the unfused step that of
+    `_bicgstab2_cycles`."""
+    y, r0, u0, rhat, rho0, alpha, omega = st
+    one = torch.ones_like(rho0)
+    guard = lambda d: torch.where(d == 0, one, d)
+    for _ in range(ncycles):
+        rho0 = -omega * rho0
+        # BiCG step j = 0
+        rho1 = _dot(rhat, r0)
+        beta = alpha * rho1 / guard(rho0)
+        rho0 = rho1
+        u0, u1, d1 = step(r0, u0, -beta, rhat)
+        alpha = rho0 / guard(d1)
+        r0, r1, d2 = step(r0, u1, -alpha, rhat)
+        y = _axpy(y, alpha, u0)
+        # BiCG step j = 1
+        rho1 = d2
+        beta = alpha * rho1 / guard(rho0)
+        rho0 = rho1
+        u0 = _axpy(r0, -beta, u0)
+        u1, u2, d3 = step(r1, u1, -beta, rhat)
+        alpha = rho0 / guard(d3)
+        r0 = _axpy(r0, -alpha, u1)
+        r1, r2, _ = step(r1, u2, -alpha, None)
+        y = _axpy(y, alpha, u0)
+        # 2D minimal-residual polish: min ||r0 - w1 r1 - w2 r2||
+        t11 = _dot(r1, r1)
+        t12 = _dot(r1, r2)
+        t22 = _dot(r2, r2)
+        s1 = _dot(r0, r1)
+        s2 = _dot(r0, r2)
+        det = guard(t11 * t22 - t12 * t12)
+        w1 = (t22 * s1 - t12 * s2) / det
+        w2 = (t11 * s2 - t12 * s1) / det
+        y = _axpy(_axpy(y, w1, r0), w2, r1)
+        r0 = _axpy(_axpy(r0, -w1, r1), -w2, r2)
+        u0 = _axpy(_axpy(u0, -w1, u1), -w2, u2)
+        omega = w2
+    return _State2(y, r0, u0, rhat, rho0, alpha, omega)
+
+
+def _doubling(n: int) -> list[int]:
+    """1, 2, 4, ... summing to n (the last part what is left)."""
+    parts, size = [], 1
+    while n > 0:
+        parts.append(min(size, n))
+        n -= parts[-1]
+        size *= 2
+    return parts
+
+
+def _engine(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, chunk: int,
+            algorithm: str, fused: bool, early_stop: bool, max_restarts: int,
+            max_diverge_restarts: int, stats: dict | None, verbose: bool = False):
+    """The one Krylov loop (`solve_shifted_chunked` documents its rules).
+    Returns (x, relative residual ||A x - b|| / ||b|| recomputed from x)."""
+    step = _fused_step(sys_, krylov_scratch(*sys_.m_legs)) if fused else _unfused_step(sys_)
+    bnorm2 = float(_dot(b, b))
+    atol2 = tol ** 2 * bnorm2
+    state = _initial_state(algorithm, b)
+    iters = chunks_done = restarts = div_restarts = div_streak = 0
+    window_rn2 = math.inf
+    best_x, best_rn2 = state.x, bnorm2  # the residual at x0 = 0 is b
+    diverge_exit_alive = True
+    pass_rn2 = rn2 = bnorm2  # residual at the start of the current Krylov pass
+    stop = "maxiter"
+    chunk_s = []
+    say = (lambda msg: print(f"#   chunked iter {iters}: {msg}", file=sys.stderr)
+           ) if verbose else (lambda msg: None)
+
+    def restart(jitter: int = 0):
+        nonlocal state, restarts, window_rn2, pass_rn2, div_streak
+        restarts += 1
+        div_streak = 0
+        state = _restart_state(sys_, algorithm, step, best_x, b, jitter)
+        window_rn2 = math.inf
+        pass_rn2 = best_rn2
+
+    first_chunk = True
+    while iters < maxiter:
+        t_chunk = time.perf_counter()
+        nsteps = min(chunk, maxiter - iters)
+        # BiCGStab(1) iterations, or BiCGStab(2) cycles of two matvec pairs
+        units = nsteps if algorithm == "bicgstab" else max(1, nsteps // 2)
+        # The first chunk is read after 1, 2, 4, ... units as well, for the
+        # convergence test and the best iterate only.
+        parts = _doubling(units) if first_chunk else [units]
+        first_chunk = False
+        for n in parts:
+            if algorithm == "bicgstab":
+                state = _bicgstab_steps(sys_, state, n)
+                iters += n
+            else:
+                state = _bicgstab2_cycles(step, state, n)
+                iters += 2 * n
+            rn2 = float(_dot(state.r, state.r))
+            if rn2 < best_rn2:  # False for NaN
+                best_rn2, best_x = rn2, state.x  # no copy: the loop never writes in place
+            say(f"rel recurrence residual {math.sqrt(rn2 / bnorm2) if bnorm2 else 0.0:.3e}")
+            if rn2 <= atol2 or not math.isfinite(rn2):
+                break
+        chunk_s.append(round(time.perf_counter() - t_chunk, 4))
+        if rn2 <= atol2:
+            stop = "converged"
+            break
+        # Divergence exit: the recurrence residual above 16x (4x in norm)
+        # its pass-start value at two consecutive reads, or non-finite at
+        # one. A non-finite recurrence never recovers, so it ends the solve
+        # in every state once no jittered restart is left.
+        finite = math.isfinite(rn2)
+        if not rn2 <= 16.0 * pass_rn2:
+            div_streak = div_streak + 1 if finite else 2
+        else:
+            div_streak = 0
+        if div_streak >= 2 and (diverge_exit_alive or not finite):
+            div_streak = 0
+            if div_restarts < max_diverge_restarts:
+                div_restarts += 1
+                say(f"DIVERGED; jittered restart {div_restarts} from the best iterate")
+                restart(jitter=div_restarts)
+                continue
+            if best_rn2 < pass_rn2 or not finite:
+                stop = "diverged"
+                break
+            # No progress to protect and a finite recurrence: let it run, as
+            # blow-up-then-recover trajectories still reach useful
+            # contractions; the stall window and maxiter bound the waste.
+            diverge_exit_alive = False
+        # Stall: a whole 3-chunk window without 2 % of gain in the norm.
+        chunks_done += 1
+        if early_stop and chunks_done % 3 == 0:
+            if rn2 >= 0.98 ** 2 * window_rn2:
+                if restarts < max_restarts:
+                    say(f"window stalled; restart {restarts + 1} from the best iterate")
+                    restart()
+                    continue
+                warnings.warn(
+                    f"solve_shifted_chunked: relative residual "
+                    f"{math.sqrt(rn2 / bnorm2):.3e} after {iters} iterations improved <2% "
+                    f"over the last {3 * chunk} iterations (after {restarts} restart(s)) "
+                    f"— likely the rounding floor of {b.dtype}; wrap in solve_shifted_ir "
+                    f"for tighter residuals, or pass early_stop=False to keep iterating.",
+                    stacklevel=3,
+                )
+                stop = "stall"
+                break
+            window_rn2 = rn2
+
+    take_last = rn2 < best_rn2  # False for NaN: never the broken last iterate
+    x = state.x if take_last else best_x
+    if stats is not None:
+        bn = math.sqrt(bnorm2) if bnorm2 > 0 else 1.0
+        stats.update(iters=iters, restarts=restarts, stop=stop, diverge_restarts=div_restarts,
+                     start_rel=1.0, end_rel=math.sqrt(rn2 if take_last else best_rn2) / bn,
+                     chunk_s=chunk_s)
+    if algorithm == "bicgstab2":
+        x = sys_.M(x)  # the state lives in right-preconditioned y-space
+    bnorm = math.sqrt(bnorm2)
+    res = float(torch.linalg.vector_norm(sys_.apply(x) - b)) / (bnorm if bnorm else 1.0)
+    return x, res
+
+
+def solve_shifted_chunked(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopology,
+                          shift: float = 0.0, extra_diag: torch.Tensor | None = None,
+                          tol: float = 1e-10, maxiter: int = 2000, chunk: int = CHUNK,
+                          transpose: bool = False, preconditioner: str = "tridiag",
+                          verbose: bool = False, early_stop: bool = True,
+                          max_restarts: int = 2, algorithm: str = "bicgstab",
+                          stats: dict | None = None, fused: bool | None = None,
+                          max_diverge_restarts: int = 2):
+    """Solve (shift * I + D_extra + T) x = b (T' when `transpose`) with the
+    host-driven Krylov engine. Returns (x, relative residual ||Ax - b|| /
+    ||b||, recomputed from x in b's dtype).
+
+    - `algorithm`: "bicgstab" (right-preconditioned BiCGStab(1)) or
+      "bicgstab2" (BiCGStab(l=2), Sleijpen & Fokkema 1993: two BiCG steps
+      and a 2D minimal-residual polish per cycle, which handles the
+      complex-conjugate eigenvalue pairs of advective operators that stall
+      BiCGStab(1); it runs in y-space, K = A o M, x = M y). `maxiter` and
+      `chunk` count matvec pairs under both.
+    - `chunk`: matvec pairs between host reads of the residual; the first
+      chunk is also read after 1, 2, 4, ... iterations (cycles for
+      BiCGStab(2)), for the convergence test and the best iterate only.
+    - The best chunk-boundary iterate is kept and returned unless the last
+      iterate's recurrence residual is a number and beats it.
+    - `early_stop`: stop (after `max_restarts` restarts from the best
+      iterate with a fresh Krylov space) when a 3-chunk window improves the
+      residual norm by less than 2 %, with a warning.
+    - Divergence: a recurrence residual above 4x its pass-start norm at two
+      consecutive reads restarts from the best iterate with a jittered
+      shadow vector, at most `max_diverge_restarts` times (a budget apart
+      from `max_restarts`); then the solve stops with the best iterate if
+      it made progress. A non-finite recurrence always stops it once that
+      budget is spent.
+    - `fused` (default: on for "bicgstab2" with the "tridiag"
+      preconditioner) runs each BiCGStab(2) half-step as one K3 launch;
+      False runs the separate K2, K1 and vector passes.
+    - `stats`, if a dict, receives ``iters``, ``restarts``, ``stop``
+      ("converged" / "stall" / "diverged" / "maxiter"),
+      ``diverge_restarts``, ``start_rel``, ``end_rel`` (recurrence
+      residuals) and ``chunk_s`` (wall seconds per chunk, host read
+      included)."""
+    if algorithm not in ALGORITHMS:
+        raise ValueError(f"unknown algorithm {algorithm!r}")
+    if fused is None:
+        fused = algorithm == "bicgstab2" and preconditioner == "tridiag"
+    if fused and preconditioner != "tridiag":
+        raise ValueError("fused=True needs the tridiag preconditioner (K3 is its Thomas solve)")
+    sys_ = _system(coeffs, b.dtype, topology, shift, extra_diag, transpose, preconditioner)
+    return _engine(sys_, b, tol, maxiter, chunk, algorithm, fused and algorithm == "bicgstab2",
+                   early_stop, max_restarts, max_diverge_restarts, stats, verbose)
 
 
 def solve_shifted(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopology,
@@ -106,31 +462,17 @@ def solve_shifted(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopology
     (T' instead of T when `transpose`). Returns (x, relative residual
     ||Ax - b|| / ||b||, recomputed from x in b's dtype).
 
-    The operator runs in b's dtype. A solve that stops at maxiter is not
-    an error; the residual says so.
-    `stats`, if a dict, receives ``iters``."""
-    if transpose:
-        coeffs = transpose_coeffs(coeffs, topology)
-    coeffs = coeffs.to(b.dtype)
-    extra = 0.0 if extra_diag is None else extra_diag.to(b.dtype)
-    a_coeffs = coeffs._replace(diag=shift + extra + coeffs.diag)
-
-    def a_op(x):
-        return stencil_apply(a_coeffs, x, topology)
-
-    if preconditioner == "tridiag":
-        precond = _tridiag_preconditioner(coeffs, a_coeffs.diag)
-    elif preconditioner == "jacobi":
-        precond = _jacobi_preconditioner(a_coeffs.diag)
-    else:
-        raise ValueError(f"unknown preconditioner {preconditioner!r}")
-
-    x, iters = _bicgstab(a_op, b, precond, tol, maxiter)
-    if stats is not None:
-        stats["iters"] = iters
-    bnorm = float(torch.linalg.vector_norm(b))
-    res = float(torch.linalg.vector_norm(a_op(x) - b)) / (bnorm if bnorm else 1.0)
-    return x, res
+    The operator runs in b's dtype. The solve runs until ||r|| <= tol *
+    ||b|| (read every `CHUNK` iterations), maxiter, or a recurrence that
+    stops being finite or diverges; it is the engine of
+    `solve_shifted_chunked` without stall stops or restarts. A solve that
+    stops at maxiter is not an error; the residual says so.
+    `stats`, if a dict, receives the engine's stats (``iters`` first)."""
+    return solve_shifted_chunked(coeffs, b, topology, shift=shift, extra_diag=extra_diag,
+                                 tol=tol, maxiter=maxiter, transpose=transpose,
+                                 preconditioner=preconditioner, early_stop=False,
+                                 max_restarts=0, algorithm="bicgstab", stats=stats,
+                                 max_diverge_restarts=0)
 
 
 def _ir_defect(c_narrow: StencilCoeffs, x: torch.Tensor, b_narrow: torch.Tensor,
@@ -152,26 +494,40 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
                      tol: float = 1e-9, inner_tol: float = 1e-4,
                      max_refinements: int = 10, maxiter: int = 2000,
                      inner_maxiter: int | None = None, transpose: bool = False,
-                     preconditioner: str = "tridiag", stats: dict | None = None):
+                     preconditioner: str = "tridiag", stats: dict | None = None,
+                     inner_algorithm: str = "bicgstab"):
     """`solve_shifted` with mixed-precision iterative refinement: inner
-    BiCGStab solves in the coefficients' precision (f32 or f64) and the
+    Krylov solves in the coefficients' precision (f32 or f64) and the
     defect b - A x in f64, through the K1 kernel on the narrow
     coefficients. Returns (x in f64, relative residual).
 
-    As in the JAX package: the best iterate is kept (narrow) and restored
-    after a pass that made the defect 4x worse (or not finite); two
-    consecutive passes without a 0.9x contraction stop the loop with a
-    warning; each pass asks its inner solve only for the contraction still
-    needed, max(inner_tol, 0.5 * tol / rel), at most 0.9.
+    `inner_algorithm`: "bicgstab" runs each pass through `solve_shifted`;
+    "bicgstab2" through `solve_shifted_chunked(algorithm="bicgstab2",
+    max_restarts=0)` (the outer loop is the restart), with a pass budget of
+    min(maxiter, 600) matvec pairs unless `inner_maxiter` says otherwise.
+
+    The best iterate is kept (narrow) and restored after a pass that made
+    the defect 4x worse (or not finite); that reverted pass gets one retry.
+    Any other pass that starts without a 0.9x contraction of the previous
+    pass's start stops the loop with a warning: repeating a stalled pass
+    from the same defect cannot help. Each pass asks its inner solve only
+    for the contraction still needed, max(inner_tol, 0.5 * tol / rel), at
+    most 0.9.
 
     `stats`, if a dict, receives ``passes`` (one dict per pass: rel_start,
-    reverted, inner_tol, inner_iters, wall_s), ``refinements`` and
+    reverted, inner_tol, inner_iters, inner_stop, inner_restarts,
+    inner_end_rel, inner_chunk_s, wall_s), ``refinements`` and
     ``rel_final``."""
+    if inner_algorithm not in ALGORITHMS:
+        raise ValueError(f"unknown inner_algorithm {inner_algorithm!r}")
     if transpose:
         coeffs = transpose_coeffs(coeffs, topology)
     wide = torch.float64
     narrow = coeffs.diag.dtype
-    inner_maxiter = maxiter if inner_maxiter is None else min(maxiter, inner_maxiter)
+    if inner_maxiter is None:
+        inner_maxiter = min(maxiter, 600) if inner_algorithm == "bicgstab2" else maxiter
+    else:
+        inner_maxiter = min(maxiter, inner_maxiter)
 
     extra_n = torch.zeros((), dtype=b.dtype, device=b.device) if extra_diag is None else extra_diag
     b_nv = b.to(narrow)
@@ -181,7 +537,7 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
     x = torch.zeros(b.shape, dtype=wide, device=b.device)
     rel = math.inf
     rel_prev = math.inf
-    stagnant = 0
+    prev_reverted = False
     best_x = None
     best_rel = math.inf
     pass_log = [] if stats is None else stats.setdefault("passes", [])
@@ -208,26 +564,36 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
             reverted = True
         entry = {"rel_start": rel, "reverted": reverted}
         pass_log.append(entry)
-        stagnant = stagnant + 1 if rel >= 0.9 * rel_prev else 0
-        if stagnant >= 2:
+        retry = reverted and not prev_reverted
+        if rel >= 0.9 * rel_prev and not retry:
             warnings.warn(
                 f"solve_shifted_ir: refinement stagnated at relative residual "
-                f"{rel:.3e} (previous {rel_prev:.3e}); the inner BiCGStab solve is "
+                f"{rel:.3e} (previous {rel_prev:.3e}); the inner {inner_algorithm} solve is "
                 f"likely exiting at its inner_maxiter={inner_maxiter} budget without "
                 f"reaching inner_tol={inner_tol}.",
                 stacklevel=2,
             )
             entry["stagnated"] = True
             break
-        rel_prev = rel
+        rel_prev, prev_reverted = rel, reverted
         pass_tol = min(0.9, max(inner_tol, 0.5 * tol / rel))
         inner = {}
-        d, _ = solve_shifted(coeffs, r_hat.to(narrow), topology, shift=shift,
-                             extra_diag=extra_diag, tol=pass_tol, maxiter=inner_maxiter,
-                             preconditioner=preconditioner, stats=inner)
+        rhs = r_hat.to(narrow)
+        del r_hat
+        if inner_algorithm == "bicgstab2":
+            d, _ = solve_shifted_chunked(coeffs, rhs, topology, shift=shift,
+                                         extra_diag=extra_diag, tol=pass_tol,
+                                         maxiter=inner_maxiter, preconditioner=preconditioner,
+                                         max_restarts=0, algorithm="bicgstab2", stats=inner)
+        else:
+            d, _ = solve_shifted(coeffs, rhs, topology, shift=shift, extra_diag=extra_diag,
+                                 tol=pass_tol, maxiter=inner_maxiter,
+                                 preconditioner=preconditioner, stats=inner)
+        del rhs
         x = x + s_safe * d.to(wide)
-        entry.update(inner_tol=pass_tol, inner_iters=inner["iters"],
-                     wall_s=time.perf_counter() - t_pass)
+        entry.update(inner_tol=pass_tol, inner_iters=inner["iters"], inner_stop=inner["stop"],
+                     inner_restarts=inner["restarts"], inner_end_rel=inner["end_rel"],
+                     inner_chunk_s=inner["chunk_s"], wall_s=time.perf_counter() - t_pass)
     else:
         _, _, rel = _ir_defect(coeffs, x, b, extra_n, shift, bnorm_safe, topology)
         if rel < best_rel:
@@ -244,23 +610,48 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
     return x, rel
 
 
-def ideal_age(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: GridTopology,
-              surface_rate: float = 1.0, tol: float = 1e-8, refine: bool = False,
-              stats: dict | None = None):
-    """Steady-state ideal mean age Gamma (seconds) from
-    (T + M) Gamma = 1 on wet cells, M = surface_rate on the surface layer
-    (reference test/local_full.jl:155-168). Returns (gamma with NaN on
-    land, relative residual). `refine=True` runs `solve_shifted_ir`
-    (f32 inner solves, f64 defects) and returns gamma in f64."""
+def _steady_state(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: GridTopology,
+                  surface_rate: float, tol: float, refine: bool, algorithm: str,
+                  transpose: bool, stats: dict | None):
+    """(T + M) x = 1 (T' when `transpose`) on wet cells, M = surface_rate on
+    the surface layer; NaN on land."""
+    if algorithm not in ALGORITHMS:
+        raise ValueError(f"unknown algorithm {algorithm!r}")
     wet = wet3d.to(torch.bool)
     ones = wet.to(coeffs.diag.dtype)
     surf = torch.zeros_like(ones)
     surf[0] = surface_rate
     surf = torch.where(wet, surf, 0.0)
+    kw = dict(extra_diag=surf, tol=tol, transpose=transpose, stats=stats)
     if refine:
-        gamma, res = solve_shifted_ir(coeffs, ones, topology, extra_diag=surf, tol=tol,
-                                      stats=stats)
+        x, res = solve_shifted_ir(coeffs, ones, topology, inner_algorithm=algorithm, **kw)
+    elif algorithm == "bicgstab":
+        x, res = solve_shifted(coeffs, ones, topology, **kw)
     else:
-        gamma, res = solve_shifted(coeffs, ones, topology, extra_diag=surf, tol=tol,
-                                   stats=stats)
-    return torch.where(wet, gamma, float("nan")), res
+        x, res = solve_shifted_chunked(coeffs, ones, topology, algorithm=algorithm, **kw)
+    return torch.where(wet, x, float("nan")), res
+
+
+def ideal_age(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: GridTopology,
+              surface_rate: float = 1.0, tol: float = 1e-8, refine: bool = False,
+              stats: dict | None = None, algorithm: str = "bicgstab"):
+    """Steady-state ideal mean age Gamma (seconds) from
+    (T + M) Gamma = 1 on wet cells, M = surface_rate on the surface layer
+    (reference test/local_full.jl:155-168). Returns (gamma with NaN on
+    land, relative residual). `refine=True` runs `solve_shifted_ir`
+    (f32 inner solves, f64 defects) and returns gamma in f64.
+    `algorithm` ("bicgstab" or "bicgstab2") is the refinement's inner
+    algorithm, or the engine's algorithm without refinement."""
+    return _steady_state(coeffs, wet3d, topology, surface_rate, tol, refine, algorithm,
+                         False, stats)
+
+
+def sequestration_time(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: GridTopology,
+                       surface_rate: float = 1.0, tol: float = 1e-8, refine: bool = False,
+                       stats: dict | None = None, algorithm: str = "bicgstab"):
+    """Mean sequestration time (seconds), the adjoint of the ideal age: the
+    expected time for water at each cell to next reach the surface,
+    (T' + M) Gamma_dagger = 1 on wet cells, through the stencil form of
+    T' (`transpose_coeffs`). Arguments and returns as `ideal_age`."""
+    return _steady_state(coeffs, wet3d, topology, surface_rate, tol, refine, algorithm,
+                         True, stats)

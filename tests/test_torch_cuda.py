@@ -10,8 +10,10 @@ import pytest
 import torch
 
 import otmb_tpu_torch as P
-from otmb_tpu_torch.ops import stencil, tridiag
+from otmb_tpu_torch.ops import krylov, stencil, tridiag
+from otmb_tpu_torch.ops.krylov import fused_krylov_step_plain
 from otmb_tpu_torch.ops.tridiag import tridiag_solve_plain
+from otmb_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -102,3 +104,105 @@ def test_wrappers_raise_on_card(case):
         P.stencil_apply(T._replace(diag=T.diag.cpu()), chi, topo)
     with pytest.raises(ValueError):
         P.tridiag_solve(T.bottom, T.diag, T.top.cpu(), chi)
+
+
+def _k3_inputs(case, dtype, transpose):
+    """The ideal-age system's operator in the engine's form, and random
+    x1, x2, rhat on wet cells."""
+    _, gm, idx, T, chi = case
+    topo = gm.topology
+    c = P.transpose_coeffs(T, topo) if transpose else T
+    surf = torch.zeros_like(chi)
+    surf[0] = 1.0
+    shifted = c.diag + torch.where(idx.wet3d, surf, 0.0)
+    a = c._replace(diag=shifted).to(dtype)
+    m = (a.bottom, torch.where(a.diag != 0, a.diag, 1.0), a.top)
+    rng = np.random.default_rng(6)
+    vec = lambda: torch.where(idx.wet3d, torch.as_tensor(rng.standard_normal(gm.shape),
+                                                         device=chi.device), 0.0).to(dtype)
+    return topo, a, m, vec(), vec(), vec()
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("flags", [(True, True), (True, False), (False, False), (False, True)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k3_equals_composition(case, dtype, flags, transpose):
+    """z and out equal the K2 + K1 composition (and the plain version) bit
+    for bit; d is within its stated bound of the f64 dot of the plain out,
+    and the same bits on a second call."""
+    topo, a, m, x1, x2, rhat = _k3_inputs(case, dtype, transpose)
+    combine, dot = flags
+    c2 = torch.tensor(-0.37, dtype=dtype, device=x1.device)
+    kw = dict(with_combine=combine, with_dot=dot)
+    scratch = krylov.krylov_scratch(*m)
+    n0 = krylov.LAUNCHES
+    z, out, d = P.fused_krylov_step(a, *m, x1, x2, c2, rhat, topo, scratch=scratch, **kw)
+    assert krylov.LAUNCHES == n0 + 1
+    want_z = x1 + c2 * x2 if combine else x1
+    want_out = P.stencil_apply(a, P.tridiag_solve(*m, want_z), topo)
+    torch.testing.assert_close(z, want_z, rtol=0, atol=0)
+    torch.testing.assert_close(out, want_out, rtol=0, atol=0)
+    pz, pout, pd = fused_krylov_step_plain(a, *m, x1, x2, c2, rhat, topo, **kw)
+    torch.testing.assert_close(out, pout, rtol=0, atol=0)
+    if not dot:
+        assert d is None and pd is None
+        return
+    ref = torch.dot(rhat.double().flatten(), pout.double().flatten())
+    scale = float((rhat.double() * pout.double()).abs().sum())
+    bound = (1e-5 if dtype == torch.float32 else 1e-12) * scale
+    assert abs(float(d) - float(ref)) <= bound
+    _, _, d2 = P.fused_krylov_step(a, *m, x1, x2, c2, rhat, topo, **kw)  # factors M anew
+    assert torch.equal(d, d2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k3_factorization_equals_plain(case, dtype):
+    topo, a, m, _, _, _ = _k3_inputs(case, dtype, False)
+    got = krylov.krylov_scratch(*m)
+    cp, rden = krylov.krylov_factor_plain(*m)
+    torch.testing.assert_close(got.cp, cp, rtol=0, atol=0)
+    torch.testing.assert_close(got.rden, rden, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="other Thomas legs"):
+        P.fused_krylov_step(a, *m, m[1], None, 0.0, None, topo, with_combine=False,
+                            with_dot=False, scratch=krylov.krylov_scratch(*(t.clone() for t in m)))
+
+
+def test_k10_equals_plain(device):
+    thunk, nbytes = P.dma_peak_probe(nstreams=7, mbytes=8, device=device)
+    assert nbytes == 8 * 8 * 1024 * 1024
+    gen = torch.Generator(device=device).manual_seed(0)
+    streams = [torch.randn((8, 512, 512), generator=gen, device=device) for _ in range(7)]
+    n0 = profiling.LAUNCHES
+    got = thunk()
+    assert profiling.LAUNCHES == n0 + 1
+    torch.testing.assert_close(got, profiling.probe_sum_plain(streams), rtol=0, atol=0)
+    torch.testing.assert_close(profiling.probe_sum(streams[:3]),
+                               profiling.probe_sum_plain(streams[:3]), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("workload", ["ideal_age", "sequestration_time"])
+def test_refined_bicgstab2_goes_through_k3(case, workload):
+    ds, gm, idx, _, _ = case
+    T = P.assemble_T(ds.umo, ds.vmo, ds.mlotst, gm).to(torch.float32)
+    n3 = krylov.LAUNCHES
+    stats = {}
+    gamma, res = getattr(P, workload)(T, idx.wet3d, gm.topology, tol=1e-9, refine=True,
+                                      algorithm="bicgstab2", stats=stats)
+    assert res < 1e-9
+    assert bool(torch.isfinite(gamma[idx.wet3d]).all())
+    assert krylov.LAUNCHES > n3
+    assert all(p["inner_stop"] in ("converged", "stall", "maxiter", "diverged")
+               for p in stats["passes"])
+
+
+def test_fused_and_unfused_engines_agree(case):
+    _, gm, idx, T, _ = case
+    b = idx.wet3d.to(torch.float32)
+    kw = dict(shift=1e-3, tol=1e-6, chunk=20, algorithm="bicgstab2")
+    xf, rf = P.solve_shifted_chunked(T.to(torch.float32), b, gm.topology, fused=True, **kw)
+    xc, rc = P.solve_shifted_chunked(T.to(torch.float32), b, gm.topology, fused=False, **kw)
+    # the residual is recomputed in f32, whose rounding floor on this
+    # system is ~1e-5 (1.04e-5 for the fused solve on an H100)
+    assert rf < 1e-4 and rc < 1e-4
+    scale = float(xc.abs().max())
+    assert float((xf - xc).abs().max()) <= 2e-4 * scale

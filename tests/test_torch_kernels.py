@@ -270,7 +270,8 @@ def test_library_path_hashes_sources_and_flags():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert path == _build.library_path()
-    assert {p.name for p in _build.CSRC.glob("*.cu")} == {"assemble.cu", "stencil.cu",
+    assert {p.name for p in _build.CSRC.glob("*.cu")} == {"assemble.cu", "krylov.cu",
+                                                         "probe.cu", "stencil.cu",
                                                          "tridiag.cu"}
     assert not any("fast-math" in f or "fast_math" in f or "ftz" in f
                    for f in _build.NVCC_FLAGS)
