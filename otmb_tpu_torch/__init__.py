@@ -7,8 +7,13 @@ built from `csrc/` at first use:
 
   * K1 `stencil_apply` / `euler_step` / `euler_propagate` — the 7-point
     stencil (csrc/stencil.cu);
+  * K5 `stencil_apply_multi` / `euler_step_multi` / `euler_propagate_multi`
+    — the same for a batch of tracers that share one read of the
+    coefficients; the matvec of the batched solves `solve_shifted_multi`,
+    `solve_shifted_chunked_multi` and `water_mass_fractions`
+    (csrc/stencil.cu);
   * K2 `tridiag_solve` — the per-column Thomas solve that preconditions
-    the Krylov solves (csrc/tridiag.cu);
+    the Krylov solves, for one field or a batch (csrc/tridiag.cu);
   * K3 `fused_krylov_step` — the fused half-step of the BiCGStab(2)
     engine: combination, Thomas solve, stencil and dot in one pass
     (csrc/krylov.cu);
@@ -39,7 +44,10 @@ from .models.solvers import (
     sequestration_time,
     solve_shifted,
     solve_shifted_chunked,
+    solve_shifted_chunked_multi,
     solve_shifted_ir,
+    solve_shifted_multi,
+    water_mass_fractions,
 )
 from .models.transport import TransportOperators, assemble_transport, transportmatrix
 from .ops.apply import (
@@ -52,7 +60,14 @@ from .ops.assemble import assemble_T
 from .ops.coeffs import StencilCoeffs, add_coeffs
 from .ops.fluxes import FaceFluxes, facefluxes, facefluxesfrommasstransport
 from .ops.krylov import fused_krylov_step
-from .ops.stencil import euler_propagate, euler_step, stencil_apply
+from .ops.stencil import (
+    euler_propagate,
+    euler_propagate_multi,
+    euler_step,
+    euler_step_multi,
+    stencil_apply,
+    stencil_apply_multi,
+)
 from .ops.tridiag import tridiag_solve
 from .utils.profiling import dma_peak_probe
 from .utils.sparse_export import coeffs_to_scipy
@@ -83,7 +98,9 @@ __all__ = [
     "detect_topology",
     "dma_peak_probe",
     "euler_propagate",
+    "euler_propagate_multi",
     "euler_step",
+    "euler_step_multi",
     "explicit_euler_propagate",
     "explicit_euler_step",
     "facefluxes",
@@ -96,11 +113,15 @@ __all__ = [
     "sequestration_time",
     "solve_shifted",
     "solve_shifted_chunked",
+    "solve_shifted_chunked_multi",
     "solve_shifted_ir",
+    "solve_shifted_multi",
     "stencil_apply",
+    "stencil_apply_multi",
     "synthetic_dataset",
     "transportmatrix",
     "transpose_coeffs",
     "tridiag_solve",
+    "water_mass_fractions",
     "wet_vector",
 ]

@@ -19,6 +19,13 @@ and the extra diagonal are folded into the stencil diagonal, so a matvec
 is one K1 launch. Tracer fields are dense (nz, ny, nx) with zeros on
 land, and every operator application keeps them so.
 
+A batch of right-hand sides (B, nz, ny, nx) that share the operator runs
+through the same engine (`solve_shifted_chunked_multi`): the same algebra
+in lockstep, with per-member scalars as (B,) device tensors, the matvec
+through K5 (one launch for all members) and M through one batched K2
+launch. The host loop keeps its rules per member; a field is one member.
+`water_mass_fractions` is built on it.
+
 Where the JAX package picks its solver by grid size (a workaround for the
 TPU runtime), this module routes by argument: `algorithm` picks the
 Krylov method, and the same engine runs at every size.
@@ -38,7 +45,7 @@ from ..grid.topology import GridTopology
 from ..ops.apply import transpose_coeffs
 from ..ops.coeffs import StencilCoeffs
 from ..ops.krylov import fused_krylov_step, krylov_scratch
-from ..ops.stencil import euler_propagate, euler_step, stencil_apply
+from ..ops.stencil import euler_propagate, euler_step, stencil_apply, stencil_apply_multi
 from ..ops.tridiag import tridiag_solve
 
 #: Matvec pairs (BiCGStab(1) iterations, half BiCGStab(2) cycles) between
@@ -81,6 +88,13 @@ def _tridiag_preconditioner(coeffs: StencilCoeffs, shifted_diag: torch.Tensor):
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """<a, b>: a 0-d tensor for fields (nz, ny, nx); for batches (B, nz, ny,
+    nx) the (B,) members' dots, one `torch.dot` each, so each equals the
+    unbatched dot. On an H100 this beats the one-launch forms: `bmm` is
+    ~60x slower and `linalg.vecdot` materialises a B-field product and
+    takes twice as long."""
+    if a.ndim == 4:
+        return torch.stack([torch.dot(u.reshape(-1), v.reshape(-1)) for u, v in zip(a, b)])
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
@@ -89,7 +103,10 @@ def _nonzero(x: torch.Tensor) -> torch.Tensor:
 
 
 def _axpy(y: torch.Tensor, a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """y + a x for a 0-d tensor a, in one pass over the fields."""
+    """y + a x for a 0-d tensor a, or for batches a (B,) tensor a of one
+    scalar per member, in one pass over the fields."""
+    if a.ndim == 1:
+        a = a.view(-1, 1, 1, 1)
     return torch.addcmul(y, a, x)
 
 
@@ -105,6 +122,9 @@ class _System(NamedTuple):
     m_legs: tuple | None
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
+        """A x: K1 on a field, K5 on a batch (B, nz, ny, nx)."""
+        if x.ndim == 4:
+            return stencil_apply_multi(self.a, x, self.topology)
         return stencil_apply(self.a, x, self.topology)
 
 
@@ -166,12 +186,17 @@ def _jitter_rhat(r: torch.Tensor, jitter: int) -> torch.Tensor:
     return r * (1.0 + torch.tensor(0.1 * jitter, dtype=r.dtype) * sign)
 
 
+def _scalars(b: torch.Tensor, value: float) -> torch.Tensor:
+    """The engine's scalar `value`: 0-d for a field, (B,) for a batch."""
+    return torch.full(b.shape[:-3], value, dtype=b.dtype, device=b.device)
+
+
 def _initial_state(algorithm: str, b: torch.Tensor):
     """The state at x = 0: r = rhat = b."""
     zero = torch.zeros_like(b)
     if algorithm == "bicgstab":
         return _State1(zero, b, b, b, _dot(b, b))
-    one = torch.ones((), dtype=b.dtype, device=b.device)
+    one = _scalars(b, 1.0)
     return _State2(zero, b, zero, b, one, torch.zeros_like(one), one)
 
 
@@ -187,7 +212,7 @@ def _restart_state(sys_: _System, algorithm: str, step, x: torch.Tensor, b: torc
         rhat = _jitter_rhat(r, jitter)
         return _State1(x, r, r, rhat, _dot(rhat, r))
     r = b - step(x, None, None, None)[1]
-    one = torch.ones((), dtype=b.dtype, device=b.device)
+    one = _scalars(b, 1.0)
     return _State2(x, r, torch.zeros_like(r), _jitter_rhat(r, jitter), one,
                    torch.zeros_like(one), one)
 
@@ -292,32 +317,80 @@ def _doubling(n: int) -> list[int]:
     return parts
 
 
+def _restart_members(sys_: _System, algorithm: str, step, state, x: torch.Tensor,
+                     b: torch.Tensor, mask: list[bool], jitter: int):
+    """`_restart_state` for the members of a batch in `mask` (a fresh Krylov
+    space at their iterates in `x`, rho = <rhat, r> per member); the other
+    members' state passes through untouched. A state restarted whole (a
+    field, or every member) is `_restart_state`'s. The JAX package's
+    `_mr_restart_members` seeds BiCGStab(1)'s rho with <r, r>."""
+    fresh = _restart_state(sys_, algorithm, step, x, b, jitter)
+    if all(mask):
+        return fresh
+    keep = torch.tensor(mask, device=b.device)
+    return type(state)(*(torch.where(keep.view((-1,) + (1,) * (old.ndim - 1)), new, old)
+                         for old, new in zip(state, fresh)))
+
+
 def _engine(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, chunk: int,
             algorithm: str, fused: bool, early_stop: bool, max_restarts: int,
             max_diverge_restarts: int, stats: dict | None, verbose: bool = False):
-    """The one Krylov loop (`solve_shifted_chunked` documents its rules).
-    Returns (x, relative residual ||A x - b|| / ||b|| recomputed from x)."""
+    """The one Krylov loop, for a field b (nz, ny, nx) or in lockstep for a
+    batch (B, nz, ny, nx) (`solve_shifted_chunked` and
+    `solve_shifted_chunked_multi` document its rules). A field is one
+    member whose state stays a field with 0-d scalars. Returns (x, relative
+    residuals ||A x - b|| / ||b|| recomputed from x, a list of one float per
+    member)."""
     step = _fused_step(sys_, krylov_scratch(*sys_.m_legs)) if fused else _unfused_step(sys_)
-    bnorm2 = float(_dot(b, b))
-    atol2 = tol ** 2 * bnorm2
+    batch = b.ndim == 4
+    bnorm2 = _dot(b, b).reshape(-1).tolist()
+    members = range(len(bnorm2))
+    atol2 = [tol ** 2 * v for v in bnorm2]
     state = _initial_state(algorithm, b)
-    iters = chunks_done = restarts = div_restarts = div_streak = 0
-    window_rn2 = math.inf
-    best_x, best_rn2 = state.x, bnorm2  # the residual at x0 = 0 is b
+    best_x, best_rn2 = state.x, list(bnorm2)  # the residual at x0 = 0 is b
+    rn2 = list(bnorm2)
+    pass_rn2 = list(bnorm2)  # per member, at the start of its current Krylov pass
+    window_rn2 = [math.inf] * len(members)
+    div_streak = [0] * len(members)
+    # A member is finished once it met tol at a read ("converged") or went
+    # non-finite with no jittered restart left ("diverged"). It stays
+    # finished and keeps its best iterate while a batch runs on in
+    # lockstep: a later breakdown of its recurrence is ignored.
+    finished: list[str | None] = [None] * len(members)
+    iters = chunks_done = restarts = div_restarts = 0
     diverge_exit_alive = True
-    pass_rn2 = rn2 = bnorm2  # residual at the start of the current Krylov pass
     stop = "maxiter"
     chunk_s = []
     say = (lambda msg: print(f"#   chunked iter {iters}: {msg}", file=sys.stderr)
            ) if verbose else (lambda msg: None)
 
-    def restart(jitter: int = 0):
-        nonlocal state, restarts, window_rn2, pass_rn2, div_streak
-        restarts += 1
-        div_streak = 0
-        state = _restart_state(sys_, algorithm, step, best_x, b, jitter)
-        window_rn2 = math.inf
-        pass_rn2 = best_rn2
+    def restart(mask: list[bool], jitter: int = 0):
+        nonlocal state, restarts
+        # A field's jittered restarts count against `max_restarts`, a
+        # batch's do not: the JAX package's two engines differ so.
+        restarts += 1 if not (batch and jitter) else 0
+        state = _restart_members(sys_, algorithm, step, state, best_x, b, mask, jitter)
+        for m in members:
+            if mask[m]:
+                div_streak[m] = 0
+                window_rn2[m] = math.inf
+                pass_rn2[m] = best_rn2[m]
+
+    def read():
+        nonlocal rn2, best_x
+        rn2 = _dot(state.r, state.r).reshape(-1).tolist()
+        better = [v < w for v, w in zip(rn2, best_rn2)]  # False for NaN
+        # No copies: the loop never writes a tensor in place.
+        if all(better):
+            best_x = state.x
+        elif any(better):
+            best_x = torch.where(torch.tensor(better, device=b.device).view(-1, 1, 1, 1),
+                                 state.x, best_x)
+        for m in members:
+            if better[m]:
+                best_rn2[m] = rn2[m]
+            if finished[m] is None and rn2[m] <= atol2[m]:
+                finished[m] = "converged"
 
     first_chunk = True
     while iters < maxiter:
@@ -336,71 +409,92 @@ def _engine(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, chunk: int
             else:
                 state = _bicgstab2_cycles(step, state, n)
                 iters += 2 * n
-            rn2 = float(_dot(state.r, state.r))
-            if rn2 < best_rn2:  # False for NaN
-                best_rn2, best_x = rn2, state.x  # no copy: the loop never writes in place
-            say(f"rel recurrence residual {math.sqrt(rn2 / bnorm2) if bnorm2 else 0.0:.3e}")
-            if rn2 <= atol2 or not math.isfinite(rn2):
+            read()
+            say("rel recurrence residual "
+                + " ".join(f"{math.sqrt(v / w) if w else 0.0:.3e}" for v, w in zip(rn2, bnorm2)))
+            if all(finished) or any(f is None and not math.isfinite(v)
+                                    for f, v in zip(finished, rn2)):
                 break
         chunk_s.append(round(time.perf_counter() - t_chunk, 4))
-        if rn2 <= atol2:
-            stop = "converged"
+        if all(finished):
+            stop = "converged" if all(f == "converged" for f in finished) else "diverged"
             break
-        # Divergence exit: the recurrence residual above 16x (4x in norm)
-        # its pass-start value at two consecutive reads, or non-finite at
-        # one. A non-finite recurrence never recovers, so it ends the solve
-        # in every state once no jittered restart is left.
-        finite = math.isfinite(rn2)
-        if not rn2 <= 16.0 * pass_rn2:
-            div_streak = div_streak + 1 if finite else 2
-        else:
-            div_streak = 0
-        if div_streak >= 2 and (diverge_exit_alive or not finite):
-            div_streak = 0
+        active = [f is None for f in finished]
+        finite = [math.isfinite(v) for v in rn2]
+        # Divergence, per active member: the recurrence residual above 16x
+        # (4x in norm) its pass-start value at two consecutive reads, or
+        # non-finite at one. The jittered restarts share one budget.
+        for m in members:
+            over = active[m] and not rn2[m] <= 16.0 * pass_rn2[m]
+            div_streak[m] = (div_streak[m] + 1 if finite[m] else 2) if over else 0
+        fire = [div_streak[m] >= 2 and (diverge_exit_alive or not finite[m]) for m in members]
+        if any(fire):
+            for m in members:
+                if fire[m]:
+                    div_streak[m] = 0
             if div_restarts < max_diverge_restarts:
                 div_restarts += 1
-                say(f"DIVERGED; jittered restart {div_restarts} from the best iterate")
-                restart(jitter=div_restarts)
+                say(f"members {[m for m in members if fire[m]]} diverged; jittered restart "
+                    f"{div_restarts} from their best iterates")
+                restart(fire, jitter=div_restarts)
                 continue
-            if best_rn2 < pass_rn2 or not finite:
+            no_progress = False
+            for m in members:
+                if fire[m] and not finite[m]:
+                    finished[m] = "diverged"  # a non-finite recurrence never recovers
+                elif fire[m] and not best_rn2[m] < pass_rn2[m]:
+                    no_progress = True
+            if no_progress:
+                # A finite member with no progress to protect: let the
+                # recurrences run, as blow-up-then-recover trajectories
+                # still reach useful contractions (the stall window and
+                # maxiter bound the waste); non-finite members still end.
+                diverge_exit_alive = False
+            elif all(fire[m] or finished[m] for m in members):
                 stop = "diverged"
                 break
-            # No progress to protect and a finite recurrence: let it run, as
-            # blow-up-then-recover trajectories still reach useful
-            # contractions; the stall window and maxiter bound the waste.
-            diverge_exit_alive = False
-        # Stall: a whole 3-chunk window without 2 % of gain in the norm.
+            # Otherwise the members still converging go on; the diverged
+            # ones are protected by their best iterates.
+        # Stall, per active member: a whole 3-chunk window without 2 % of
+        # gain in the norm.
         chunks_done += 1
         if early_stop and chunks_done % 3 == 0:
-            if rn2 >= 0.98 ** 2 * window_rn2:
+            stalled = [finished[m] is None and not rn2[m] < 0.98 ** 2 * window_rn2[m]
+                       for m in members]
+            if any(stalled):
                 if restarts < max_restarts:
-                    say(f"window stalled; restart {restarts + 1} from the best iterate")
-                    restart()
+                    say(f"members {[m for m in members if stalled[m]]} stalled; restart "
+                        f"{restarts + 1} from their best iterates")
+                    restart(stalled)
                     continue
-                warnings.warn(
-                    f"solve_shifted_chunked: relative residual "
-                    f"{math.sqrt(rn2 / bnorm2):.3e} after {iters} iterations improved <2% "
-                    f"over the last {3 * chunk} iterations (after {restarts} restart(s)) "
-                    f"— likely the rounding floor of {b.dtype}; wrap in solve_shifted_ir "
-                    f"for tighter residuals, or pass early_stop=False to keep iterating.",
-                    stacklevel=3,
-                )
-                stop = "stall"
-                break
-            window_rn2 = rn2
+                if all(stalled[m] or finished[m] for m in members):
+                    worst = max(math.sqrt(rn2[m] / bnorm2[m]) if bnorm2[m] else 0.0
+                                for m in members if stalled[m])
+                    warnings.warn(
+                        f"solve_shifted_chunked{'_multi' if batch else ''}: "
+                        f"{'worst ' if batch else ''}relative residual {worst:.3e} after {iters} "
+                        f"iterations improved <2% over the last {3 * chunk} iterations (after "
+                        f"{restarts} restart(s)) — likely the rounding floor of {b.dtype}; "
+                        + ("" if batch else "wrap in solve_shifted_ir for tighter residuals, ")
+                        + "or pass early_stop=False to keep iterating.",
+                        stacklevel=3,
+                    )
+                    stop = "stall"
+                    break
+            window_rn2 = list(rn2)
 
-    take_last = rn2 < best_rn2  # False for NaN: never the broken last iterate
-    x = state.x if take_last else best_x
     if stats is not None:
-        bn = math.sqrt(bnorm2) if bnorm2 > 0 else 1.0
         stats.update(iters=iters, restarts=restarts, stop=stop, diverge_restarts=div_restarts,
-                     start_rel=1.0, end_rel=math.sqrt(rn2 if take_last else best_rn2) / bn,
+                     start_rel=1.0,
+                     end_rel=max(math.sqrt(v) / (math.sqrt(w) if w > 0 else 1.0)
+                                 for v, w in zip(best_rn2, bnorm2)),
                      chunk_s=chunk_s)
-    if algorithm == "bicgstab2":
-        x = sys_.M(x)  # the state lives in right-preconditioned y-space
-    bnorm = math.sqrt(bnorm2)
-    res = float(torch.linalg.vector_norm(sys_.apply(x) - b)) / (bnorm if bnorm else 1.0)
-    return x, res
+    del state
+    x = sys_.M(best_x) if algorithm == "bicgstab2" else best_x  # y-space for BiCGStab(2)
+    r = sys_.apply(x) - b
+    rnorm = (torch.linalg.vector_norm(r.reshape(len(members), -1), dim=1).tolist() if batch
+             else [float(torch.linalg.vector_norm(r))])
+    return x, [v / (math.sqrt(w) if w > 0 else 1.0) for v, w in zip(rnorm, bnorm2)]
 
 
 def solve_shifted_chunked(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopology,
@@ -424,11 +518,12 @@ def solve_shifted_chunked(coeffs: StencilCoeffs, b: torch.Tensor, topology: Grid
     - `chunk`: matvec pairs between host reads of the residual; the first
       chunk is also read after 1, 2, 4, ... iterations (cycles for
       BiCGStab(2)), for the convergence test and the best iterate only.
-    - The best chunk-boundary iterate is kept and returned unless the last
-      iterate's recurrence residual is a number and beats it.
+    - The iterate with the best recurrence residual at a read is kept and
+      returned.
     - `early_stop`: stop (after `max_restarts` restarts from the best
-      iterate with a fresh Krylov space) when a 3-chunk window improves the
-      residual norm by less than 2 %, with a warning.
+      iterate with a fresh Krylov space, jittered restarts counted among
+      them) when a 3-chunk window improves the residual norm by less than
+      2 %, with a warning.
     - Divergence: a recurrence residual above 4x its pass-start norm at two
       consecutive reads restarts from the best iterate with a jittered
       shadow vector, at most `max_diverge_restarts` times (a budget apart
@@ -438,11 +533,11 @@ def solve_shifted_chunked(coeffs: StencilCoeffs, b: torch.Tensor, topology: Grid
     - `fused` (default: on for "bicgstab2" with the "tridiag"
       preconditioner) runs each BiCGStab(2) half-step as one K3 launch;
       False runs the separate K2, K1 and vector passes.
-    - `stats`, if a dict, receives ``iters``, ``restarts``, ``stop``
-      ("converged" / "stall" / "diverged" / "maxiter"),
-      ``diverge_restarts``, ``start_rel``, ``end_rel`` (recurrence
-      residuals) and ``chunk_s`` (wall seconds per chunk, host read
-      included)."""
+    - `stats`, if a dict, receives ``iters``, ``restarts`` (the jittered
+      ones included), ``stop`` ("converged" / "stall" / "diverged" /
+      "maxiter"), ``diverge_restarts``, ``start_rel``, ``end_rel``
+      (recurrence residuals) and ``chunk_s`` (wall seconds per chunk, host
+      read included)."""
     if algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}")
     if fused is None:
@@ -450,8 +545,9 @@ def solve_shifted_chunked(coeffs: StencilCoeffs, b: torch.Tensor, topology: Grid
     if fused and preconditioner != "tridiag":
         raise ValueError("fused=True needs the tridiag preconditioner (K3 is its Thomas solve)")
     sys_ = _system(coeffs, b.dtype, topology, shift, extra_diag, transpose, preconditioner)
-    return _engine(sys_, b, tol, maxiter, chunk, algorithm, fused and algorithm == "bicgstab2",
-                   early_stop, max_restarts, max_diverge_restarts, stats, verbose)
+    x, res = _engine(sys_, b, tol, maxiter, chunk, algorithm, fused and algorithm == "bicgstab2",
+                     early_stop, max_restarts, max_diverge_restarts, stats, verbose)
+    return x, res[0]
 
 
 def solve_shifted(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopology,
@@ -655,3 +751,114 @@ def sequestration_time(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: Gri
     T' (`transpose_coeffs`). Arguments and returns as `ideal_age`."""
     return _steady_state(coeffs, wet3d, topology, surface_rate, tol, refine, algorithm,
                          True, stats)
+
+
+def solve_shifted_chunked_multi(coeffs: StencilCoeffs, bs: torch.Tensor,
+                                topology: GridTopology, shift: float = 0.0,
+                                extra_diag: torch.Tensor | None = None, tol: float = 1e-10,
+                                maxiter: int = 2000, chunk: int = CHUNK,
+                                transpose: bool = False, preconditioner: str = "tridiag",
+                                verbose: bool = False, early_stop: bool = True,
+                                max_restarts: int = 2, algorithm: str = "bicgstab",
+                                stats: dict | None = None, max_diverge_restarts: int = 2):
+    """Solve (shift * I + D_extra + T) x_b = b_b (T' when `transpose`) for a
+    batch of right-hand sides `bs` (B, nz, ny, nx) in one lockstep Krylov
+    loop. Returns (xs, residuals): xs (B, nz, ny, nx) and the (B,) relative
+    residuals ||A x_b - b_b|| / ||b_b|| as a float64 host tensor,
+    recomputed from xs in bs's dtype.
+
+    The engine of `solve_shifted_chunked` for a batch: the same algebra
+    with (B,) per-member scalars; each matvec is one K5 launch for all
+    members (the coefficients read once for the batch) and M one batched K2
+    launch (or Jacobi). BiCGStab(2) runs in y-space, x = M y. Arguments as
+    in `solve_shifted_chunked`, with these rules per member:
+
+    - The per-member residuals are read every `chunk` matvec pairs (the
+      first chunk also after 1, 2, 4, ...); each member keeps its best
+      iterate, which is what it returns.
+    - A member that meets tol at a read is done and stays done, however its
+      recurrence goes on in lockstep; the solve stops when all are done.
+    - Divergence (4x the pass-start norm at two consecutive reads, or
+      non-finite at one) restarts the diverged members from their best
+      iterates with a jittered shadow vector, from one budget of
+      `max_diverge_restarts` for the batch. With the budget spent, a
+      non-finite member is done (with its best iterate); a finite member
+      with no progress makes the exits dormant, as for a single field;
+      when every member still running has diverged, the solve stops.
+    - `early_stop`: a 3-chunk window without 2 % of gain restarts the
+      stalled members (converged ones masked out), at most `max_restarts`
+      times for the batch (the jittered restarts have their own budget,
+      as in the JAX package); then the solve stops with a warning once
+      every member still running has stalled.
+    - `stats` as in `solve_shifted_chunked`, but ``restarts`` counts the
+      stall restarts only; ``end_rel`` is the worst member's."""
+    if algorithm not in ALGORITHMS:
+        raise ValueError(f"unknown algorithm {algorithm!r}")
+    if bs.ndim != 4 or bs.shape[0] < 1:
+        raise ValueError(f"bs must be (B, nz, ny, nx) with B >= 1; got {tuple(bs.shape)}")
+    sys_ = _system(coeffs, bs.dtype, topology, shift, extra_diag, transpose, preconditioner)
+    xs, res = _engine(sys_, bs, tol, maxiter, chunk, algorithm, False, early_stop, max_restarts,
+                      max_diverge_restarts, stats, verbose)
+    return xs, torch.tensor(res, dtype=torch.float64)
+
+
+def solve_shifted_multi(coeffs: StencilCoeffs, bs: torch.Tensor, topology: GridTopology,
+                        shift: float = 0.0, extra_diag: torch.Tensor | None = None,
+                        tol: float = 1e-10, maxiter: int = 2000, transpose: bool = False,
+                        preconditioner: str = "tridiag", stats: dict | None = None):
+    """`solve_shifted` for a batch `bs` (B, nz, ny, nx): one lockstep
+    BiCGStab over all members, the engine without stall stops or
+    restarts (`solve_shifted_chunked_multi` documents it). Returns (xs,
+    (B,) relative residuals)."""
+    return solve_shifted_chunked_multi(coeffs, bs, topology, shift=shift,
+                                       extra_diag=extra_diag, tol=tol, maxiter=maxiter,
+                                       transpose=transpose, preconditioner=preconditioner,
+                                       early_stop=False, max_restarts=0, algorithm="bicgstab",
+                                       stats=stats, max_diverge_restarts=0)
+
+
+def water_mass_fractions(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: GridTopology,
+                         region_masks, surface_rate: float = 1.0, tol: float = 1e-8,
+                         preconditioner: str = "tridiag", algorithm: str = "bicgstab",
+                         stats: dict | None = None):
+    """Steady-state surface-origin water-mass fractions, one batched solve
+    for all regions. For a partition of the surface into R regions,
+    fraction r satisfies the dye steady state
+
+        (T + M) f_r = M 1_region_r,   M = surface_rate on the wet surface,
+
+    so f_r(cell) is the fraction of the water at `cell` that last touched
+    the surface in region r; by linearity the fractions of a partition sum
+    to the all-surface dye solve. `region_masks` is (R, ny, nx) boolean.
+    Returns (fractions (R, nz, ny, nx) with NaN on land, (R,) relative
+    residuals); a region with no wet surface cell gives zeros and residual 0.
+
+    The solve runs in the coefficients' dtype, without refinement.
+    `algorithm` routes it: "bicgstab" (`solve_shifted_multi`, the JAX
+    package's 1-degree route) or "bicgstab2" (`solve_shifted_chunked_multi`
+    with BiCGStab(2), its 0.25-degree route). `stats` receives the
+    engine's stats.
+
+    The relative residual is the surface rows' (b is `surface_rate` there,
+    the interior legs are orders of magnitude smaller), so a loose tol
+    leaves the interior unresolved: on the 1-degree synthetic operator the
+    all-surface dye at tol 1e-8 spans [0.0009, 1.92] against the converged
+    [0.9998, 1.0002]; an f64 solve converges from tol 1e-12. The JAX
+    package's `water_mass_fractions` shares this: on a 72x60x12 grid its
+    fractions, like these, miss the converged dye by ~1 at tol 1e-8
+    (`tests/test_torch_multi.py`)."""
+    if algorithm not in ALGORITHMS:
+        raise ValueError(f"unknown algorithm {algorithm!r}")
+    wet = wet3d.to(torch.bool)
+    dtype = coeffs.diag.dtype
+    masks = torch.as_tensor(region_masks, dtype=torch.bool, device=wet.device)
+    surf = torch.zeros(wet.shape, dtype=dtype, device=wet.device)
+    surf[0] = surface_rate
+    surf = torch.where(wet, surf, 0.0)
+    bs = torch.where(wet[None] & masks[:, None], surf[None], 0.0)
+    kw = dict(extra_diag=surf, tol=tol, preconditioner=preconditioner, stats=stats)
+    if algorithm == "bicgstab":
+        fr, res = solve_shifted_multi(coeffs, bs, topology, **kw)
+    else:
+        fr, res = solve_shifted_chunked_multi(coeffs, bs, topology, algorithm=algorithm, **kw)
+    return torch.where(wet[None], fr, float("nan")), res

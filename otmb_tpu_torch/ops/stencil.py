@@ -1,15 +1,22 @@
-"""K1: the 7-point stencil kernel — apply, fused Euler step, propagation.
+"""K1 and K5: the 7-point stencil kernels — apply, fused Euler step,
+propagation — for one tracer (K1) and for a batch of tracers (K5).
 
-Replaces `otmb_tpu/ops/stencil_pallas.py` (`apply_stencil_pallas`,
-`euler_step_pallas`, `euler_propagate_pallas`) with one CUDA kernel,
-`csrc/stencil.cu`. Coefficient and value types (C, V) are one of
-(f32, f32), (bf16, f32), (f32, f64), (f64, f64); the sum runs in V.
-(f32, f64) evaluates an f64 defect from an f32 operator without a wide
-copy of the coefficients.
+K1 replaces `otmb_tpu/ops/stencil_pallas.py` (`apply_stencil_pallas`,
+`euler_step_pallas`, `euler_propagate_pallas`) with one CUDA kernel; K5
+replaces its batched family (`apply_stencil_pallas_multi`,
+`euler_step_pallas_multi`, `euler_propagate_pallas_multi`) with another;
+both are in `csrc/stencil.cu`. A batch is (B, nz, ny, nx), batch-major as
+in the JAX package, and K5 reads the coefficients once for all B members:
+7 + 2B streams instead of 9B. Member b of K5's result equals K1 on member
+b, bit for bit.
 
-A CUDA tensor always goes to the kernel, and a failure raises. A CPU
-tensor takes the plain version, `ops.apply.apply_stencil`. `dt` is a
-run-time argument of the kernel.
+Coefficient and value types (C, V) are one of (f32, f32), (bf16, f32),
+(f32, f64), (f64, f64); the sum runs in V. (f32, f64) evaluates an f64
+defect from an f32 operator without a wide copy of the coefficients.
+
+A CUDA tensor always goes to the kernel, for every B >= 1, and a failure
+raises. A CPU tensor takes the plain version, `ops.apply.apply_stencil`,
+which broadcasts over a batch. `dt` is a run-time argument of the kernels.
 """
 
 from __future__ import annotations
@@ -23,8 +30,9 @@ from ..grid.topology import UNKNOWN, GridTopology
 from .apply import apply_stencil
 from .coeffs import StencilCoeffs
 
-#: Kernel launches made by this module's wrappers.
+#: Kernel launches made by this module's wrappers: K1 and K5.
 LAUNCHES = 0
+MULTI_LAUNCHES = 0
 
 _ENTRY = {
     (torch.float32, torch.float32): "otmb_stencil_f32_f32",
@@ -33,9 +41,13 @@ _ENTRY = {
     (torch.float64, torch.float64): "otmb_stencil_f64_f64",
 }
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_double, ctypes.c_void_p]
+_MULTI_ENTRY = {key: name.replace("otmb_stencil_", "otmb_stencil_multi_")
+                for key, name in _ENTRY.items()}
+_MULTI_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_double, ctypes.c_void_p]
 
 
-def _validate(coeffs: StencilCoeffs, chi: torch.Tensor, topology: GridTopology) -> None:
+def _validate(coeffs: StencilCoeffs, chi: torch.Tensor, topology: GridTopology,
+              batched: bool = False) -> None:
     if topology.kind == UNKNOWN:
         raise ValueError("stencil: unknown grid topology")
     key = (coeffs.diag.dtype, chi.dtype)
@@ -43,9 +55,12 @@ def _validate(coeffs: StencilCoeffs, chi: torch.Tensor, topology: GridTopology) 
         raise TypeError(f"stencil: no kernel for (coefficients, values) = {key}; "
                         f"supported: {sorted(map(str, _ENTRY))}")
     shape = topology.shape3d
+    if batched and (chi.ndim != 4 or chi.shape[0] < 1 or tuple(chi.shape[1:]) != shape):
+        raise ValueError(f"stencil: chis has shape {tuple(chi.shape)}, expected "
+                         f"(B, {', '.join(map(str, shape))}) with B >= 1")
     for name, t in (*zip(coeffs._fields, coeffs), ("chi", chi)):
         want = chi.dtype if name == "chi" else coeffs.diag.dtype
-        if tuple(t.shape) != shape:
+        if tuple(t.shape) != shape and not (batched and name == "chi"):
             raise ValueError(f"stencil: {name} has shape {tuple(t.shape)}, expected {shape}")
         if t.dtype != want:
             raise TypeError(f"stencil: {name} is {t.dtype}, expected {want}")
@@ -61,20 +76,25 @@ def _plain(coeffs, chi, topology, dt):
 
 
 def _launch(coeffs, chi, topology, dt, out):
-    global LAUNCHES
+    """K1 on a (nz, ny, nx) chi, K5 on a (B, nz, ny, nx) batch."""
+    global LAUNCHES, MULTI_LAUNCHES
     nz, ny, nx = topology.shape3d
-    _build.launch(
-        _ENTRY[(coeffs.diag.dtype, chi.dtype)], _ARGTYPES, chi.device,
-        *(leg.data_ptr() for leg in coeffs), chi.data_ptr(), out.data_ptr(),
-        nz, ny, nx, int(topology.is_tripolar), int(dt is not None),
-        0.0 if dt is None else float(dt),
-    )
-    LAUNCHES += 1
+    key = (coeffs.diag.dtype, chi.dtype)
+    fields = (*(leg.data_ptr() for leg in coeffs), chi.data_ptr(), out.data_ptr())
+    sizes = (nz, ny, nx, int(topology.is_tripolar), int(dt is not None),
+             0.0 if dt is None else float(dt))
+    if chi.ndim == 4:
+        _build.launch(_MULTI_ENTRY[key], _MULTI_ARGTYPES, chi.device, *fields, chi.shape[0],
+                      *sizes)
+        MULTI_LAUNCHES += 1
+    else:
+        _build.launch(_ENTRY[key], _ARGTYPES, chi.device, *fields, *sizes)
+        LAUNCHES += 1
     return out
 
 
-def _run(coeffs, chi, topology, dt):
-    _validate(coeffs, chi, topology)
+def _run(coeffs, chi, topology, dt, batched=False):
+    _validate(coeffs, chi, topology, batched)
     if chi.is_cuda:
         return _launch(coeffs, chi, topology, dt, torch.empty_like(chi))
     return _plain(coeffs, chi, topology, dt)
@@ -90,11 +110,8 @@ def euler_step(coeffs: StencilCoeffs, chi: torch.Tensor, dt: float, topology: Gr
     return _run(coeffs, chi, topology, dt)
 
 
-def euler_propagate(coeffs: StencilCoeffs, chi: torch.Tensor, dt: float, nsteps: int,
-                    topology: GridTopology):
-    """nsteps of chi - dt * T @ chi; on the card, one launch per step into
-    two alternating buffers."""
-    _validate(coeffs, chi, topology)
+def _propagate(coeffs, chi, dt, nsteps, topology, batched):
+    _validate(coeffs, chi, topology, batched)
     if not chi.is_cuda:
         for _ in range(int(nsteps)):
             chi = _plain(coeffs, chi, topology, dt)
@@ -103,3 +120,30 @@ def euler_propagate(coeffs: StencilCoeffs, chi: torch.Tensor, dt: float, nsteps:
     for step in range(int(nsteps)):
         chi = _launch(coeffs, chi, topology, dt, buffers[step % 2])
     return chi
+
+
+def euler_propagate(coeffs: StencilCoeffs, chi: torch.Tensor, dt: float, nsteps: int,
+                    topology: GridTopology):
+    """nsteps of chi - dt * T @ chi; on the card, one launch per step into
+    two alternating buffers."""
+    return _propagate(coeffs, chi, dt, nsteps, topology, False)
+
+
+def stencil_apply_multi(coeffs: StencilCoeffs, chis: torch.Tensor, topology: GridTopology):
+    """y[b] = T @ chis[b] for a batch (B, nz, ny, nx) in one K5 launch (the
+    kernel of `apply_stencil_pallas_multi`)."""
+    return _run(coeffs, chis, topology, None, batched=True)
+
+
+def euler_step_multi(coeffs: StencilCoeffs, chis: torch.Tensor, dt: float,
+                     topology: GridTopology):
+    """chis - dt * T @ chis for a batch in one K5 launch (the kernel of
+    `euler_step_pallas_multi`)."""
+    return _run(coeffs, chis, topology, dt, batched=True)
+
+
+def euler_propagate_multi(coeffs: StencilCoeffs, chis: torch.Tensor, dt: float, nsteps: int,
+                          topology: GridTopology):
+    """nsteps of the batched Euler step (`euler_propagate_pallas_multi`); on
+    the card, one K5 launch per step into two alternating buffers."""
+    return _propagate(coeffs, chis, dt, nsteps, topology, True)

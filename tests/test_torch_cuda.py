@@ -1,6 +1,7 @@
-"""otmb_tpu_torch's CUDA kernels against their plain PyTorch versions, on
-the card. Every test here needs an NVIDIA GPU and skips without one. The
-file imports no JAX, so it also runs where JAX is not installed:
+"""otmb_tpu_torch's CUDA kernels against their plain PyTorch versions (and
+K5 against K1, member by member), on the card. Every test here needs an
+NVIDIA GPU and skips without one. The file imports no JAX, so it also runs
+where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -206,3 +207,100 @@ def test_fused_and_unfused_engines_agree(case):
     assert rf < 1e-4 and rc < 1e-4
     scale = float(xc.abs().max())
     assert float((xf - xc).abs().max()) <= 2e-4 * scale
+
+
+@pytest.mark.parametrize("nmembers", [1, 3, 8])
+@pytest.mark.parametrize("types", ["f64,f64", "f32,f64", "f32,f32", "bf16,f32"])
+def test_k5_equals_k1_per_member(case, types, nmembers):
+    """K5's member b equals K1 on member b bit for bit (apply and Euler
+    step, T and T'), and one K5 launch serves the whole batch."""
+    _, gm, idx, T, chi = case
+    ctype, vtype = ({"f64": torch.float64, "f32": torch.float32, "bf16": torch.bfloat16}[t]
+                    for t in types.split(","))
+    topo = gm.topology
+    rng = np.random.default_rng(7)
+    xs = torch.where(idx.wet3d, torch.as_tensor(rng.standard_normal((nmembers,) + gm.shape),
+                                                device=chi.device), 0.0).to(vtype)
+    dt = 0.25 / float(T.diag.abs().max())
+    for c in (T.to(ctype), P.transpose_coeffs(T, topo).to(ctype)):
+        n5 = stencil.MULTI_LAUNCHES
+        got = P.stencil_apply_multi(c, xs, topo)
+        step = P.euler_step_multi(c, xs, dt, topo)
+        assert stencil.MULTI_LAUNCHES == n5 + 2
+        for m in range(nmembers):
+            torch.testing.assert_close(got[m], P.stencil_apply(c, xs[m], topo), rtol=0, atol=0)
+            torch.testing.assert_close(step[m], P.euler_step(c, xs[m], dt, topo), rtol=0, atol=0)
+        torch.testing.assert_close(got, P.apply_stencil(c, xs, topo), rtol=0, atol=0)
+    prop = P.euler_propagate_multi(T.to(ctype), xs, dt, 3, topo)
+    for m in range(nmembers):
+        torch.testing.assert_close(prop[m], P.euler_propagate(T.to(ctype), xs[m], dt, 3, topo),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_batched_k2_equals_per_member(case, dtype):
+    _, _, idx, T, chi = case
+    surf = torch.zeros_like(chi)
+    surf[0] = 1.0
+    shifted = (T.diag + torch.where(idx.wet3d, surf, 0.0)).to(dtype)
+    legs = (T.bottom.to(dtype), torch.where(shifted != 0, shifted, 1.0), T.top.to(dtype))
+    rng = np.random.default_rng(8)
+    bs = torch.as_tensor(rng.standard_normal((4,) + chi.shape), device=chi.device).to(dtype)
+    n2 = tridiag.LAUNCHES
+    got = P.tridiag_solve(*legs, bs)
+    assert tridiag.LAUNCHES == n2 + 1
+    for m in range(4):
+        torch.testing.assert_close(got[m], P.tridiag_solve(*legs, bs[m]), rtol=0, atol=0)
+    torch.testing.assert_close(got, tridiag_solve_plain(*legs, bs), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,algorithm,tol", [(torch.float64, "bicgstab", 1e-12),
+                                                 (torch.float64, "bicgstab2", 1e-12),
+                                                 (torch.float32, "bicgstab", 1e-4),
+                                                 (torch.float32, "bicgstab2", 1e-4)])
+def test_water_mass_fractions_go_through_k5_and_k2(case, dtype, algorithm, tol):
+    """The fractions launch K5 and the batched K2 and no K1, and meet tol;
+    their sum solves the all-surface dye system to sqrt(R) tol (the bands'
+    right-hand sides are disjoint), evaluated in f64, plus the f32 floor.
+    Only a tight f64 solve resolves the interior (the residual is dominated
+    by the surface restoring rows), so only that one is held to [0, 1]."""
+    _, gm, idx, T, _ = case
+    ny, nx = gm.shape[1:]
+    nbands = 3
+    masks = np.zeros((nbands, ny, nx), bool)
+    for r in range(nbands):
+        masks[r, r * ny // nbands:(r + 1) * ny // nbands] = True
+    c = T.to(dtype)
+    n1, n5, n2 = stencil.LAUNCHES, stencil.MULTI_LAUNCHES, tridiag.LAUNCHES
+    fr, res = P.water_mass_fractions(c, idx.wet3d, gm.topology, masks, tol=tol,
+                                     algorithm=algorithm)
+    assert stencil.MULTI_LAUNCHES > n5 and tridiag.LAUNCHES > n2 and stencil.LAUNCHES == n1
+    assert res.shape == (nbands,) and float(res.max()) <= tol
+    wet = idx.wet3d
+    assert bool(torch.isfinite(fr[:, wet]).all()) and bool(torch.isnan(fr[:, ~wet]).all())
+    surf = torch.zeros(wet.shape, dtype=torch.float64, device=wet.device)
+    surf[0] = 1.0
+    surf = torch.where(wet, surf, 0.0)
+    total = torch.where(wet, fr.sum(0), 0.0).double()
+    defect = P.stencil_apply(c, total, gm.topology) + surf * total - surf
+    floor = 1e-5 if dtype == torch.float32 else 0.0
+    assert float(defect.norm() / surf.norm()) <= nbands ** 0.5 * tol + floor
+    if dtype == torch.float64:
+        frv = fr[:, wet]
+        assert float(frv.min()) > -1e-3 and float(frv.max()) < 1.0 + 1e-3
+
+
+def test_k5_wrapper_raises_on_card(case):
+    _, gm, _, T, chi = case
+    topo = gm.topology
+    xs = torch.stack([chi, chi])
+    with pytest.raises(ValueError, match="B, "):
+        P.stencil_apply_multi(T, chi, topo)
+    with pytest.raises(ValueError, match="B, "):
+        P.stencil_apply_multi(T, xs[:0], topo)
+    with pytest.raises(ValueError, match="not contiguous"):
+        P.stencil_apply_multi(T, xs.transpose(2, 3).contiguous().transpose(2, 3), topo)
+    with pytest.raises(ValueError, match="on cpu"):
+        P.euler_step_multi(T._replace(top=T.top.cpu()), xs, 1.0, topo)
+    with pytest.raises(ValueError, match="expected"):
+        P.stencil_apply(T, xs, topo)
