@@ -1,8 +1,9 @@
 """Smoke run of otmb_tpu_torch on one NVIDIA GPU.
 
 Builds the CUDA kernels K1 (stencil), K2 (Thomas solve), K3 (fused Krylov
-step), K4 (fused assembly), K5 (multi-tracer stencil) and K10 (bandwidth
-probe) from otmb_tpu_torch/csrc, one nvcc per source in parallel, then:
+step), K4 (fused assembly), K5 (multi-tracer stencil), K6 (Redi operator,
+one tracer or a batch) and K10 (bandwidth probe) from otmb_tpu_torch/csrc,
+one nvcc per source in parallel, then:
 
   1. prints the card (nvidia-smi name and power limit), the torch and CUDA
      versions and the kernel build time;
@@ -46,7 +47,27 @@ probe) from otmb_tpu_torch/csrc, one nvcc per source in parallel, then:
      measured bandwidth and the fractions of it that K1, K2, K3 and K5
      reach at 0.25 degrees;
  13. times K1, K2, K3 and one BiCGStab(2) cycle (fused and unfused) at
-     0.25 degrees, and K10.
+     0.25 degrees, and K10;
+ 14. drives the 1-degree density path through the public API (f64 grid
+     metrics made without device=, on the current CUDA device), counts
+     reset before and read after: TEOS-10 density of the synthetic
+     hydrography -> potential-density slopes -> GM bolus transports ->
+     transportmatrix and assemble_T (K4, held against it) -> the Redi
+     operator R from the f32 density -> 200 steps of chi <- euler_step(T, chi)
+     + dt R chi (K1 + K6) and the same for 8 tracers (K5 + K6 on the batch,
+     each member equal to the single run bit for bit), with the tracer-mass
+     drift, and the bf16 R (K6 in (bf16, f32));
+ 15. holds K6 against its plain version in (f64, f64), (f32, f32) and
+     (bf16, f32) at 1 degree on both topologies, K6 on a batch of 4 and 8
+     against K6 member by member and against plain, and R's invariants
+     (conservation, constants in the null space) through the kernel; at
+     0.25 degrees and 720x540x75, K6 and the batch of 2 in f32;
+ 16. times K6 and its plain version at 1 and 0.25 degrees, the bf16 K6, K6
+     on a batch of B = 1, 2, 4, 8 beside B launches of K6, and the library
+     calls of K1 and K5 (a CSR matrix of T times one vector and times 8);
+     each kernel's bound (its compulsory bytes over the published 3.35 TB/s
+     of the H100 SXM, or its operations over 67 TFLOP/s f32, whichever is
+     larger) and its rate as a fraction of K10's measured bandwidth.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 device and exits non-zero, printing no result, without one, and whenever
@@ -133,6 +154,24 @@ FRACTION_SLACK = 1e-3
 # reported residuals may sit that far from their f64 recomputation.
 FLOOR = {torch.float32: 1e-5, torch.float64: 0.0}
 QUARTER_PAIRS = 150  # matvec pairs of the fixed-work 0.25-degree solves
+# K6 runs the plain version's operations in its order in the value type,
+# built without FMA contraction: equal to redi_apply bit for bit, in every
+# type pair (bf16 coefficients widen exactly to f32).
+TOL_K6 = 0.0
+REDI_TYPES = (("f64", "f64"), ("f32", "f32"), ("bf16", "f32"))
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "f64": torch.float64}
+# The bf16 coefficients' rounding against the exact (f64) apply, relative
+# to its largest value: the bound of tests/test_redi.py:242.
+TOL_REDI_BF16 = 3e-2
+DENSITY_STEPS = 200
+# A CSR matrix product sums each row in another order than K1: the library
+# call is only checked to compute the same function, at this bound.
+TOL_LIBRARY = 1e-4
+# Published rates of one H100 SXM (NVIDIA's datasheet): the bound
+# of a kernel is its compulsory bytes over PEAK_BYTES or its operations
+# over PEAK_F32, whichever is larger.
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
 
 
 def log(msg: str) -> None:
@@ -436,12 +475,14 @@ def time_pair(kernel, plain, calls_k: int, calls_p: int) -> tuple[float, float]:
 
 def reset_launches():
     """Set every kernel's launch count to 0; returns a reader of the counts."""
+    from otmb_tpu_torch.models import redi_kernel
     from otmb_tpu_torch.ops import assemble, krylov, stencil, tridiag
     from otmb_tpu_torch.utils import profiling
 
     counters = {"K1": (stencil, "LAUNCHES"), "K2": (tridiag, "LAUNCHES"),
                 "K3": (krylov, "LAUNCHES"), "K4": (assemble, "LAUNCHES"),
-                "K5": (stencil, "MULTI_LAUNCHES"), "K10": (profiling, "LAUNCHES")}
+                "K5": (stencil, "MULTI_LAUNCHES"), "K6": (redi_kernel, "LAUNCHES"),
+                "K6 multi": (redi_kernel, "MULTI_LAUNCHES"), "K10": (profiling, "LAUNCHES")}
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
     return lambda: {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
@@ -639,7 +680,7 @@ def phase_probe(P, device, card, k_times):
             f"{n * cells * 4 / 1e9:.3f} GB in {k_times[name][0]:.4f} ms = {rate:.1f} GB/s, "
             f"{100 * fractions[name]:.1f} % of K10's {gbps:.1f} GB/s")
     del streams, got, want
-    return counts["K10"], err, (k_ms, p_ms), gbps, fractions
+    return counts["K10"], err, (k_ms, p_ms), gbps, nbytes
 
 
 def phase_times_quarter(P, card, T, gm, idx):
@@ -958,6 +999,322 @@ def log_k5_fractions(times: dict, cells: int, gbps: float, size: str) -> dict:
     return fractions
 
 
+def hydrography(gm, wet: torch.Tensor):
+    """so and ct as examples/density_pipeline.py:32-35 makes them from the
+    grid (the synthetic dataset has no hydrography), NaN on land."""
+    lat, lon = torch.deg2rad(gm.lat), torch.deg2rad(gm.lon)
+    so = torch.where(wet, 35.0 + 0.3 * torch.cos(lat) * torch.sin(lon), torch.nan)
+    ct = torch.where(wet, 20.0 - 0.004 * gm.z3d - 6.0 * torch.sin(lat) ** 2, torch.nan)
+    return so, ct
+
+
+def redi_of(P, gm, wet: torch.Tensor):
+    """The Redi operator of the hydrography's TEOS-10 density, built on the
+    f32 density as the density path builds it; its fields take the grid's
+    dtype."""
+    so, ct = hydrography(gm, wet)
+    rho = torch.where(wet, P.rho_teos10(so, ct, gm.z3d), torch.nan)
+    return P.build_redi_operator(rho.float(), gm, wet)
+
+
+def redi_bytes(cells: int, plane: int, coef_bytes: int, members: int, value_bytes: int) -> int:
+    """K6's compulsory traffic: 15 coefficient fields, 2 planes and the wet
+    mask read once, each member's chi read and its out written once."""
+    return (15 * coef_bytes + 1 + 2 * members * value_bytes) * cells + 2 * plane * coef_bytes
+
+
+# Operations per cell of one member, counted from the kernels' arithmetic:
+# K6 forms 5 vertical and 6 horizontal derivatives (5 each), 6 face fluxes
+# (7 to 11 each) and the divergence (6).
+REDI_FLOPS = 111
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time on the published rates."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tracer_mass(chi: torch.Tensor, v: torch.Tensor) -> float:
+    return float((chi.double() * v).sum())
+
+
+def phase_density(P, card):
+    """The 1-degree density path through the public API, counts reset just
+    before and read just after. Returns the f64 grid, indices, the f64 R,
+    the f32 T and R of the path, and the launches."""
+    read = reset_launches()
+    t0 = time.perf_counter()
+    ds = P.synthetic_dataset(nx=NX, ny=NY, nz=NZ, topology="tripolar", seed=SEED)
+    gm = P.makegridmetrics(  # no device=: the current CUDA device
+        areacello=ds.areacello, volcello=ds.volcello, lon=ds.lon, lat=ds.lat, lev=ds.lev,
+        lon_vertices=ds.lon_vertices, lat_vertices=ds.lat_vertices)
+    require(gm.v3d.is_cuda and gm.v3d.dtype == torch.float64,
+            f"makegridmetrics without device= made {gm.v3d.dtype} on {gm.v3d.device}")
+    idx = P.makeindices(gm.v3d)
+    wet, topo = idx.wet3d, gm.topology
+    so, ct = hydrography(gm, wet)
+    rho = P.rho_teos10(so, ct, gm.z3d)
+    s_i, s_j = P.potential_density_slopes(P.rho_teos10, so, ct, gm, wet)
+    umo, vmo = P.add_bolus_transports(ds.umo, ds.vmo, rho, gm, wet)
+    phi = P.facefluxesfrommasstransport(umo=umo, vmo=vmo, gridmetrics=gm, indices=idx)
+    ops = P.transportmatrix(phi=phi, mlotst=ds.mlotst, gridmetrics=gm, indices=idx)
+    T = P.assemble_T(umo, vmo, ds.mlotst, gm)
+    R = P.build_redi_operator(torch.where(wet, rho, torch.nan).float(), gm, wet)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    rho_w = rho[wet]
+    require(bool(torch.isfinite(rho_w).all()), "density not finite on wet cells")
+    bolus = float(torch.nan_to_num(umo - torch.as_tensor(ds.umo, device=umo.device)).abs().max())
+    require(bolus > 0, "the GM bolus transports are zero")
+    T_ref = P.assemble_transport(umo, vmo, ds.mlotst, gm, wet).T
+    k4_rel = max(rel_err(T[leg], ref[leg])[1] for ref in (T_ref, ops.T) for leg in T._fields)
+    require(k4_rel <= TOL_F64, f"K4 on the bolus transports vs assemble_transport and "
+            f"transportmatrix: {k4_rel:.3e}")
+    tau_vol = float(P.operator_diagnostics(T, gm.v3d, wet, topo)["tau_vol_s"]) / (1e6 * YEAR_S)
+    for k in ("ae", "an", "at", "g_t", "inv_v"):
+        require(bool(torch.isfinite(getattr(R, k)).all()), f"R.{k} not finite")
+    smax = max(float(torch.nan_to_num(s).abs().max()) for s in (s_i, s_j))
+    log(f"[density] 1-degree {NX}x{NY}x{NZ} tripolar seed {SEED}, f64 grid on "
+        f"{gm.v3d.device} (no device= given): rho in [{float(rho_w.min()):.3f}, "
+        f"{float(rho_w.max()):.3f}] kg/m^3, max |S| {smax:.3e}, max |bolus umo| {bolus:.3e} kg/s; "
+        f"K4 T vs assemble_transport and transportmatrix T max rel {k4_rel:.3e} (tol "
+        f"{TOL_F64}); tau_vol "
+        f"{tau_vol:.3e} Myr; set-up (grid, rho, slopes, bolus, T, R) {t_setup:.3f} s")
+    del so, ct, s_i, s_j, phi, ops, T_ref, umo, vmo, rho, rho_w
+
+    # 200 f32 steps of chi <- chi - dt T chi + dt R chi: K1 + K6
+    T32, R32 = T.to(torch.float32), R.to(torch.float32)
+    rate_t, rate_r = float(T.diag.abs().max()), P.redi_max_rate(R)
+    dt = 0.25 / (rate_t + rate_r)
+    v = torch.where(wet, gm.v3d, 0.0)
+    rng = np.random.default_rng(SEED + 8)
+    wet_np = wet.cpu().numpy()
+    chis0 = torch.as_tensor(
+        np.where(wet_np[None], 1.0 + 0.1 * rng.standard_normal((BATCH,) + wet_np.shape), 0.0),
+        dtype=torch.float32, device=wet.device)
+    step = lambda x: P.euler_step(T32, x, dt, topo) + dt * P.redi_apply_fused(R32, x)
+    t0 = time.perf_counter()
+    singles = []
+    for m in range(BATCH):
+        chi = chis0[m]
+        for _ in range(DENSITY_STEPS):
+            chi = step(chi)
+        singles.append(chi)
+    torch.cuda.synchronize()
+    t_single = (time.perf_counter() - t0) / BATCH
+    chi = singles[0]
+    drift = abs(tracer_mass(chi, v) / tracer_mass(chis0[0], v) - 1.0)
+    moved = float((chi - P.euler_propagate(T32, chis0[0], dt, DENSITY_STEPS, topo)).abs().max())
+    require(bool(torch.isfinite(chi).all()), "T + R tracer not finite")
+    require(bool((chi[~wet] == 0).all()), "T + R tracer nonzero on land")
+    require(drift < TOL_MASS_F32, f"T + R mass drift {drift:.3e} >= {TOL_MASS_F32}")
+    require(moved > 0, "the Redi part did not change the tracer")
+    log(f"[density] {DENSITY_STEPS} f32 steps of chi - dt T chi + dt R chi (K1 + K6) at dt = "
+        f"0.25 / (max|diag T| {rate_t:.4e} + redi_max_rate(R) {rate_r:.4e}) = {dt:.6g} s: "
+        f"{t_single:.3f} s wall, relative tracer-mass drift {drift:.3e} (bound {TOL_MASS_F32}), "
+        f"max |with R - without R| {moved:.3e}")
+
+    stepm = lambda x: (P.euler_step_multi(T32, x, dt, topo)
+                       + dt * P.redi_apply_fused_multi(R32, x))
+    t0 = time.perf_counter()
+    chis = chis0
+    for _ in range(DENSITY_STEPS):
+        chis = stepm(chis)
+    torch.cuda.synchronize()
+    t_multi = time.perf_counter() - t0
+    for m in range(BATCH):
+        require(torch.equal(chis[m], singles[m]), f"batched T + R member {m} differs from the "
+                f"single-tracer run")
+    drift_b = max(abs(tracer_mass(chis[m], v) / tracer_mass(chis0[m], v) - 1.0)
+                  for m in range(BATCH))
+    require(drift_b < TOL_MASS_F32, f"batched T + R mass drift {drift_b:.3e}")
+    log(f"[density] {BATCH} f32 tracers x {DENSITY_STEPS} steps on K5 + K6 (batch): "
+        f"{t_multi:.3f} s wall ({BATCH} single runs: {t_single * BATCH:.3f} s); every member "
+        f"equal to its single-tracer run bit for bit; worst mass drift {drift_b:.3e}")
+    del chis, singles, chi
+
+    # the bf16 operator: K6 in (bf16, f32)
+    Rb = P.redi_operator_to_bf16(R32)
+    x = chis0[0]
+    got = P.redi_apply_fused(Rb, x)
+    err = rel_err(got, P.redi_apply(Rb, x))[0]
+    exact = P.redi_apply(R, x.double())
+    _, rel_exact = rel_err(got, exact)
+    require(err <= TOL_K6, f"bf16 K6 vs plain of the rounded operator: max abs {err:.3e}")
+    require(rel_exact <= TOL_REDI_BF16, f"bf16 K6 vs exact apply: {rel_exact:.3e}")
+    log(f"[density] bf16 R: K6 (bf16, f32) equals the plain apply of the rounded operator "
+        f"(max abs {err:.1e}); against the exact f64 apply max rel {rel_exact:.3e} (bound "
+        f"{TOL_REDI_BF16})")
+    del Rb, got, exact, chis0
+
+    launches = read()
+    log(f"[launches] density path: {launches}")
+    for name in ("K1", "K4", "K5", "K6", "K6 multi"):
+        require(launches[name] > 0, f"{name} was not launched on the density path")
+    return gm, idx, R, T32, R32, launches
+
+
+def phase_k6_checks(P, device, cases):
+    """K6 against its plain version in every type pair, the batches of 4
+    and 8 against K6 member by member and against plain, and R's
+    invariants through the kernel in f64. Returns the largest error."""
+    worst = 0.0
+    for kind, R, gm, wet in cases:
+        size = "x".join(map(str, gm.topology.shape3d[::-1]))
+        gen = torch.Generator(device=device).manual_seed(SEED + 9)
+        x64 = torch.where(wet, torch.randn(wet.shape, generator=gen, device=device,
+                                           dtype=torch.float64), torch.nan)  # NaN on land
+        for ctype, vtype in REDI_TYPES:
+            op = R.to(DTYPES[ctype])
+            x = x64.to(DTYPES[vtype])
+            got = P.redi_apply_fused(op, x)
+            require(bool(torch.isfinite(got).all()), f"K6 {kind} ({ctype},{vtype}) not finite")
+            err = rel_err(got, P.redi_apply(op, x))[0]
+            for nb in (REGIONS, BATCH):
+                xs = torch.where(wet, torch.randn((nb,) + tuple(wet.shape), generator=gen,
+                                                  device=device, dtype=DTYPES[vtype]), 0.0)
+                gotm = P.redi_apply_fused_multi(op, xs)
+                err = max(err, rel_err(gotm, P.redi_apply(op, xs))[0])
+                for m in range(nb):
+                    require(torch.equal(gotm[m], P.redi_apply_fused(op, xs[m])),
+                            f"K6 batch {kind} ({ctype},{vtype}) B = {nb}: member {m} differs "
+                            f"from K6")
+                del xs, gotm
+            require(err <= TOL_K6, f"K6 {kind} ({ctype},{vtype}): max abs {err:.3e} > {TOL_K6}")
+            worst = max(worst, err)
+            log(f"[K6] {kind} {size} ({ctype},{vtype}): equal to the plain version (NaN on land "
+                f"masked), and B = {REGIONS} and {BATCH} equal to K6 member by member and to "
+                f"plain; max abs {err:.1e}")
+            del op, x, got
+        v = torch.where(wet, gm.v3d, 0.0)
+        x = torch.nan_to_num(x64)
+        tend = P.redi_apply_fused(R, x)
+        cons = abs(float((tend * v).sum())) / float((tend * v).abs().sum())
+        null = float(P.redi_apply_fused(R, torch.where(wet, 7.5, 0.0).double()).abs().max())
+        require(cons < 1e-12, f"K6 {kind}: volume integral of R chi, relative {cons:.3e}")
+        require(null <= 1e-12 * float(tend.abs().max()), f"K6 {kind}: R 7.5 = {null:.3e}")
+        log(f"[K6] {kind} {size} f64 invariants: |sum v R chi| / sum |v R chi| = {cons:.3e} "
+            f"(bound 1e-12), max |R const| = {null:.3e}")
+        del x64, x, tend, v
+        torch.cuda.empty_cache()
+    return worst
+
+
+def phase_k6_times(P, card, R32, wet):
+    """CUDA-event times at the density path's shape, f32: K6 and its plain
+    version, the bf16 K6 and its plain version, and K6 on a batch of B = 1,
+    2, 4, 8 beside B launches of K6."""
+    size = "x".join(map(str, R32.topology.shape3d[::-1]))
+    gen = torch.Generator(device=wet.device).manual_seed(SEED + 10)
+    x = torch.where(wet, torch.randn(wet.shape, generator=gen, device=wet.device), 0.0)
+    Rb = P.redi_operator_to_bf16(R32)
+    times = {
+        "K6": time_pair(lambda: P.redi_apply_fused(R32, x), lambda: P.redi_apply(R32, x), 50, 5),
+        "K6 bf16": time_pair(lambda: P.redi_apply_fused(Rb, x), lambda: P.redi_apply(Rb, x),
+                             50, 5),
+    }
+    for name in ("K6", "K6 bf16"):
+        log(f"[time] {name} at {size} f32 values: kernel {times[name][0]:.4f} ms, plain "
+            f"{times[name][1]:.4f} ms per call (CUDA events over back-to-back calls, median "
+            f"of 5; card {card})")
+    for nb in (1, 2, 4, BATCH):
+        xs = torch.where(wet, torch.randn((nb,) + tuple(wet.shape), generator=gen,
+                                          device=wet.device), 0.0)
+        fns = {"K6 batch": lambda: P.redi_apply_fused_multi(R32, xs),
+               "B x K6": lambda: [P.redi_apply_fused(R32, y) for y in xs]}
+        calls = {"K6 batch": 20, "B x K6": 20}
+        if nb == BATCH:
+            fns["plain"], calls["plain"] = lambda: P.redi_apply(R32, xs), 3
+        t = times[nb] = time_set(fns, calls)
+        log(f"[time] K6 at {size} f32, B = {nb}: one batched launch {t['K6 batch']:.4f} ms, "
+            f"{nb} launches {t['B x K6']:.4f} ms"
+            + (f", plain {t['plain']:.4f} ms" if "plain" in t else "")
+            + f" per call; per tracer {t['K6 batch'] / nb:.4f} ms against "
+            f"{t['B x K6'] / nb:.4f} ms (card {card})")
+        del xs
+    del Rb, x
+    return times
+
+
+def phase_library(P, card, T, idx, topo):
+    """The PyTorch library call that computes K1's and K5's function: the
+    CSR matrix of T on wet cells (coeffs_to_scipy -> torch.sparse_csr_tensor)
+    times one vector, and times an (N, B) matrix; f32, CUDA events."""
+    wet = idx.wet3d
+    mat = P.coeffs_to_scipy(T, idx, topo)
+    dev = wet.device
+    A = torch.sparse_csr_tensor(torch.as_tensor(mat.indptr, dtype=torch.int64),
+                                torch.as_tensor(mat.indices, dtype=torch.int64),
+                                torch.as_tensor(mat.data, dtype=torch.float32),
+                                size=mat.shape, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    chis = torch.where(wet, torch.randn((BATCH,) + tuple(wet.shape), generator=gen, device=dev),
+                       0.0)
+    x = chis[0][wet].contiguous()
+    X = chis[:, wet].T.contiguous()
+    err1 = rel_err(A @ x, P.stencil_apply(T, chis[0], topo)[wet])[1]
+    err5 = rel_err(A @ X, P.stencil_apply_multi(T, chis, topo)[:, wet].T)[1]
+    require(max(err1, err5) <= TOL_LIBRARY, f"CSR product vs K1/K5: {err1:.3e} {err5:.3e}")
+    t1 = cuda_ms(lambda: A @ x, 50)
+    t5 = cuda_ms(lambda: A @ X, 20)
+    log(f"[library] CSR T ({mat.shape[0]} wet rows, {mat.nnz} entries, f32) @ chi at "
+        f"{NX}x{NY}x{NZ}: {t1:.4f} ms (max rel vs K1 {err1:.2e}); @ (N, {BATCH}): {t5:.4f} ms "
+        f"(max rel vs K5 {err5:.2e}) (CUDA events, median of 5; card {card})")
+    del A, chis, x, X
+    return {"K1": t1, "K5": t5}
+
+
+def phase_k6_quarter(P, card, cases):
+    """K6 and its batch of 2 against K6 member by member and against plain,
+    f32, at 0.25 degrees and 720x540x75; K6 and plain timed on the first."""
+    times = None
+    for kind, gm, wet in cases:
+        size = "x".join(map(str, gm.topology.shape3d[::-1]))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        R = redi_of(P, gm, wet)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        require(R.ae.dtype == torch.float32, f"0.25-degree R is {R.ae.dtype}")
+        gen = torch.Generator(device=wet.device).manual_seed(SEED + 12)
+        xs = torch.where(wet, torch.randn((2,) + tuple(wet.shape), generator=gen,
+                                          device=wet.device), 0.0)
+        got = P.redi_apply_fused(R, xs[0])
+        err = rel_err(got, P.redi_apply(R, xs[0]))[0]
+        gotm = P.redi_apply_fused_multi(R, xs)
+        require(torch.equal(gotm[0], got) and torch.equal(gotm[1], P.redi_apply_fused(R, xs[1])),
+                f"K6 batch {kind} {size}: members differ from K6")
+        err = max(err, rel_err(gotm, P.redi_apply(R, xs))[0])
+        require(bool(torch.isfinite(gotm).all()), f"K6 {kind} {size} not finite")
+        require(err <= TOL_K6, f"K6 {kind} {size} f32: max abs {err:.3e} > {TOL_K6}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[K6] {kind} {size} f32: R built in {t_build:.3f} s; K6 and the batch of 2 equal to "
+            f"the plain version and K6 member by member (max abs {err:.1e}); peak memory "
+            f"{peak:.1f} GB (torch.cuda.max_memory_allocated; card {card})")
+        del got, gotm
+        if times is None:
+            x = xs[0]
+            times = time_pair(lambda: P.redi_apply_fused(R, x), lambda: P.redi_apply(R, x), 20, 3)
+            log(f"[time] K6 at {size} f32: kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms per "
+                f"call (CUDA events over back-to-back calls, median of 5; card {card})")
+            del x
+        del R, xs
+        torch.cuda.empty_cache()
+    return times
+
+
+def log_rates(rows: list, gbps: float) -> None:
+    """Each kernel's rate on its compulsory bytes, as a fraction of K10's
+    measured bandwidth, beside its bound on the published rate."""
+    for name, size, nbytes, ms in rows:
+        rate = nbytes / (ms * 1e-3) / 1e9
+        log(f"[roofline] {name} at {size}: {nbytes / 1e9:.4f} GB compulsory in {ms:.4f} ms = "
+            f"{rate:.1f} GB/s, {100 * rate / gbps:.1f} % of K10's {gbps:.1f} GB/s (bound at "
+            f"K10's rate {nbytes / gbps / 1e6:.4f} ms, at 3.35 TB/s {nbytes / PEAK_BYTES * 1e3:.4f} "
+            f"ms)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on an NVIDIA GPU",
@@ -979,9 +1336,10 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s to load")
 
     ds, gm32, idx, T32, launches, mean_age = phase_main_path(P, device, card)
+    # the density path; its f64 grid is also the tripolar grid of the checks
+    gm64, _, R64, dT32, dR32, dlaunches = phase_density(P, card)
 
     # kernel checks at the main path's shapes, on both topologies
-    _, gm64, _ = build_case(P, NX, NY, NZ, "tripolar", torch.float64, device)
     bnx, bny, bnz = BIPOLAR_SHAPE
     bds, bgm64, bidx = build_case(P, bnx, bny, bnz, "bipolar", torch.float64, device)
     _, bgm32, _ = build_case(P, bnx, bny, bnz, "bipolar", torch.float32, device)
@@ -997,16 +1355,21 @@ def main() -> int:
     k5_worst = phase_k5_checks(P, device, ops_cases, (("f64", "f64"), ("f32", "f64"),
                                                       ("f32", "f32"), ("bf16", "f32")),
                                (REGIONS, BATCH), plain=True)
+    k6_worst = phase_k6_checks(P, device, [
+        ("tripolar", R64, gm64, idx.wet3d),
+        ("bipolar", redi_of(P, bgm64, bidx.wet3d), bgm64, bidx.wet3d)])
     phase_golden(P, device)
     batched = phase_batched(P, device, gm32, idx, T32, T64)
-    del gm64, bgm64, bgm32, T64, bT64
+    del gm64, bgm64, bgm32, T64, bT64, R64, dT32
     torch.cuda.empty_cache()
 
     times = phase_times(P, card, T32, gm32, idx)
     k5_times, k5_err = phase_k5_times(P, card, T32, gm32.topology, idx.wet3d, plain_bmax=BATCH,
                                       k_calls=50)
+    k6_times = phase_k6_times(P, card, dR32, idx.wet3d)
+    library = phase_library(P, card, T32, idx, gm32.topology)
     phase_sequestration(P, gm32, idx, T32, mean_age)
-    del ds, gm32, idx, T32
+    del ds, gm32, idx, T32, dR32
     torch.cuda.empty_cache()
 
     qgm, qidx, qT, qlaunches = phase_quarter(P, device)
@@ -1021,6 +1384,8 @@ def main() -> int:
         P, device, [("tripolar", qT, qgm.topology, qidx.wet3d),
                     ("bipolar", hT, hgm.topology, hidx.wet3d)], (("f32", "f32"),), (BATCH,),
         plain=False))
+    qk6_times = phase_k6_quarter(P, card, [("tripolar", qgm, qidx.wet3d),
+                                           ("bipolar", hgm, hidx.wet3d)])
     del hgm, hidx, hT
     torch.cuda.empty_cache()
     qbatched, per_multi, per_single = phase_batched_quarter(P, card, qgm, qidx, qT)
@@ -1032,42 +1397,59 @@ def main() -> int:
         f"fused (K3) {per_single[True] * 1e3:.3f} ms (card {card})")
     del qgm, qidx, qT
     torch.cuda.empty_cache()
-    k10_launches, k10_err, k10_times, gbps, _ = phase_probe(P, device, card, qtimes)
+    k10_launches, k10_err, k10_times, gbps, k10_bytes = phase_probe(P, device, card, qtimes)
     log_k5_fractions(k5_times, NX * NY * NZ, gbps, f"{NX}x{NY}x{NZ}")
     log_k5_fractions(qk5_times, QUARTER[0] * QUARTER[1] * QUARTER[2], gbps,
                      "x".join(map(str, QUARTER)))
+    cells, plane = NX * NY * NZ, NY * NX
+    qcells, qplane = QUARTER[0] * QUARTER[1] * QUARTER[2], QUARTER[0] * QUARTER[1]
+    one, quarter = f"{NX}x{NY}x{NZ}", "x".join(map(str, QUARTER))
+    log_rates([("K6", f"{one} f32", redi_bytes(cells, plane, 4, 1, 4), k6_times["K6"][0]),
+               ("K6 bf16", f"{one} (bf16, f32)", redi_bytes(cells, plane, 2, 1, 4),
+                k6_times["K6 bf16"][0]),
+               *((f"K6 batch B = {nb}", f"{one} f32", redi_bytes(cells, plane, 4, nb, 4),
+                  k6_times[nb]["K6 batch"]) for nb in (1, 2, 4, BATCH)),
+               ("K6", f"{quarter} f32", redi_bytes(qcells, qplane, 4, 1, 4), qk6_times[0]),
+               ("K1's function as the CSR product (K1's bytes)", f"{one} f32", 9 * cells * 4,
+                library["K1"]),
+               (f"K5's function as the CSR product, B = {BATCH} (K5's bytes)", f"{one} f32",
+                (7 + 2 * BATCH) * cells * 4, library["K5"])], gbps)
     torch.cuda.synchronize()
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, nbytes, flops, library_ms):
+        bound_ms, bound_by = bound(nbytes, flops)
+        return {"name": name, "route": "cuda", "source": f"otmb_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms}
+
+    # Operations per cell and member, counted from each kernel's arithmetic.
     kernels = [
-        {"name": "K1 stencil apply/euler_step", "route": "cuda",
-         "source": "otmb_tpu_torch/csrc/stencil.cu",
-         "replaces": "otmb_tpu/ops/stencil_pallas.py:42", "launches": launches["K1"],
-         "max_abs_err": k1_worst[("tripolar", "f32,f32", "T", "apply")],
-         "ms": times["K1 apply"][0], "plain_ms": times["K1 apply"][1]},
-        {"name": "K2 tridiag_solve", "route": "cuda",
-         "source": "otmb_tpu_torch/csrc/tridiag.cu",
-         "replaces": "otmb_tpu/ops/tridiag_pallas.py:39",
-         "launches": launches["K2"] + batched["K2"] + qbatched["K2"],
-         "max_abs_err": k2_worst["tripolar float32"],
-         "ms": times["K2"][0], "plain_ms": times["K2"][1]},
-        {"name": "K4 assemble_T", "route": "cuda",
-         "source": "otmb_tpu_torch/csrc/assemble.cu",
-         "replaces": "otmb_tpu/ops/assemble_pallas.py:60", "launches": launches["K4"],
-         "max_abs_err": k4_worst[("tripolar", "float32")],
-         "ms": times["K4"][0], "plain_ms": times["K4"][1]},
-        {"name": "K3 fused_krylov_step", "route": "cuda",
-         "source": "otmb_tpu_torch/csrc/krylov.cu",
-         "replaces": "otmb_tpu/ops/krylov_pallas.py:68", "launches": qlaunches["K3"],
-         "max_abs_err": k3_worst[("tripolar", str(torch.float32), "T")],
-         "ms": qtimes["K3"][0], "plain_ms": qtimes["K3"][1]},
-        {"name": "K5 stencil_apply_multi/euler_step_multi", "route": "cuda",
-         "source": "otmb_tpu_torch/csrc/stencil.cu",
-         "replaces": "otmb_tpu/ops/stencil_pallas.py:747",
-         "launches": batched["K5"] + qbatched["K5"], "max_abs_err": max(k5_worst, k5_err),
-         "ms": k5_times[BATCH]["K5"], "plain_ms": k5_times[BATCH]["plain"]},
-        {"name": "K10 dma_peak_probe", "route": "cuda",
-         "source": "otmb_tpu_torch/csrc/probe.cu",
-         "replaces": "otmb_tpu/utils/profiling.py:214", "launches": k10_launches,
-         "max_abs_err": k10_err, "ms": k10_times[0], "plain_ms": k10_times[1]},
+        entry("K1 stencil apply/euler_step", "stencil.cu", "otmb_tpu/ops/stencil_pallas.py:42",
+              launches["K1"], k1_worst[("tripolar", "f32,f32", "T", "apply")],
+              *times["K1 apply"], 9 * cells * 4, 15 * cells, library["K1"]),
+        entry("K2 tridiag_solve", "tridiag.cu", "otmb_tpu/ops/tridiag_pallas.py:39",
+              launches["K2"] + batched["K2"] + qbatched["K2"], k2_worst["tripolar float32"],
+              *times["K2"], 5 * cells * 4, 8 * cells, None),
+        entry("K4 assemble_T", "assemble.cu", "otmb_tpu/ops/assemble_pallas.py:60",
+              launches["K4"], k4_worst[("tripolar", "float32")], *times["K4"], 10 * cells * 4,
+              40 * cells, None),
+        entry("K3 fused_krylov_step", "krylov.cu", "otmb_tpu/ops/krylov_pallas.py:68",
+              qlaunches["K3"], k3_worst[("tripolar", str(torch.float32), "T")], *qtimes["K3"],
+              15 * qcells * 4, 30 * qcells, None),
+        entry("K5 stencil_apply_multi/euler_step_multi", "stencil.cu",
+              "otmb_tpu/ops/stencil_pallas.py:747", batched["K5"] + qbatched["K5"],
+              max(k5_worst, k5_err), k5_times[BATCH]["K5"], k5_times[BATCH]["plain"],
+              (7 + 2 * BATCH) * cells * 4, 15 * BATCH * cells, library["K5"]),
+        entry("K6 redi_apply_fused", "redi.cu", "otmb_tpu/models/redi_pallas.py:46",
+              dlaunches["K6"], k6_worst, *k6_times["K6"], redi_bytes(cells, plane, 4, 1, 4),
+              REDI_FLOPS * cells, None),
+        entry("K6 redi_apply_fused_multi", "redi.cu", "otmb_tpu/models/redi_pallas.py:424",
+              dlaunches["K6 multi"], k6_worst, k6_times[BATCH]["K6 batch"],
+              k6_times[BATCH]["plain"], redi_bytes(cells, plane, 4, BATCH, 4),
+              REDI_FLOPS * BATCH * cells, None),
+        entry("K10 dma_peak_probe", "probe.cu", "otmb_tpu/utils/profiling.py:214", k10_launches,
+              k10_err, *k10_times, k10_bytes, 6 * k10_bytes // 32, None),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -19,24 +19,53 @@ built from `csrc/` at first use:
     (csrc/krylov.cu);
   * K4 `assemble_T` — the fused assembly of T from raw transports
     (csrc/assemble.cu);
+  * K6 `redi_apply_fused` / `redi_apply_fused_multi` — the 19-point Redi
+    isoneutral-diffusion operator for one tracer or a batch
+    (csrc/redi.cu), built by `build_redi_operator` from the density
+    slopes of the TEOS-10 path (`rho_teos10`, `potential_density_slopes`,
+    `add_bolus_transports`);
   * K10 `dma_peak_probe` — the many-stream bandwidth probe
     (csrc/probe.cu).
 
 A CUDA tensor always goes to the kernel; a CPU tensor takes the kernel's
-plain PyTorch version. This package never imports jax or otmb_tpu.
+plain PyTorch version. Entry points that make tensors from host data
+(`makegridmetrics`, `dma_peak_probe`, the `utils.convert` helpers) make
+them on the current CUDA device unless `device=` says otherwise, and raise
+without one: pass `device="cpu"` for the CPU. This package never imports
+jax or otmb_tpu.
 """
 
 from .config import (
     EARTH_RADIUS,
+    KAPPA_GM_DEFAULT,
     KAPPA_H_DEFAULT,
     KAPPA_VDEEP_DEFAULT,
     KAPPA_VML_DEFAULT,
+    MAXSLOPE_DEFAULT,
     RHO_DEFAULT,
+    SLOPE_TAPER_SC,
+    SLOPE_TAPER_SD,
     TransportConfig,
 )
 from .grid.geometry import GridMetrics, PerDirection, makegridmetrics
 from .grid.indices import Indices, as2d, as3d, makeindices, wet_vector
 from .grid.topology import GridTopology, detect_topology
+from .models.redi import (
+    RediOperator,
+    build_redi_operator,
+    redi_apply,
+    redi_max_rate,
+    redi_operator_to_bf16,
+)
+from .models.redi_kernel import redi_apply_fused, redi_apply_fused_multi
+from .models.redigm import (
+    add_bolus_transports,
+    bolus_gm_velocity,
+    density_slopes,
+    potential_density_slope,
+    potential_density_slopes,
+    slope_taper,
+)
 from .models.solvers import (
     explicit_euler_propagate,
     explicit_euler_step,
@@ -69,24 +98,41 @@ from .ops.stencil import (
     stencil_apply_multi,
 )
 from .ops.tridiag import tridiag_solve
+from .ops.velocities import (
+    ArakawaGrid,
+    facefluxesfromvelocities,
+    fluxes2velocity,
+    getarakawagrid,
+    interpolateontodefaultCgrid,
+    velocity2fluxes,
+)
+from .physics.eos import linear_eos, rho_teos10, sigma0_teos10
 from .utils.profiling import dma_peak_probe
 from .utils.sparse_export import coeffs_to_scipy
+from .utils.convert import redi_operator_from_numpy
 from .utils.synthetic import synthetic_dataset
 
 __all__ = [
+    "ArakawaGrid",
     "EARTH_RADIUS",
     "FaceFluxes",
     "GridMetrics",
     "GridTopology",
     "Indices",
+    "KAPPA_GM_DEFAULT",
     "KAPPA_H_DEFAULT",
     "KAPPA_VDEEP_DEFAULT",
     "KAPPA_VML_DEFAULT",
+    "MAXSLOPE_DEFAULT",
     "PerDirection",
     "RHO_DEFAULT",
+    "RediOperator",
+    "SLOPE_TAPER_SC",
+    "SLOPE_TAPER_SD",
     "StencilCoeffs",
     "TransportConfig",
     "TransportOperators",
+    "add_bolus_transports",
     "add_coeffs",
     "apply_stencil",
     "apply_stencil_transpose",
@@ -94,7 +140,10 @@ __all__ = [
     "as3d",
     "assemble_T",
     "assemble_transport",
+    "bolus_gm_velocity",
+    "build_redi_operator",
     "coeffs_to_scipy",
+    "density_slopes",
     "detect_topology",
     "dma_peak_probe",
     "euler_propagate",
@@ -105,12 +154,28 @@ __all__ = [
     "explicit_euler_step",
     "facefluxes",
     "facefluxesfrommasstransport",
+    "facefluxesfromvelocities",
+    "fluxes2velocity",
     "fused_krylov_step",
+    "getarakawagrid",
     "ideal_age",
+    "interpolateontodefaultCgrid",
+    "linear_eos",
     "makegridmetrics",
     "makeindices",
     "operator_diagnostics",
+    "potential_density_slope",
+    "potential_density_slopes",
+    "redi_apply",
+    "redi_apply_fused",
+    "redi_apply_fused_multi",
+    "redi_max_rate",
+    "redi_operator_from_numpy",
+    "redi_operator_to_bf16",
+    "rho_teos10",
     "sequestration_time",
+    "sigma0_teos10",
+    "slope_taper",
     "solve_shifted",
     "solve_shifted_chunked",
     "solve_shifted_chunked_multi",
@@ -122,6 +187,7 @@ __all__ = [
     "transportmatrix",
     "transpose_coeffs",
     "tridiag_solve",
+    "velocity2fluxes",
     "water_mass_fractions",
     "wet_vector",
 ]

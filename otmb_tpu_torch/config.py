@@ -2,7 +2,8 @@
 
 The same values as `otmb_tpu.config`: the reference package's kappa
 defaults (matrixbuilding.jl:128-138), the rho = 1035 kg/m^3 convention,
-and the haversine Earth radius of Distances.jl (6,371,000 m).
+the GM parameters (RediGM.jl:46,59-60) and the haversine Earth radius of
+Distances.jl (6,371,000 m).
 """
 
 from __future__ import annotations
@@ -19,6 +20,12 @@ RHO_DEFAULT = 1035.0
 KAPPA_H_DEFAULT = 500.0
 KAPPA_VML_DEFAULT = 0.1
 KAPPA_VDEEP_DEFAULT = 1.0e-5
+
+# Gent-McWilliams parameters — reference RediGM.jl:46,59-60.
+KAPPA_GM_DEFAULT = 600.0
+MAXSLOPE_DEFAULT = 0.01
+SLOPE_TAPER_SC = 0.004
+SLOPE_TAPER_SD = 0.001
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..config import EARTH_RADIUS
+from ..utils.device import default_device
 from .topology import GridTopology, detect_topology, neighbor_values
 
 # Vertex indices delimiting each directed cell edge, 0-based
@@ -173,10 +174,13 @@ def makegridmetrics(
     Inputs are in canonical order: `areacello` (ny, nx), `volcello`
     (nz, ny, nx), `lon`/`lat` (ny, nx), `lev` (nz,), vertices (4, ny, nx)
     in any vertex order. Zeros, non-finite and masked entries (and
-    `fill_value`) become NaN. The tensors are made in `dtype` on `device`.
+    `fill_value`) become NaN. The tensors are made in `dtype` on `device`:
+    None is the current CUDA device, and raises without one (pass
+    `device="cpu"` for the CPU).
     """
     if not dtype.is_floating_point:
         raise ValueError("dtype must be a floating dtype")
+    device = default_device(device)
 
     v3d = _nanify(volcello, fill_value)
     area2d = _nanify(areacello, fill_value)

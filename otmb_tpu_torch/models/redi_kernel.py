@@ -1,0 +1,102 @@
+"""K6: the Redi isoneutral-diffusion kernel, for one tracer and a batch.
+
+Replaces `otmb_tpu/models/redi_pallas.py` (`redi_apply_pallas`,
+`redi_apply_pallas_multi`) with one CUDA kernel, `csrc/redi.cu`: one
+thread per cell recomputes the derivatives and face fluxes it needs from
+neighbour reads. A batch is (B, nz, ny, nx), batch-major as in the JAX
+package; the thread reads its coefficients once and loops over the
+members, so member b of `redi_apply_fused_multi` equals
+`redi_apply_fused` on member b, bit for bit, and both equal the plain
+version `models.redi.redi_apply` on the card.
+
+Coefficient and value types (C, V) are one of (f32, f32), (bf16, f32)
+(`redi_operator_to_bf16`) and (f64, f64); the arithmetic runs in V. chi is
+masked by the operator's wet mask inside the kernel.
+
+A CUDA tensor always goes to the kernel, for every B >= 1, and a failure
+raises. A CPU tensor takes the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from ..grid.topology import UNKNOWN
+from .redi import _COEF_FIELDS, RediOperator, redi_apply
+
+#: Kernel launches made by this module's wrappers: K6 on one tracer, K6 on
+#: a batch.
+LAUNCHES = 0
+MULTI_LAUNCHES = 0
+
+_ENTRY = {
+    (torch.float32, torch.float32): "otmb_redi_f32_f32",
+    (torch.bfloat16, torch.float32): "otmb_redi_bf16_f32",
+    (torch.float64, torch.float64): "otmb_redi_f64_f64",
+}
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_PLANES = ("inv_de", "inv_dn")
+
+
+def _validate(op: RediOperator, chi: torch.Tensor, batched: bool) -> None:
+    topo = op.topology
+    if topo.kind == UNKNOWN:
+        raise ValueError("redi: unknown grid topology")
+    key = (op.ae.dtype, chi.dtype)
+    if key not in _ENTRY:
+        raise TypeError(f"redi: no kernel for (coefficients, values) = {key}; "
+                        f"supported: {sorted(map(str, _ENTRY))}")
+    shape = topo.shape3d
+    dims = ", ".join(map(str, shape))
+    if batched and not (chi.ndim == 4 and chi.shape[0] >= 1 and tuple(chi.shape[1:]) == shape):
+        raise ValueError(f"redi: chis has shape {tuple(chi.shape)}, expected (B, {dims}) "
+                         f"with B >= 1")
+    if not batched and tuple(chi.shape) != shape:
+        raise ValueError(f"redi: chi has shape {tuple(chi.shape)}, expected ({dims})")
+    fields = [(name, getattr(op, name), topo.shape2d if name in _PLANES else shape, op.ae.dtype)
+              for name in _COEF_FIELDS]
+    fields += [("wet", op.wet, shape, torch.bool), ("chi", chi, tuple(chi.shape), chi.dtype)]
+    for name, t, expect_shape, expect_dtype in fields:
+        if tuple(t.shape) != expect_shape:
+            raise ValueError(f"redi: {name} has shape {tuple(t.shape)}, expected {expect_shape}")
+        if t.dtype != expect_dtype:
+            raise TypeError(f"redi: {name} is {t.dtype}, expected {expect_dtype}")
+        if t.device != chi.device:
+            raise ValueError(f"redi: {name} is on {t.device}, chi on {chi.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"redi: {name} is not contiguous")
+
+
+def _run(op: RediOperator, chi: torch.Tensor, batched: bool) -> torch.Tensor:
+    global LAUNCHES, MULTI_LAUNCHES
+    _validate(op, chi, batched)
+    if not chi.is_cuda:
+        return redi_apply(op, chi)
+    nz, ny, nx = op.topology.shape3d
+    out = torch.empty_like(chi)
+    fields = (ctypes.c_void_p * len(_COEF_FIELDS))(
+        *(getattr(op, name).data_ptr() for name in _COEF_FIELDS))
+    _build.launch(_ENTRY[(op.ae.dtype, chi.dtype)], _ARGTYPES, chi.device,
+                  ctypes.cast(fields, ctypes.c_void_p), op.wet.data_ptr(), chi.data_ptr(),
+                  out.data_ptr(), chi.shape[0] if batched else 1, nz, ny, nx,
+                  int(op.topology.is_tripolar))
+    if batched:
+        MULTI_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
+    return out
+
+
+def redi_apply_fused(op: RediOperator, chi: torch.Tensor) -> torch.Tensor:
+    """d(chi)/dt of Redi isoneutral diffusion for one tracer (nz, ny, nx)
+    in one K6 launch (the kernel of `redi_apply_pallas`)."""
+    return _run(op, chi, batched=False)
+
+
+def redi_apply_fused_multi(op: RediOperator, chis: torch.Tensor) -> torch.Tensor:
+    """d(chis[b])/dt for a batch (B, nz, ny, nx) in one K6 launch that reads
+    the coefficients once (the kernel of `redi_apply_pallas_multi`)."""
+    return _run(op, chis, batched=True)

@@ -17,6 +17,7 @@ import ctypes
 import torch
 
 from .. import _build
+from .device import default_device
 
 #: Kernel launches made by this module's wrapper.
 LAUNCHES = 0
@@ -67,8 +68,9 @@ def dma_peak_probe(nstreams: int = 7, mbytes: int = 200, device=None):
     512 x 512, normal random numbers from a generator seeded 0) on `device`
     and returns (thunk, bytes_moved): each run of the thunk is one probe
     call whose traffic is exactly `bytes_moved` (nstreams reads + 1 write).
-    Use at least 7 x 200 MiB on the card, so its 50 MB L2 cannot serve it."""
-    device = torch.device("cpu" if device is None else device)
+    Use at least 7 x 200 MiB on the card, so its 50 MB L2 cannot serve it.
+    `device=None` is the current CUDA device, and raises without one."""
+    device = default_device(device)
     ny, nx = 512, 512
     nzb = max(1, mbytes * 1024 * 1024 // (ny * nx * 4))
     gen = torch.Generator(device=device).manual_seed(0)

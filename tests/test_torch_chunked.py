@@ -44,7 +44,7 @@ def jax_T(dataset, gridmetrics, indices):
 @pytest.fixture(scope="module")
 def T(jax_T):
     """The JAX operator, carried over: both packages solve the same system."""
-    return coeffs_from_numpy({leg: np.asarray(jax_T[leg]) for leg in jax_T._fields})
+    return coeffs_from_numpy({leg: np.asarray(jax_T[leg]) for leg in jax_T._fields}, device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -6,11 +6,14 @@ where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import otmb_tpu_torch as P
+from otmb_tpu_torch.models import redi_kernel
 from otmb_tpu_torch.ops import krylov, stencil, tridiag
 from otmb_tpu_torch.ops.krylov import fused_krylov_step_plain
 from otmb_tpu_torch.ops.tridiag import tridiag_solve_plain
@@ -304,3 +307,77 @@ def test_k5_wrapper_raises_on_card(case):
         P.euler_step_multi(T._replace(top=T.top.cpu()), xs, 1.0, topo)
     with pytest.raises(ValueError, match="expected"):
         P.stencil_apply(T, xs, topo)
+
+
+def _redi(case):
+    """The Redi operator of a TEOS-10 density on the case's grid, as the
+    density path builds it (f64)."""
+    _, gm, idx, _, _ = case
+    wet = idx.wet3d
+    so = torch.where(wet, 35.0 + 0.3 * torch.cos(torch.deg2rad(gm.lat))
+                     * torch.sin(torch.deg2rad(gm.lon)), torch.nan)
+    ct = torch.where(wet, 20.0 - 0.004 * gm.z3d - 6.0 * torch.sin(torch.deg2rad(gm.lat)) ** 2,
+                     torch.nan)
+    rho = torch.where(wet, P.rho_teos10(so, ct, gm.z3d), torch.nan)
+    return P.build_redi_operator(rho, gm, wet)
+
+
+REDI_TYPES = {"f64,f64": (torch.float64, torch.float64), "f32,f32": (torch.float32, torch.float32),
+              "bf16,f32": (torch.bfloat16, torch.float32)}
+
+
+@pytest.mark.parametrize("types", list(REDI_TYPES))
+def test_k6_equals_plain(case, types):
+    """K6 runs the plain version's operations in its order without FMA:
+    equal bit for bit, NaN on land included (chi is masked by wet)."""
+    _, _, idx, _, chi = case
+    ctype, vtype = REDI_TYPES[types]
+    op = _redi(case).to(ctype)
+    x = torch.where(idx.wet3d, chi, torch.nan).to(vtype)
+    n6 = redi_kernel.LAUNCHES
+    got = P.redi_apply_fused(op, x)
+    assert redi_kernel.LAUNCHES == n6 + 1
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, P.redi_apply(op, x), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("nmembers", [1, 3, 8])
+@pytest.mark.parametrize("types", list(REDI_TYPES))
+def test_k6_multi_equals_k6_per_member(case, types, nmembers):
+    _, _, idx, _, chi = case
+    ctype, vtype = REDI_TYPES[types]
+    op = _redi(case).to(ctype)
+    rng = np.random.default_rng(9)
+    xs = torch.where(idx.wet3d, torch.as_tensor(rng.standard_normal((nmembers,) + chi.shape),
+                                                device=chi.device), 0.0).to(vtype)
+    n6 = redi_kernel.MULTI_LAUNCHES
+    got = P.redi_apply_fused_multi(op, xs)
+    assert redi_kernel.MULTI_LAUNCHES == n6 + 1
+    for m in range(nmembers):
+        torch.testing.assert_close(got[m], P.redi_apply_fused(op, xs[m]), rtol=0, atol=0)
+    torch.testing.assert_close(got, P.redi_apply(op, xs), rtol=0, atol=0)
+
+
+def test_k6_invariants(case):
+    """Conservation of the volume integral and constants in the null space,
+    through the kernel in f64."""
+    _, gm, idx, _, chi = case
+    op = _redi(case)
+    wet = idx.wet3d
+    v = torch.where(wet, gm.v3d, 0.0)
+    tend = P.redi_apply_fused(op, chi)
+    assert abs(float((tend * v).sum())) < 1e-12 * float((tend * v).abs().sum())
+    assert float(P.redi_apply_fused(op, torch.where(wet, 7.5, 0.0).double()).abs().max()) < 1e-12
+
+
+def test_k6_wrapper_raises_on_card(case):
+    _, _, _, _, chi = case
+    op = _redi(case)
+    with pytest.raises(ValueError, match="not contiguous"):
+        P.redi_apply_fused(op, chi.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="on cpu"):
+        P.redi_apply_fused(dataclasses.replace(op, g_t=op.g_t.cpu()), chi)
+    with pytest.raises(TypeError, match="no kernel"):
+        P.redi_apply_fused(op, chi.float())
+    with pytest.raises(ValueError, match="B, "):
+        P.redi_apply_fused_multi(op, chi)

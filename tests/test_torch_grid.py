@@ -30,7 +30,7 @@ def grid_kwargs(ds):
 
 @pytest.fixture(scope="module")
 def port_grid(dataset):
-    gm = P.makegridmetrics(**grid_kwargs(dataset))
+    gm = P.makegridmetrics(**grid_kwargs(dataset), device="cpu")
     return gm, P.makeindices(gm.v3d)
 
 
@@ -120,7 +120,7 @@ def test_makegridmetrics_unknown_topology(dataset):
     kw["lat_vertices"] = kw["lat_vertices"].copy()
     kw["lat_vertices"][2:, -1, :] = 55.0 + np.arange(kw["lat_vertices"].shape[-1]) * 0.37
     with pytest.warns(UserWarning), pytest.raises(ValueError, match="Unknown grid type"):
-        P.makegridmetrics(**kw)
+        P.makegridmetrics(**kw, device="cpu")
 
 
 def test_makegridmetrics_float32_and_vertex_order(dataset, gridmetrics):
@@ -129,7 +129,7 @@ def test_makegridmetrics_float32_and_vertex_order(dataset, gridmetrics):
     perm = [2, 0, 3, 1]
     kw["lon_vertices"] = dataset.lon_vertices[perm]
     kw["lat_vertices"] = dataset.lat_vertices[perm]
-    gm = P.makegridmetrics(**kw, dtype=torch.float32)
+    gm = P.makegridmetrics(**kw, dtype=torch.float32, device="cpu")
     assert gm.v3d.dtype == torch.float32
     np.testing.assert_allclose(gm.edge_length.east.numpy(),
                                np.asarray(gridmetrics.edge_length.east), rtol=1e-5)
@@ -155,7 +155,10 @@ def test_import_does_not_load_jax():
     repo = str(Path(__file__).resolve().parents[1])
     code = (
         "import sys; sys.path.insert(0, %r); before = set(sys.modules)\n"
-        "import otmb_tpu_torch, otmb_tpu_torch.utils.convert\n"
+        "import otmb_tpu_torch, otmb_tpu_torch.utils.convert, otmb_tpu_torch.physics.eos\n"
+        "import otmb_tpu_torch.ops.derivatives, otmb_tpu_torch.ops.velocities\n"
+        "import otmb_tpu_torch.models.redigm, otmb_tpu_torch.models.redi\n"
+        "import otmb_tpu_torch.models.redi_kernel\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'otmb_tpu'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n" % repo
@@ -163,3 +166,57 @@ def test_import_does_not_load_jax():
     out = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _entry_points(dataset):
+    """Each entry point that makes tensors from host data, called without
+    `device=` unless `device` is given."""
+    from otmb_tpu_torch.utils.convert import (
+        coeffs_from_numpy,
+        gridmetrics_from_numpy,
+        redi_operator_from_numpy,
+    )
+
+    shape, plane = dataset.umo.shape, dataset.umo.shape[1:]
+    per_dir = {d: np.ones(plane) for d in ("east", "west", "north", "south")}
+    legs = {leg: np.zeros(shape) for leg in P.StencilCoeffs._fields}
+    fields = {name: np.zeros(plane if name in ("inv_de", "inv_dn") else shape)
+              for name in P.RediOperator.__dataclass_fields__ if name not in ("wet", "topology")}
+    return {
+        "makegridmetrics": lambda **kw: P.makegridmetrics(**grid_kwargs(dataset), **kw),
+        "dma_peak_probe": lambda **kw: P.dma_peak_probe(nstreams=1, mbytes=1, **kw),
+        "coeffs_from_numpy": lambda **kw: coeffs_from_numpy(legs, **kw),
+        "gridmetrics_from_numpy": lambda **kw: gridmetrics_from_numpy(
+            area2d=np.ones(plane), v3d=np.ones(shape), thkcello=np.ones(shape),
+            lon=np.zeros(plane), lat=np.zeros(plane), lon_vertices=np.zeros((4, *plane)),
+            lat_vertices=np.zeros((4, *plane)), z3d=np.ones(shape), zt=np.ones(shape[0]),
+            edge_length=per_dir, distance_to_edge=per_dir, distance_to_neighbour=per_dir,
+            topology="bipolar", **kw),
+        "redi_operator_from_numpy": lambda **kw: redi_operator_from_numpy(
+            fields, dataset.wet3d, "bipolar", **kw),
+    }
+
+
+ENTRY_POINTS = ("makegridmetrics", "dma_peak_probe", "coeffs_from_numpy",
+                "gridmetrics_from_numpy", "redi_operator_from_numpy")
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_default_device_raises_without_cuda(dataset, monkeypatch, name):
+    """device=None means the current CUDA device; without one the entry
+    point raises and says to pass device="cpu", instead of running on the
+    CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        _entry_points(dataset)[name]()
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_device_cpu_runs_on_the_cpu(dataset, name):
+    out = _entry_points(dataset)[name](device="cpu")
+    if name == "dma_peak_probe":
+        out = out[0]()  # the thunk's probe call
+    values = (out,) if isinstance(out, torch.Tensor) else (
+        out if isinstance(out, tuple) else tuple(vars(out).values()))
+    tensors = [t for t in values if isinstance(t, torch.Tensor)]
+    assert tensors and all(t.device.type == "cpu" for t in tensors)

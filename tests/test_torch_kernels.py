@@ -36,7 +36,7 @@ def jax_T(dataset, gridmetrics, indices):
 
 @pytest.fixture(scope="module")
 def T(jax_T):
-    return coeffs_from_numpy({leg: np.asarray(jax_T[leg]) for leg in jax_T._fields})
+    return coeffs_from_numpy({leg: np.asarray(jax_T[leg]) for leg in jax_T._fields}, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -54,7 +54,7 @@ def port_grid(gm, dtype=torch.float64):
             "z3d", "zt")},
         edge_length=per_dir(gm.edge_length), distance_to_edge=per_dir(gm.distance_to_edge),
         distance_to_neighbour=per_dir(gm.distance_to_neighbour),
-        topology=gm.topology.kind, dtype=dtype,
+        topology=gm.topology.kind, dtype=dtype, device="cpu",
     )
 
 
@@ -271,8 +271,8 @@ def test_library_path_hashes_sources_and_flags():
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert path == _build.library_path()
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {"assemble.cu", "krylov.cu",
-                                                         "probe.cu", "stencil.cu",
-                                                         "tridiag.cu"}
+                                                         "probe.cu", "redi.cu",
+                                                         "stencil.cu", "tridiag.cu"}
     assert not any("fast-math" in f or "fast_math" in f or "ftz" in f
                    for f in _build.NVCC_FLAGS)
 
@@ -298,7 +298,7 @@ def test_k4_degenerate_grid_matches_pallas(topology):
               lev=ds.lev, lon_vertices=ds.lon_vertices, lat_vertices=ds.lat_vertices)
     want = assemble_T_pallas(ds.umo, ds.vmo, ds.mlotst, J.makegridmetrics(**kw),
                              interpret=True)
-    got = P.assemble_T(ds.umo, ds.vmo, ds.mlotst, P.makegridmetrics(**kw))
+    got = P.assemble_T(ds.umo, ds.vmo, ds.mlotst, P.makegridmetrics(**kw, device="cpu"))
     for leg in got._fields:
         np.testing.assert_allclose(got[leg].numpy(), np.asarray(want[leg]), rtol=1e-12,
                                    atol=1e-18, err_msg=leg)

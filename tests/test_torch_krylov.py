@@ -57,7 +57,7 @@ def _case(nz, ny, nx, kind, dtype=np.float32, seed=0, land=True):
 
 def _port(legs, m, *vecs):
     dtype = torch.from_numpy(legs["diag"]).dtype
-    return ((coeffs_from_numpy(legs, dtype=dtype),)
+    return ((coeffs_from_numpy(legs, dtype=dtype, device="cpu"),)
             + tuple(torch.from_numpy(a.copy()) for a in (*m, *vecs)))
 
 

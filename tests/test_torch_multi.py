@@ -60,7 +60,7 @@ def jax_T(dataset, gridmetrics, indices):
 @pytest.fixture(scope="module")
 def T(jax_T):
     """The JAX operator, carried over: both packages solve the same system."""
-    return coeffs_from_numpy({leg: np.asarray(jax_T[leg]) for leg in jax_T._fields})
+    return coeffs_from_numpy({leg: np.asarray(jax_T[leg]) for leg in jax_T._fields}, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -126,7 +126,7 @@ def test_k5_plain_matches_pallas_multi(gridmetrics, topo, wet, op, fn):
     CPU against the Pallas multi kernels (interpret mode), within 1e-12 of
     the field's max; each member also equals the single-tracer K1 entry."""
     legs = _random_legs(wet, topo.kind, seed=31)
-    jc, pc = JaxCoeffs(**legs), coeffs_from_numpy(legs)
+    jc, pc = JaxCoeffs(**legs), coeffs_from_numpy(legs, device="cpu")
     if op == "T'":
         jc, pc = jax_transpose_coeffs(jc, gridmetrics.topology), P.transpose_coeffs(pc, topo)
     chis = _batch(wet, 32, 3)
@@ -153,7 +153,7 @@ def test_k5_plain_matches_pallas_multi(gridmetrics, topo, wet, op, fn):
 def test_k5_narrow_coefficients(topo, wet):
     """(bf16, f32), (f32, f32) and (f32, f64) batches equal the K1 entry
     member by member."""
-    pc = coeffs_from_numpy(_random_legs(wet, topo.kind, seed=33))
+    pc = coeffs_from_numpy(_random_legs(wet, topo.kind, seed=33), device="cpu")
     chis = _batch(wet, 34, 2)
     for ctype, vtype in ((torch.bfloat16, torch.float32), (torch.float32, torch.float32),
                          (torch.float32, torch.float64)):
@@ -479,7 +479,7 @@ def mid_grid():
     idx = makeindices(gm.v3d)
     phi = jax_faceflux(umo=ds.umo, vmo=ds.vmo, gridmetrics=gm, indices=idx)
     jT = jax_transportmatrix(phi=phi, mlotst=ds.mlotst, gridmetrics=gm, indices=idx).T
-    T = coeffs_from_numpy({leg: np.asarray(jT[leg]) for leg in jT._fields})
+    T = coeffs_from_numpy({leg: np.asarray(jT[leg]) for leg in jT._fields}, device="cpu")
     t = gm.topology
     topo = P.GridTopology(t.kind, t.nx, t.ny, t.nz)
     wet = torch.from_numpy(np.array(idx.wet3d))

@@ -31,7 +31,7 @@ def grid_kwargs(ds):
 
 @pytest.fixture(scope="module")
 def port(dataset):
-    gm = P.makegridmetrics(**grid_kwargs(dataset))
+    gm = P.makegridmetrics(**grid_kwargs(dataset), device="cpu")
     idx = P.makeindices(gm.v3d)
     phi = P.facefluxesfrommasstransport(umo=dataset.umo, vmo=dataset.vmo,
                                         gridmetrics=gm, indices=idx)
@@ -87,7 +87,7 @@ def test_transpose_matches_jax(dataset, jax_phi, gridmetrics, indices):
     transpose apply and transpose_coeffs equal the JAX package's."""
     jT = jax_transportmatrix(phi=jax_phi, mlotst=dataset.mlotst, gridmetrics=gridmetrics,
                              indices=indices).T
-    T = coeffs_from_numpy({leg: np.asarray(jT[leg]) for leg in jT._fields})
+    T = coeffs_from_numpy({leg: np.asarray(jT[leg]) for leg in jT._fields}, device="cpu")
     topo = gridmetrics.topology
     rng = np.random.default_rng(6)
     chi = np.where(dataset.wet3d, rng.standard_normal(dataset.umo.shape), 0.0)
@@ -177,7 +177,7 @@ def _oracle_T(ds, gm, idx, upwind):
 
 
 def _port_slice(ds, upwind=True):
-    gm = P.makegridmetrics(**grid_kwargs(ds))
+    gm = P.makegridmetrics(**grid_kwargs(ds), device="cpu")
     idx = P.makeindices(gm.v3d)
     phi = P.facefluxesfrommasstransport(umo=ds.umo, vmo=ds.vmo, gridmetrics=gm, indices=idx)
     ops = P.transportmatrix(phi=phi, mlotst=ds.mlotst, gridmetrics=gm, indices=idx,

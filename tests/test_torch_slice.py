@@ -38,7 +38,7 @@ def _slice(pkg, topology, **gm_kw):
 @pytest.mark.parametrize("topology", ["tripolar", "bipolar"])
 def test_slice_matches_golden(topology):
     golden = np.load(GOLDEN)
-    ds, gm, idx, ops = _slice(P, topology)
+    ds, gm, idx, ops = _slice(P, topology, device="cpu")
     for T in (ops.T, P.assemble_T(ds.umo, ds.vmo, ds.mlotst, gm)):
         mat = P.coeffs_to_scipy(T, idx, gm.topology).tocoo()
         order = np.lexsort((mat.col, mat.row))
@@ -57,7 +57,7 @@ def test_slice_matches_golden(topology):
 def test_slice_matches_jax_end_to_end(topology):
     """Fused assembly, propagation and the refined f32 ideal age of the
     port against the JAX package's main path on the same seed."""
-    ds, gm, idx, ops = _slice(P, topology)
+    ds, gm, idx, ops = _slice(P, topology, device="cpu")
     jds, jgm, jidx, jops = _slice(J, topology)
     T = P.assemble_T(ds.umo, ds.vmo, ds.mlotst, gm)
     for leg in T._fields:

@@ -37,7 +37,7 @@ def port(dataset):
     gm = P.makegridmetrics(
         areacello=dataset.areacello, volcello=dataset.volcello, lon=dataset.lon,
         lat=dataset.lat, lev=dataset.lev, lon_vertices=dataset.lon_vertices,
-        lat_vertices=dataset.lat_vertices)
+        lat_vertices=dataset.lat_vertices, device="cpu")
     idx = P.makeindices(gm.v3d)
     phi = P.facefluxesfrommasstransport(umo=dataset.umo, vmo=dataset.vmo, gridmetrics=gm,
                                         indices=idx)
@@ -207,7 +207,7 @@ def test_degenerate_grid_ideal_age(topology):
     ds = _degenerate_case(topology)
     gm = P.makegridmetrics(
         areacello=ds.areacello, volcello=ds.volcello, lon=ds.lon, lat=ds.lat, lev=ds.lev,
-        lon_vertices=ds.lon_vertices, lat_vertices=ds.lat_vertices)
+        lon_vertices=ds.lon_vertices, lat_vertices=ds.lat_vertices, device="cpu")
     idx = P.makeindices(gm.v3d)
     T = P.assemble_T(ds.umo, ds.vmo, ds.mlotst, gm)
     wet = idx.wet3d
