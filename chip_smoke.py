@@ -2,8 +2,9 @@
 
 Builds the CUDA kernels K1 (stencil), K2 (Thomas solve), K3 (fused Krylov
 step), K4 (fused assembly), K5 (multi-tracer stencil), K6 (Redi operator,
-one tracer or a batch) and K10 (bandwidth probe) from otmb_tpu_torch/csrc,
-one nvcc per source in parallel, then:
+one tracer or a batch), K7, K8 and K9 (the stencil, the assembly and Redi
+on one shard of a process grid) and K10 (bandwidth probe) from
+otmb_tpu_torch/csrc, one nvcc per source in parallel, then:
 
   1. prints the card (nvidia-smi name and power limit), the torch and CUDA
      versions and the kernel build time;
@@ -67,7 +68,22 @@ one nvcc per source in parallel, then:
      calls of K1 and K5 (a CSR matrix of T times one vector and times 8);
      each kernel's bound (its compulsory bytes over the published 3.35 TB/s
      of the H100 SXM, or its operations over 67 TFLOP/s f32, whichever is
-     larger) and its rate as a fraction of K10's measured bandwidth.
+     larger) and its rate as a fraction of K10's measured bandwidth;
+ 17. drives the sharded path (otmb_tpu_torch.parallel) at 1 degree on
+     process grids (2, 2) and (1, 4) of four ranks spawned on cuda:0 with
+     gloo, which stages the halo lines through host memory (so the numbers
+     show correctness and each shard's kernel time, not scaling). Each rank
+     computes the single-device references itself, then, counts reset just
+     before and read just after: K8 on the synthetic transports (f32) and
+     on the TEOS-10 density in 3D-rho mode (f64), K7 apply with overlap off
+     and on, 200 Euler steps of one tracer (K7) and of 8 (K7 multi), K9 in
+     f32 and f64, and on (2, 2) the refined ideal age and sequestration time
+     with grid= and one BiCGStab(2) solve_shifted_halo. K7, K8 and K9 are
+     held to K1/K5, K4 and K6 on the rank's shard and to their plain
+     versions, bit for bit (overlap to its stated bound); the sharded mean
+     ages to the single-device ones; every rank must launch K7, K7 multi,
+     K8 and K9 and none of K1, K3-K6. Rank 0 times each kernel on its shard
+     while the others wait at a barrier.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 device and exits non-zero, printing no result, without one, and whenever
@@ -479,10 +495,14 @@ def reset_launches():
     from otmb_tpu_torch.ops import assemble, krylov, stencil, tridiag
     from otmb_tpu_torch.utils import profiling
 
+    from otmb_tpu_torch.parallel import assemble_halo, halo_kernel, redi_halo
+
     counters = {"K1": (stencil, "LAUNCHES"), "K2": (tridiag, "LAUNCHES"),
                 "K3": (krylov, "LAUNCHES"), "K4": (assemble, "LAUNCHES"),
                 "K5": (stencil, "MULTI_LAUNCHES"), "K6": (redi_kernel, "LAUNCHES"),
-                "K6 multi": (redi_kernel, "MULTI_LAUNCHES"), "K10": (profiling, "LAUNCHES")}
+                "K6 multi": (redi_kernel, "MULTI_LAUNCHES"), "K10": (profiling, "LAUNCHES"),
+                "K7": (halo_kernel, "LAUNCHES"), "K7 multi": (halo_kernel, "MULTI_LAUNCHES"),
+                "K8": (assemble_halo, "LAUNCHES"), "K9": (redi_halo, "LAUNCHES")}
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
     return lambda: {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
@@ -525,9 +545,10 @@ def phase_sequestration(P, gm, idx, T, mean_age_b1):
             "sequestration time not finite and positive")
     require(res <= TOL_AGE, f"sequestration residual {res:.3e} > {TOL_AGE}")
     require(counts["K3"] > 0, "K3 was not launched by the sequestration time")
+    mean_seq = mean_years(seq, gm.v3d, wet)
     log(f"[sequestration] 1-degree refined, BiCGStab(2) inner, tol {TOL_AGE}: relative "
         f"residual {res:.3e} after {stats['refinements']} passes, {t_seq:.3f} s wall, "
-        f"volume-weighted mean {mean_years(seq, gm.v3d, wet):.6f} yr; launches {counts}")
+        f"volume-weighted mean {mean_seq:.6f} yr; launches {counts}")
 
     read = reset_launches()
     stats = {}
@@ -548,6 +569,7 @@ def phase_sequestration(P, gm, idx, T, mean_age_b1):
         f"residual {res:.3e} after {stats['refinements']} passes, {t_age:.3f} s wall, mean "
         f"age {mean_b2:.9f} yr vs BiCGStab(1) {mean_age_b1:.9f} yr (rel {rel:.3e}, bound "
         f"{TOL_MEAN_AGE}); launches {counts}")
+    return mean_seq
 
 
 def phase_quarter(P, device):
@@ -714,11 +736,11 @@ def phase_times_quarter(P, card, T, gm, idx):
         log(f"[time] {name} at {nx}x{ny}x{nz} f32: kernel {times[name][0]:.4f} ms, plain "
             f"{times[name][1]:.4f} ms per call (CUDA events over back-to-back calls, median "
             f"of 5; card {card})")
-    state = S._initial_state("bicgstab2", b)
+    state = S._initial_state(sys_, "bicgstab2", b)
     fused = S._fused_step(sys_, scratch)
     unfused = S._unfused_step(sys_)
-    times["cycle"] = time_pair(lambda: S._bicgstab2_cycles(fused, state, 1),
-                               lambda: S._bicgstab2_cycles(unfused, state, 1), 5, 5)
+    times["cycle"] = time_pair(lambda: S._bicgstab2_cycles(sys_, fused, state, 1),
+                               lambda: S._bicgstab2_cycles(sys_, unfused, state, 1), 5, 5)
     log(f"[time] one BiCGStab(2) cycle (4 applications of A o M, 2 matvec pairs) at "
         f"{nx}x{ny}x{nz} f32: fused (K3) {times['cycle'][0]:.4f} ms, unfused (K2 + K1 + eager "
         f"algebra) {times['cycle'][1]:.4f} ms (CUDA events over back-to-back cycles, median "
@@ -1315,6 +1337,303 @@ def log_rates(rows: list, gbps: float) -> None:
             f"ms)")
 
 
+# ----------------------------------------------------------------------------
+# The sharded phase: four ranks on one card, gloo with host-staged halos.
+
+# (ny_dev, nx_dev): at 1 degree, shards of 150x180 and of 300x90; (1, 4)
+# has the mirror pairs 0-3 and 1-2 and no y neighbours.
+SHARD_GRIDS = ((2, 2), (1, 4))
+SHARD_STEPS = 200
+# K7, K8 and K9 read the values K1/K5, K4 and K6 read at the same cells and
+# run their operations in their order: equal bit for bit, and so are their
+# plain versions.
+TOL_SHARD = 0.0
+# K7 with overlap: the edge cells' sums run in another order (zero halos,
+# then the patch), relative to max|K1|; f64 is the JAX package's bound
+# (tests/test_sharding.py:212-213). Each of 200 f32 steps may add an ulp or
+# two at the edge cells (6e-8 of a tracer near 1), and a stable step does
+# not amplify them: 200 steps stay below 1e-4.
+TOL_K7_OVERLAP = {torch.float32: 1e-6, torch.float64: 1e-12}
+TOL_PROP_OVERLAP = 1e-4
+# The f32 BiCGStab(2) solve of the ideal-age system on shards: above the f32
+# floor of a residual recomputed in f32 (FLOOR).
+TOL_SHARD_B2 = 1e-4
+SHARD_TIMEOUT_S = 600
+
+
+def _shard_csr(c, ny_l: int, nx_l: int):
+    """The library form of K7's function on one shard: the CSR matrix (f32)
+    of the shard's stencil with its halo lines as extra columns. Rows are
+    the shard's cells in (k, j, i) order; columns the cells, then the east,
+    west, north and south lines as `_halo_vector` lays them out. Zero
+    entries are dropped, and k is clamped (no entry above the top or below
+    the bottom level), as in K7."""
+    nz = c.diag.shape[0]
+    dev = c.diag.device
+    n = nz * ny_l * nx_l
+    cell = torch.arange(n, device=dev).reshape(nz, ny_l, nx_l)
+    k = torch.arange(nz, device=dev).view(nz, 1, 1)
+    col_e = n + k * ny_l + torch.arange(ny_l, device=dev).view(1, ny_l, 1)
+    col_w = col_e + nz * ny_l
+    row_n = n + 2 * nz * ny_l + k * nx_l + torch.arange(nx_l, device=dev).view(1, 1, nx_l)
+    row_s = row_n + nz * nx_l
+    none = torch.full_like(cell[:1], -1)
+    cols = torch.stack([cell, torch.cat([cell[..., 1:], col_e], dim=-1),
+                        torch.cat([col_w, cell[..., :-1]], dim=-1),
+                        torch.cat([cell[:, 1:], row_n], dim=1),
+                        torch.cat([row_s, cell[:, :-1]], dim=1),
+                        torch.cat([none, cell[:-1]], dim=0),
+                        torch.cat([cell[1:], none], dim=0)]).reshape(7, -1)
+    vals = torch.stack([c.diag, c.east, c.west, c.north, c.south, c.top,
+                        c.bottom]).float().reshape(7, -1)
+    rows = cell.reshape(1, -1).expand(7, -1)
+    keep = (vals != 0) & (cols >= 0)
+    m = torch.sparse_coo_tensor(torch.stack([rows[keep], cols[keep]]), vals[keep],
+                                size=(n, n + 2 * nz * (ny_l + nx_l)))
+    return m.coalesce().to_sparse_csr()
+
+
+def _halo_vector(chi: torch.Tensor, halos) -> torch.Tensor:
+    """chi (..., nz, ny_l, nx_l) and its halos (east, west, north, south)
+    in `_shard_csr`'s column order: (N,) for a field, (N, B) for a batch."""
+    lead = chi.shape[:-3]
+    v = torch.cat([t.reshape(*lead, -1) for t in (chi, *halos)], dim=-1)
+    return v.T.contiguous() if lead else v
+
+
+def _shard_rank(grid, with_solves: bool) -> dict:
+    """One rank of the sharded phase at 1 degree: whole-field references
+    through the single-device kernels, then the sharded path with the
+    launch counts reset just before and read just after (K8 on the
+    synthetic transports and on the TEOS-10 density, K7 apply, 200 Euler
+    steps of 1 and 8 tracers, K9, and with `with_solves` the refined ideal
+    age and sequestration time and one BiCGStab(2) solve), its checks, and
+    rank 0's kernel times (the other ranks wait at a barrier)."""
+    import torch.distributed as dist
+
+    import otmb_tpu_torch as P
+    from otmb_tpu_torch import parallel as Q
+    from otmb_tpu_torch.parallel import assemble_halo, halo_kernel, redi_halo
+    from otmb_tpu_torch.parallel.halo import _halo_exchange, _local_stencil
+
+    device = grid.device
+    t_set = time.perf_counter()
+    ds, gm32, idx = build_case(P, NX, NY, NZ, "tripolar", torch.float32, device)
+    topo, wet = gm32.topology, idx.wet3d
+    gm64 = P.makegridmetrics(
+        areacello=ds.areacello, volcello=ds.volcello, lon=ds.lon, lat=ds.lat, lev=ds.lev,
+        lon_vertices=ds.lon_vertices, lat_vertices=ds.lat_vertices, device=device)
+    so, ct = hydrography(gm64, wet)
+    rho = torch.where(wet, P.rho_teos10(so, ct, gm64.z3d), torch.nan)
+    R64 = P.build_redi_operator(rho.float(), gm64, wet)
+    R32 = R64.to(torch.float32)
+    host = {name: getattr(ds, name) for name in ("umo", "vmo", "mlotst")}
+    f32 = {k: torch.as_tensor(v, dtype=torch.float32, device=device) for k, v in host.items()}
+    f64 = {k: torch.as_tensor(v, dtype=torch.float64, device=device) for k, v in host.items()}
+    rng = np.random.default_rng(SEED + 13)
+    wet_np = wet.cpu().numpy()
+    chi0 = torch.as_tensor(np.where(wet_np, 1.0 + 0.1 * rng.standard_normal(wet.shape), 0.0),
+                           dtype=torch.float32, device=device)
+    chis0 = torch.as_tensor(np.where(wet_np[None], 1.0 + 0.1 * rng.standard_normal(
+        (BATCH,) + wet.shape), 0.0), dtype=torch.float32, device=device)
+    # whole-field references: the single-device kernels, on this rank
+    T32 = P.assemble_T(ds.umo, ds.vmo, ds.mlotst, gm32)
+    Tr64 = P.assemble_T(ds.umo, ds.vmo, ds.mlotst, gm64, rho=rho, upwind=False)
+    dt = 0.25 / float(T32.diag.abs().max())
+    ref = {"apply": P.stencil_apply(T32, chi0, topo),
+           "apply64": P.stencil_apply(Tr64, chi0.double(), topo),
+           "prop": P.euler_propagate(T32, chi0, dt, SHARD_STEPS, topo),
+           "prop_multi": P.euler_propagate_multi(T32, chis0, dt, SHARD_STEPS, topo),
+           "redi": P.redi_apply_fused(R32, chi0),
+           "redi64": P.redi_apply_fused(R64, chi0.double())}
+    sh = lambda x: Q.shard_pytree(x, grid, topo.shape2d)
+    gm32_l, gm64_l, rho_l = sh(gm32), sh(gm64), sh(rho)
+    chi_l, chis_l = sh(chi0), sh(chis0)
+    torch.cuda.synchronize()
+    t_set = time.perf_counter() - t_set
+
+    # the sharded path, launches counted
+    dist.barrier()
+    read = reset_launches()
+    t0 = time.perf_counter()
+    T_l = Q.assemble_T_halo(sh(f32["umo"]), sh(f32["vmo"]), sh(f32["mlotst"]), gm32_l, grid)
+    Tr_l = Q.assemble_T_halo(sh(f64["umo"]), sh(f64["vmo"]), sh(f64["mlotst"]), gm64_l, grid,
+                             rho=rho_l, upwind=False)
+    y_off = Q.stencil_apply_halo(T_l, chi_l, topo, grid)
+    y_on = Q.stencil_apply_halo(T_l, chi_l, topo, grid, overlap=True)
+    y64_on = Q.stencil_apply_halo(Tr_l, chi_l.double(), topo, grid, overlap=True)
+    t_prop = time.perf_counter()
+    p_off = Q.euler_propagate_halo(T_l, chi_l, dt, SHARD_STEPS, topo, grid, overlap=False)
+    p_on = Q.euler_propagate_halo(T_l, chi_l, dt, SHARD_STEPS, topo, grid)
+    torch.cuda.synchronize()
+    t_prop = time.perf_counter() - t_prop
+    pm_off = Q.euler_propagate_halo_multi(T_l, chis_l, dt, SHARD_STEPS, topo, grid, overlap=False)
+    pm_on = Q.euler_propagate_halo_multi(T_l, chis_l, dt, SHARD_STEPS, topo, grid)
+    rs32, rs64 = Q.redi_shard(sh(R32), grid), Q.redi_shard(sh(R64), grid)
+    r32 = Q.redi_apply_halo(rs32, chi_l, grid)
+    r64 = Q.redi_apply_halo(rs64, chi_l.double(), grid)
+    out = {"shape": grid.shape, "rank": grid.rank, "setup_s": t_set,
+           "prop_s": t_prop / 2, "host_staged": grid.host_staged}
+    if with_solves:
+        stats = {}
+        t_age = time.perf_counter()
+        age_l, out["age_res"] = P.ideal_age(T_l, sh(wet), topo, tol=TOL_AGE, refine=True,
+                                            stats=stats, grid=grid)
+        torch.cuda.synchronize()
+        out["age_s"], out["age_passes"] = time.perf_counter() - t_age, stats["refinements"]
+        t_seq = time.perf_counter()
+        seq_l, out["seq_res"] = P.sequestration_time(T_l, sh(wet), topo, tol=TOL_AGE,
+                                                     refine=True, algorithm="bicgstab2",
+                                                     grid=grid)
+        torch.cuda.synchronize()
+        out["seq_s"] = time.perf_counter() - t_seq
+        surf = surface_mask(wet, torch.float32)
+        st2 = {}
+        _, out["b2_res"] = Q.solve_shifted_halo(T_l, sh(wet.float()), topo, grid,
+                                                extra_diag=sh(surf), tol=TOL_SHARD_B2,
+                                                maxiter=600, algorithm="bicgstab2", stats=st2)
+        out["b2_iters"], out["b2_stop"] = st2["iters"], st2["stop"]
+        age, seq = Q.gather_field(age_l, grid), Q.gather_field(seq_l, grid)
+        for name, field in (("age", age), ("seq", seq)):
+            g = field[wet]
+            require(bool(torch.isfinite(g).all()) and bool((g > 0).all()),
+                    f"sharded {name} not finite and positive")
+            out[f"mean_{name}"] = mean_years(field, gm32.v3d, wet)
+    torch.cuda.synchronize()
+    out["path_s"] = time.perf_counter() - t0
+    out["launches"] = read()
+
+    # checks, outside the counted window (the plain versions exchange too)
+    every = (T_l, Tr_l, y_off, y_on, y64_on, p_off, p_on, pm_off, pm_on, r32, r64)
+    require(all(t.device == device for t in (*T_l, *Tr_l, *every[2:])),
+            f"rank {grid.rank}: a result is not on {device}")
+    err = lambda a, b: rel_err(a, b)[0]
+    halos = _halo_exchange(chi_l, topo, grid).wait()
+    halos_b = _halo_exchange(chis_l, topo, grid).wait()
+    kappas = (P.KAPPA_H_DEFAULT, P.KAPPA_VML_DEFAULT, P.KAPPA_VDEEP_DEFAULT)
+    prep = assemble_halo._prepare(sh(f32["umo"]), sh(f32["vmo"]), sh(f32["mlotst"]), gm32_l,
+                                  grid, None, P.RHO_DEFAULT, *kappas, True)
+    prep_r = assemble_halo._prepare(sh(f64["umo"]), sh(f64["vmo"]), sh(f64["mlotst"]), gm64_l,
+                                    grid, None, rho_l, *kappas, False)
+    plain8, plain8r = assemble_halo._assemble_plain(*prep), assemble_halo._assemble_plain(*prep_r)
+    errs = {
+        "K8": max(max(err(a, sh(b)), err(a, c)) for a, b, c in zip(T_l, T32, plain8)),
+        "K8 rho3d": max(max(err(a, sh(b)), err(a, c)) for a, b, c in zip(Tr_l, Tr64, plain8r)),
+        "K7": max(err(y_off, sh(ref["apply"])), err(y_off, _local_stencil(T_l, chi_l, halos)),
+                  err(p_off, sh(ref["prop"]))),
+        "K7 multi": max(err(pm_off, sh(ref["prop_multi"])),
+                        err(halo_kernel.local_apply(T_l, chis_l, halos_b),
+                            _local_stencil(T_l, chis_l, halos_b))),
+        "K9": max(err(r32, sh(ref["redi"])), err(r64, sh(ref["redi64"])),
+                  err(r32, redi_halo._redi_plain(rs32, chi_l, halos))),
+    }
+    for name, e in errs.items():
+        require(e <= TOL_SHARD, f"rank {grid.rank} {grid.shape}: {name} differs from its "
+                f"single-device kernel or its plain version by {e:.3e}")
+    rels = {"K7 overlap f32": rel_err(y_on, sh(ref["apply"]))[1],
+            "K7 overlap f64": rel_err(y64_on, sh(ref["apply64"]))[1],
+            "prop overlap": rel_err(p_on, sh(ref["prop"]))[1],
+            "prop multi overlap": rel_err(pm_on, sh(ref["prop_multi"]))[1]}
+    for name, bound_ in (("K7 overlap f32", TOL_K7_OVERLAP[torch.float32]),
+                         ("K7 overlap f64", TOL_K7_OVERLAP[torch.float64]),
+                         ("prop overlap", TOL_PROP_OVERLAP),
+                         ("prop multi overlap", TOL_PROP_OVERLAP)):
+        require(rels[name] <= bound_, f"rank {grid.rank} {grid.shape}: {name} max rel "
+                f"{rels[name]:.3e} > {bound_}")
+    out.update(errs=errs, rels=rels)
+
+    # kernel times on one shard: rank 0 alone on the card
+    dist.barrier()
+    if grid.rank == 0:
+        out["times"] = {
+            "K7": time_pair(lambda: halo_kernel.local_apply(T_l, chi_l, halos),
+                            lambda: _local_stencil(T_l, chi_l, halos), 50, 10),
+            "K7 multi": time_pair(lambda: halo_kernel.local_apply(T_l, chis_l, halos_b),
+                                  lambda: _local_stencil(T_l, chis_l, halos_b), 50, 5),
+            "K8": time_pair(lambda: assemble_halo._launch(prep),
+                            lambda: assemble_halo._assemble_plain(*prep), 20, 3),
+            "K9": time_pair(lambda: redi_halo._launch(rs32, chi_l, halos),
+                            lambda: redi_halo._redi_plain(rs32, chi_l, halos), 50, 5),
+        }
+        # the library call of K7's function: one CSR product over the shard
+        # and its halo lines
+        A = _shard_csr(T_l, *chi_l.shape[-2:])
+        v, V = _halo_vector(chi_l, halos), _halo_vector(chis_l, halos_b)
+        lib_err = max(rel_err(A @ v, y_off.reshape(-1))[1],
+                      rel_err(A @ V, halo_kernel.local_apply(T_l, chis_l, halos_b)
+                              .reshape(BATCH, -1).T)[1])
+        require(lib_err <= TOL_LIBRARY, f"shard CSR product vs K7: {lib_err:.3e}")
+        out["library"] = {"K7": cuda_ms(lambda: A @ v, 50), "K7 multi": cuda_ms(lambda: A @ V, 20),
+                          "nnz": A.values().numel(), "err": lib_err}
+        del A, v, V
+    dist.barrier()
+    return out
+
+
+def phase_sharded(card, mean_age: float, mean_seq: float) -> dict:
+    """The sharded path at 1 degree on process grids of four ranks that
+    share cuda:0 (gloo, halos staged through host memory), spawned with a
+    deadline; (2, 2) with the solves, (1, 4) the kernels only. Returns each
+    grid's per-rank results."""
+    from otmb_tpu_torch.parallel import spawn_grid
+
+    runs = {}
+    for shape in SHARD_GRIDS:
+        t0 = time.perf_counter()
+        ranks = spawn_grid(_shard_rank, shape, (shape == SHARD_GRIDS[0],), backend="gloo",
+                           device="cuda:0", timeout_s=SHARD_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        runs[shape] = ranks
+        ny_l, nx_l = NY // shape[0], NX // shape[1]
+        for r in ranks:
+            counts = {k: v for k, v in r["launches"].items() if v}
+            for name in ("K7", "K7 multi", "K8", "K9"):
+                require(r["launches"][name] > 0, f"{name} was not launched on rank {r['rank']} "
+                        f"of the {shape} grid")
+            for name in ("K1", "K3", "K4", "K5", "K6", "K6 multi"):
+                require(r["launches"][name] == 0, f"{name} launched on rank {r['rank']} of the "
+                        f"{shape} grid's sharded path")
+            log(f"[sharded {shape[0]}x{shape[1]}] rank {r['rank']}: shard {ny_l}x{nx_l}x{NZ} on "
+                f"cuda:0, host-staged halos {r['host_staged']}; set-up {r['setup_s']:.3f} s, "
+                f"sharded path {r['path_s']:.3f} s ({SHARD_STEPS} Euler steps "
+                f"{r['prop_s']:.3f} s); launches {counts}; max abs vs single-device kernels "
+                f"and plain " + ", ".join(f"{k} {v:.1e}" for k, v in r["errs"].items())
+                + "; overlap max rel " + ", ".join(f"{k} {v:.3e}" for k, v in r["rels"].items()))
+        r0 = ranks[0]
+        if "age_res" in r0:
+            for r in ranks:
+                require(r["age_res"] <= TOL_AGE and r["seq_res"] <= TOL_AGE,
+                        f"sharded age / sequestration residual {r['age_res']:.3e} / "
+                        f"{r['seq_res']:.3e} > {TOL_AGE}")
+                require(r["b2_res"] <= TOL_SHARD_B2, f"sharded BiCGStab(2) residual "
+                        f"{r['b2_res']:.3e} > {TOL_SHARD_B2}")
+            rel_a = abs(r0["mean_age"] - mean_age) / abs(mean_age)
+            rel_s = abs(r0["mean_seq"] - mean_seq) / abs(mean_seq)
+            require(rel_a <= TOL_MEAN_AGE and rel_s <= TOL_MEAN_AGE,
+                    f"sharded mean age {r0['mean_age']:.9f} / sequestration {r0['mean_seq']:.9f} "
+                    f"yr vs single-device {mean_age:.9f} / {mean_seq:.9f}: {rel_a:.3e} / "
+                    f"{rel_s:.3e} > {TOL_MEAN_AGE}")
+            log(f"[sharded {shape[0]}x{shape[1]}] refined ideal age (grid=), tol {TOL_AGE}: "
+                f"residual {r0['age_res']:.3e} after {r0['age_passes']} passes, "
+                f"{r0['age_s']:.3f} s wall, mean {r0['mean_age']:.9f} yr vs single-device "
+                f"{mean_age:.9f} (rel {rel_a:.3e}, bound {TOL_MEAN_AGE}); refined sequestration "
+                f"time (BiCGStab(2) inner): residual {r0['seq_res']:.3e}, {r0['seq_s']:.3f} s, "
+                f"mean {r0['mean_seq']:.9f} yr vs {mean_seq:.9f} (rel {rel_s:.3e}); "
+                f"solve_shifted_halo BiCGStab(2) f32: residual {r0['b2_res']:.3e} after "
+                f"{r0['b2_iters']} pairs ({r0['b2_stop']})")
+        for name, (k_ms, p_ms) in r0["times"].items():
+            log(f"[time] {name} on rank 0's {ny_l}x{nx_l}x{NZ} shard f32 (the other ranks at a "
+                f"barrier): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms per call (CUDA events over "
+                f"back-to-back calls; four ranks share the card, halos host-staged; card {card})")
+        lib = r0["library"]
+        log(f"[library] CSR of rank 0's {ny_l}x{nx_l}x{NZ} shard with its halo lines as columns "
+            f"({lib['nnz']} entries, f32) @ cat(chi, halos): {lib['K7']:.4f} ms; @ (N, {BATCH}): "
+            f"{lib['K7 multi']:.4f} ms (max rel vs K7 / K7 multi {lib['err']:.2e}; CUDA events, "
+            f"median of 5; card {card})")
+        log(f"[sharded {shape[0]}x{shape[1]}] {wall:.3f} s wall for the spawn and all ranks")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on an NVIDIA GPU",
@@ -1368,7 +1687,7 @@ def main() -> int:
                                       k_calls=50)
     k6_times = phase_k6_times(P, card, dR32, idx.wet3d)
     library = phase_library(P, card, T32, idx, gm32.topology)
-    phase_sequestration(P, gm32, idx, T32, mean_age)
+    mean_seq = phase_sequestration(P, gm32, idx, T32, mean_age)
     del ds, gm32, idx, T32, dR32
     torch.cuda.empty_cache()
 
@@ -1415,6 +1734,28 @@ def main() -> int:
                (f"K5's function as the CSR product, B = {BATCH} (K5's bytes)", f"{one} f32",
                 (7 + 2 * BATCH) * cells * 4, library["K5"])], gbps)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # the sharded path: four ranks on this card
+    sharded = phase_sharded(card, mean_age, mean_seq)
+    ny_l, nx_l = NY // SHARD_GRIDS[0][0], NX // SHARD_GRIDS[0][1]
+    s_cells, s_plane, s_edge = ny_l * nx_l * NZ, ny_l * nx_l, 2 * (ny_l + nx_l)
+    ranks0 = sharded[SHARD_GRIDS[0]]
+    s_times = ranks0[0]["times"]
+    s_launches = lambda name: sum(r["launches"][name] for r in ranks0)
+    s_worst = lambda *names: max(r["errs"][n] for runs in sharded.values() for r in runs
+                                 for n in names)
+    # compulsory bytes of one shard: K1's, K5's, K4's and K6's, and the halo
+    # lines each reads once (f32 values, 1-byte wet flags)
+    s_bytes = {
+        "K7": 9 * s_cells * 4 + s_edge * NZ * 4,
+        "K7 multi": (7 + 2 * BATCH) * s_cells * 4 + BATCH * s_edge * NZ * 4,
+        "K8": 10 * s_cells * 4 + 2 * s_edge * NZ * 4 + 2 * s_edge * 4,
+        "K9": (redi_bytes(s_cells, s_plane, 4, 1, 4) + 6 * s_edge // 2 * NZ * 4
+               + s_edge // 2 * 4 + s_edge * NZ * (1 + 4)),
+    }
+    log_rates([(f"{name} on one {ny_l}x{nx_l}x{NZ} shard", "f32", s_bytes[name],
+                s_times[name][0]) for name in s_bytes], gbps)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, nbytes, flops, library_ms):
         bound_ms, bound_by = bound(nbytes, flops)
@@ -1450,6 +1791,21 @@ def main() -> int:
               REDI_FLOPS * BATCH * cells, None),
         entry("K10 dma_peak_probe", "probe.cu", "otmb_tpu/utils/profiling.py:214", k10_launches,
               k10_err, *k10_times, k10_bytes, 6 * k10_bytes // 32, None),
+        # the sharded kernels: launches summed over the (2, 2) grid's four
+        # ranks; ms on rank 0's shard; bound on that shard's bytes
+        entry("K7 stencil_apply_halo/euler_propagate_halo", "stencil.cu",
+              "otmb_tpu/parallel/halo_pallas.py:64", s_launches("K7"), s_worst("K7"),
+              *s_times["K7"], s_bytes["K7"], 15 * s_cells, ranks0[0]["library"]["K7"]),
+        entry("K7 stencil_apply_halo_multi/euler_propagate_halo_multi", "stencil.cu",
+              "otmb_tpu/parallel/halo_pallas.py:263", s_launches("K7 multi"),
+              s_worst("K7 multi"), *s_times["K7 multi"], s_bytes["K7 multi"],
+              15 * BATCH * s_cells, ranks0[0]["library"]["K7 multi"]),
+        entry("K8 assemble_T_halo", "assemble.cu", "otmb_tpu/parallel/assemble_halo.py:229",
+              s_launches("K8"), s_worst("K8", "K8 rho3d"), *s_times["K8"], s_bytes["K8"],
+              40 * s_cells, None),
+        entry("K9 redi_apply_halo", "redi.cu", "otmb_tpu/parallel/redi_halo.py:129",
+              s_launches("K9"), s_worst("K9"), *s_times["K9"], s_bytes["K9"],
+              REDI_FLOPS * s_cells, None),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

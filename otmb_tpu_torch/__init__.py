@@ -25,7 +25,17 @@ built from `csrc/` at first use:
     slopes of the TEOS-10 path (`rho_teos10`, `potential_density_slopes`,
     `add_bolus_transports`);
   * K10 `dma_peak_probe` — the many-stream bandwidth probe
-    (csrc/probe.cu).
+    (csrc/probe.cu);
+  * in `otmb_tpu_torch.parallel`, the multi-device layer on
+    `torch.distributed` (a process grid of ranks, each holding one shard;
+    a one-cell halo exchange with the tripolar fold): K7
+    `stencil_apply_halo` / `euler_propagate_halo` and their `_multi` forms
+    — K1 and K5 on a shard, the edge neighbours from halo lines
+    (csrc/stencil.cu); K8 `assemble_T_halo` — K4 on a shard
+    (csrc/assemble.cu); K9 `redi_apply_halo` — K6 on a shard
+    (csrc/redi.cu); the Krylov solves on shards (`grid=` on
+    `solve_shifted`, `solve_shifted_chunked`, `solve_shifted_ir`,
+    `ideal_age`, `sequestration_time`; `solve_shifted_halo`).
 
 A CUDA tensor always goes to the kernel; a CPU tensor takes the kernel's
 plain PyTorch version. Entry points that make tensors from host data

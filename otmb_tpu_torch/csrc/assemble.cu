@@ -1,5 +1,6 @@
 // K4: fused assembly of T = Tadv + TkH + TkVML + TkVdeep from raw umo,
-// vmo and v3d, in one bottom-up k sweep per column.
+// vmo and v3d, in one bottom-up k sweep per column; and K8, the same on
+// one shard of a process grid (the kShard instantiations, at the end).
 //
 // Replaces the Pallas kernels of otmb_tpu/ops/assemble_pallas.py
 // (_assembly_kernel, _assembly_kernel_blocked) and computes what they
@@ -69,12 +70,36 @@ enum Resident { kEdgeE, kEdgeW, kEdgeN, kEdgeS, kKhdE, kKhdW, kKhdN, kKhdS, kAre
 // Per-level rows of kpack.
 enum Level { kZupMax, kZdnMax, kUpDeep, kUpMl, kDnDeep, kDnMl, kNumLevel };
 
+// K8's lines (shard mode): what K4 reads at a shard's edge neighbours, which
+// lie on other shards. Per level, (F, nz, ny) for the east and west columns
+// and (F, nz, nx) for the north and south rows, fields v3d, the transport
+// (umo for columns, vmo for rows) and, in 3D-rho mode, rho; per column or
+// row, (2, ny) or (2, nx) resident fields 1/area and the edge length that
+// enters the neighbour's face area (the east neighbour's west edge, the west
+// neighbour's east edge, the north neighbour's south edge or, across the
+// tripolar fold, its north edge, the south neighbour's north edge). The
+// north row of the global top shard row is the fold partner's top row,
+// i-reversed (tripolar), or zeros (bipolar, never read).
 template <typename T>
+struct AssembleHalo {
+  const T* east;
+  const T* west;
+  const T* north;
+  const T* south;
+  const T* res_east;
+  const T* res_west;
+  const T* res_north;
+  const T* res_south;
+  int s_edge;      // the shard's first row has a south neighbour
+  int n_interior;  // the shard's last row has a north neighbour that is not the fold
+};
+
+template <typename T, bool kShard>
 __global__ void assemble_kernel(const T* __restrict__ umo, const T* __restrict__ vmo,
                                 const T* __restrict__ v3d, const T* __restrict__ rho,
                                 const T* __restrict__ res, const T* __restrict__ kpack,
                                 T* __restrict__ out, int nz, int ny, int nx, int tripolar,
-                                int upwind, T inv_rho) {
+                                int upwind, T inv_rho, AssembleHalo<T> h) {
   const long long plane = static_cast<long long>(ny) * nx;
   const long long col = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (col >= plane) return;
@@ -83,14 +108,27 @@ __global__ void assemble_kernel(const T* __restrict__ umo, const T* __restrict__
   const long long rowj = static_cast<long long>(j) * nx;
   const long long ce = rowj + (i + 1 == nx ? 0 : i + 1);
   const long long cw = rowj + (i == 0 ? nx - 1 : i - 1);
-  const bool has_s = j > 0;
-  const long long cs = has_s ? col - nx : col;
-  const bool interior_n = j + 1 < ny;
+  const bool has_s = j > 0 || (kShard && h.s_edge);
+  const long long cs = j > 0 ? col - nx : col;
+  const bool interior_n = j + 1 < ny || (kShard && h.n_interior);
   const bool has_n = interior_n || tripolar;
   // north neighbour: the next row, or the fold partner on the tripolar top row
-  const long long cn = interior_n ? col + nx : rowj + (nx - 1 - i);
+  const long long cn = j + 1 < ny ? col + nx : rowj + (nx - 1 - i);
   const long long n3 = nz * plane;
   const Flow<T> f{upwind != 0};
+  // Shard mode: which neighbours lie beyond the shard's edges, and where
+  // they are in the lines (`slot` counts the fields of a line).
+  const bool far_e = kShard && i + 1 == nx;
+  const bool far_w = kShard && i == 0;
+  const bool far_n = kShard && j + 1 == ny;
+  const bool far_s = kShard && j == 0 && h.s_edge;
+  auto at = [&](const T* lines, int slot, int lev, long long len, long long pos) {
+    return lines[(static_cast<long long>(slot) * nz + lev) * len + pos];
+  };
+  auto line_e = [&](int slot, int lev) { return at(h.east, slot, lev, ny, j); };
+  auto line_w = [&](int slot, int lev) { return at(h.west, slot, lev, ny, j); };
+  auto line_n = [&](int slot, int lev) { return at(h.north, slot, lev, nx, i); };
+  auto line_s = [&](int slot, int lev) { return at(h.south, slot, lev, nx, i); };
 
   auto R = [&](int field, long long c2) { return res[field * plane + c2]; };
   const T el_e = R(kEdgeE, col), el_w = R(kEdgeW, col);
@@ -99,11 +137,15 @@ __global__ void assemble_kernel(const T* __restrict__ umo, const T* __restrict__
   const T khd_n = R(kKhdN, col), khd_s = R(kKhdS, col);
   const T area = R(kArea, col), inva = R(kInvArea, col), ml = R(kMl, col);
   // neighbour metric factors that enter their face areas
-  const T inva_e = R(kInvArea, ce), el_w_e = R(kEdgeW, ce);
-  const T inva_w = R(kInvArea, cw), el_e_w = R(kEdgeE, cw);
-  const T inva_n = R(kInvArea, cn);
-  const T el_nb_n = interior_n ? R(kEdgeS, cn) : R(kEdgeN, cn);  // seam: partner's north face
-  const T inva_s = R(kInvArea, cs), el_n_s = R(kEdgeN, cs);
+  const T inva_e = far_e ? h.res_east[j] : R(kInvArea, ce);
+  const T el_w_e = far_e ? h.res_east[ny + j] : R(kEdgeW, ce);
+  const T inva_w = far_w ? h.res_west[j] : R(kInvArea, cw);
+  const T el_e_w = far_w ? h.res_west[ny + j] : R(kEdgeE, cw);
+  const T inva_n = far_n ? h.res_north[i] : R(kInvArea, cn);
+  // seam: the partner's north face
+  const T el_nb_n = far_n ? h.res_north[nx + i] : interior_n ? R(kEdgeS, cn) : R(kEdgeN, cn);
+  const T inva_s = far_s ? h.res_south[i] : R(kInvArea, cs);
+  const T el_n_s = far_s ? h.res_south[nx + i] : R(kEdgeN, cs);
 
   T carry = T(0);     // phi_top[k+1]; zero at the seafloor
   T prev_wet = T(0);  // wet factor of level k+1
@@ -116,8 +158,10 @@ __global__ void assemble_kernel(const T* __restrict__ umo, const T* __restrict__
     const T vclean = clean_of(v);
     const T inv_v = wetf / vclean;  // exact 0 on land
 
-    const T v_e = v3d[o + ce], v_w = v3d[o + cw];
-    const T v_n = v3d[o + cn], v_s = v3d[o + cs];
+    const T v_e = far_e ? line_e(0, k) : v3d[o + ce];
+    const T v_w = far_w ? line_w(0, k) : v3d[o + cw];
+    const T v_n = far_n ? line_n(0, k) : v3d[o + cn];
+    const T v_s = far_s ? line_s(0, k) : v3d[o + cs];
     const T wetf_e = wet_of(v_e), wetf_w = wet_of(v_w);
     const T wetf_n = has_n ? wet_of(v_n) : T(0);
     const T wetf_s = has_s ? wet_of(v_s) : T(0);
@@ -130,8 +174,8 @@ __global__ void assemble_kernel(const T* __restrict__ umo, const T* __restrict__
     const T mask_s = wetf * wetf_s;
     const T phi_e = sanitize(umo[o + col]) * mask_e;
     const T phi_n = sanitize(vmo[o + col]) * mask_n;
-    const T phi_w = sanitize(umo[o + cw]) * (wetf_w * wetf);
-    const T phi_s = has_s ? sanitize(vmo[o + cs]) * (wetf_s * wetf) : T(0);
+    const T phi_w = sanitize(far_w ? line_w(1, k) : umo[o + cw]) * (wetf_w * wetf);
+    const T phi_s = has_s ? sanitize(far_s ? line_s(1, k) : vmo[o + cs]) * (wetf_s * wetf) : T(0);
     const T phi_b = carry;
     const T phi_t = phi_b + (phi_w + phi_s - phi_e - phi_n);
     carry = phi_t;
@@ -147,7 +191,7 @@ __global__ void assemble_kernel(const T* __restrict__ umo, const T* __restrict__
       out_n = f.pos(phi_n);
     } else if (tripolar) {
       // the fold partner receives through its own north face
-      out_n = f.neg(sanitize(vmo[o + cn]) * (wetf_n * wetf));
+      out_n = f.neg(sanitize(far_n ? line_n(1, k) : vmo[o + cn]) * (wetf_n * wetf));
     } else {
       out_n = T(0);
     }
@@ -156,12 +200,12 @@ __global__ void assemble_kernel(const T* __restrict__ umo, const T* __restrict__
     if (rho != nullptr) {
       const T half = T(0.5);
       const T rho_c = rho[o + col];
-      const T rho_n = has_n ? rho[o + cn] : T(1);
+      const T rho_n = has_n ? (far_n ? line_n(2, k) : rho[o + cn]) : T(1);
       const T rho_up = k > 0 ? rho[o - plane + col] : rho_c;
-      im_e = inv_v / ((rho_c + rho[o + ce]) * half);
-      im_w = inv_v / ((rho_c + rho[o + cw]) * half);
+      im_e = inv_v / ((rho_c + (far_e ? line_e(2, k) : rho[o + ce])) * half);
+      im_w = inv_v / ((rho_c + (far_w ? line_w(2, k) : rho[o + cw])) * half);
       im_n = inv_v / ((rho_c + rho_n) * half);
-      im_s = inv_v / ((rho_c + rho[o + cs]) * half);
+      im_s = inv_v / ((rho_c + (far_s ? line_s(2, k) : rho[o + cs])) * half);
       im_t = inv_v / ((rho_c + rho_up) * half);
       im_b = inv_v / ((rho_c + prev_rho) * half);
       prev_rho = rho_c;
@@ -208,32 +252,66 @@ __global__ void assemble_kernel(const T* __restrict__ umo, const T* __restrict__
   }
 }
 
-template <typename T>
+template <typename T, bool kShard>
 int launch_assemble(const void* umo, const void* vmo, const void* v3d, const void* rho,
                     const void* res, const void* kpack, void* out, int nz, int ny, int nx,
-                    int tripolar, int upwind, double inv_rho, void* stream) {
+                    int tripolar, int upwind, double inv_rho, AssembleHalo<T> h, void* stream) {
   const long long plane = static_cast<long long>(ny) * nx;
-  assemble_kernel<T><<<blocks_for(plane), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(umo), static_cast<const T*>(vmo), static_cast<const T*>(v3d),
-      static_cast<const T*>(rho), static_cast<const T*>(res), static_cast<const T*>(kpack),
-      static_cast<T*>(out), nz, ny, nx, tripolar, upwind, static_cast<T>(inv_rho));
+  assemble_kernel<T, kShard>
+      <<<blocks_for(plane), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(umo), static_cast<const T*>(vmo), static_cast<const T*>(v3d),
+          static_cast<const T*>(rho), static_cast<const T*>(res), static_cast<const T*>(kpack),
+          static_cast<T*>(out), nz, ny, nx, tripolar, upwind, static_cast<T>(inv_rho), h);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K8: K4 on one shard of a process grid (kShard), with the shard's edge
+// neighbours in the lines of `lines` (east, west, north, south per level,
+// then their resident fields; AssembleHalo above).
+//
+// Replaces the Pallas kernel of otmb_tpu/parallel/assemble_halo.py
+// (_assembly_kernel_shard). That kernel receives derived lines (masked
+// fluxes, wet factors, face areas, the seam outflux) and rebuilds K4's
+// shifts from them. K4 instead recomputes its west and south faces and the
+// neighbours' face areas from the neighbours' raw inputs, so K8 receives
+// those raw inputs and runs K4's own expressions on them: every value K4
+// reads at a cell of the whole field, K8 reads at the same cell of its
+// shard, and K8 equals K4 bit for bit by construction. Bound and design are
+// K4's; the lines add 2-3 values per level and edge cell.
+template <typename T>
+int launch_assemble_halo(const void* umo, const void* vmo, const void* v3d, const void* rho,
+                         const void* res, const void* kpack, void* out, const void* const* lines,
+                         int nz, int ny, int nx, int tripolar, int upwind, double inv_rho,
+                         int s_edge, int n_interior, void* stream) {
+  auto L = [&](int n) { return static_cast<const T*>(lines[n]); };
+  const AssembleHalo<T> h{L(0), L(1), L(2), L(3), L(4), L(5), L(6), L(7), s_edge, n_interior};
+  return launch_assemble<T, true>(umo, vmo, v3d, rho, res, kpack, out, nz, ny, nx, tripolar,
+                                  upwind, inv_rho, h, stream);
 }
 
 }  // namespace otmb
 
-OTMB_EXPORT int otmb_assemble_f32(const void* umo, const void* vmo, const void* v3d,
-                                  const void* rho, const void* res, const void* kpack, void* out,
-                                  int nz, int ny, int nx, int tripolar, int upwind, double inv_rho,
-                                  void* stream) {
-  return otmb::launch_assemble<float>(umo, vmo, v3d, rho, res, kpack, out, nz, ny, nx, tripolar,
-                                      upwind, inv_rho, stream);
-}
+#define OTMB_ASSEMBLE_ENTRY(NAME, T)                                                         \
+  OTMB_EXPORT int NAME(const void* umo, const void* vmo, const void* v3d, const void* rho,   \
+                       const void* res, const void* kpack, void* out, int nz, int ny, int nx, \
+                       int tripolar, int upwind, double inv_rho, void* stream) {             \
+    return otmb::launch_assemble<T, false>(umo, vmo, v3d, rho, res, kpack, out, nz, ny, nx,  \
+                                           tripolar, upwind, inv_rho, {}, stream);           \
+  }
 
-OTMB_EXPORT int otmb_assemble_f64(const void* umo, const void* vmo, const void* v3d,
-                                  const void* rho, const void* res, const void* kpack, void* out,
-                                  int nz, int ny, int nx, int tripolar, int upwind, double inv_rho,
-                                  void* stream) {
-  return otmb::launch_assemble<double>(umo, vmo, v3d, rho, res, kpack, out, nz, ny, nx, tripolar,
-                                       upwind, inv_rho, stream);
-}
+OTMB_ASSEMBLE_ENTRY(otmb_assemble_f32, float)
+OTMB_ASSEMBLE_ENTRY(otmb_assemble_f64, double)
+
+#define OTMB_ASSEMBLE_HALO_ENTRY(NAME, T)                                                    \
+  OTMB_EXPORT int NAME(const void* umo, const void* vmo, const void* v3d, const void* rho,   \
+                       const void* res, const void* kpack, void* out,                        \
+                       const void* const* lines, int nz, int ny, int nx, int tripolar,       \
+                       int upwind, double inv_rho, int s_edge, int n_interior,               \
+                       void* stream) {                                                       \
+    return otmb::launch_assemble_halo<T>(umo, vmo, v3d, rho, res, kpack, out, lines, nz, ny, \
+                                         nx, tripolar, upwind, inv_rho, s_edge, n_interior,  \
+                                         stream);                                            \
+  }
+
+OTMB_ASSEMBLE_HALO_ENTRY(otmb_assemble_halo_f32, float)
+OTMB_ASSEMBLE_HALO_ENTRY(otmb_assemble_halo_f64, double)

@@ -1,6 +1,7 @@
 // K6: the Redi isoneutral-diffusion operator, out = R chi, for one tracer
 // (nz, ny, nx) or a batch of B tracers (B, nz, ny, nx) that share one read
-// of the coefficients.
+// of the coefficients; and K9, K6 on one shard of a process grid (the kShard
+// instantiations, at the end).
 //
 // Replaces the Pallas kernels of otmb_tpu/models/redi_pallas.py
 // (_redi_kernel, _redi_kernel_blocked, _redi_kernel_multi). The TPU
@@ -57,10 +58,49 @@ __device__ __forceinline__ V coef(const C* p, long long x) {
   return static_cast<V>(widen(p[x]));
 }
 
+// K9's lines (shard mode): what K6 reads at a shard's edge neighbours, which
+// lie on other shards. Static per operator: the neighbours' dcz weights
+// (cz_u, cz_d) on all four sides, the west neighbours' east faces (ae, s_e,
+// inv_de) and the south neighbours' north faces (an, s_n, inv_dn), and the
+// wet flags; per apply: chi. Per level, a line is (nz, ny) for the east and
+// west columns and (nz, nx) for the north and south rows; the coefficient
+// lines stack their fields first: east and north (2, nz, L), west and south
+// (4, nz, L). The north row of the global top shard row is the fold
+// partner's top row, i-reversed (tripolar), or never read (bipolar).
 template <typename C, typename V>
+struct RediHalo {
+  const C* east;
+  const C* west;
+  const C* north;
+  const C* south;
+  const C* inv_de_w;
+  const C* inv_dn_s;
+  const unsigned char* wet_e;
+  const unsigned char* wet_w;
+  const unsigned char* wet_n;
+  const unsigned char* wet_s;
+  const V* chi_e;
+  const V* chi_w;
+  const V* chi_n;
+  const V* chi_s;
+  int s_edge;  // the shard's first row has a south neighbour
+};
+
+// A horizontal neighbour of a thread's cell: its offset `h` within a level
+// of the whole field; in shard mode, whether it lies beyond the shard's edge
+// (`far`), and then its position `pos` in the lines of length `len`.
+struct Side {
+  long long h;
+  bool far;
+  long long pos;
+  long long len;
+};
+
+template <typename C, typename V, bool kShard>
 __global__ void __launch_bounds__(kBlock)
 redi_kernel(RediFields<C> F, const unsigned char* __restrict__ wet, const V* __restrict__ chi,
-            V* __restrict__ out, int nmembers, int nz, int ny, int nx, int tripolar) {
+            V* __restrict__ out, int nmembers, int nz, int ny, int nx, int tripolar,
+            RediHalo<C, V> h) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y;
   const int k = blockIdx.z;
@@ -69,47 +109,74 @@ redi_kernel(RediFields<C> F, const unsigned char* __restrict__ wet, const V* __r
   const long long member = plane * nz;
   const bool has_t = k > 0;
   const bool has_b = k + 1 < nz;
-  const bool has_s = j > 0;
+  // shard mode: `tripolar` says whether the shard's last row has a north
+  // neighbour (the next shard row, or the fold)
+  const bool has_s = j > 0 || (kShard && h.s_edge);
   const bool has_n = j + 1 < ny || tripolar;
 
   // Offsets within a level: the cell and its east, west, north (the fold
   // at a tripolar top row) and south neighbours; then the level offsets.
   const long long row = static_cast<long long>(j) * nx;
   const long long hc = row + i;
-  const long long he = row + (i + 1 == nx ? 0 : i + 1);
-  const long long hw = row + (i == 0 ? nx - 1 : i - 1);
-  const long long hn = j + 1 < ny ? hc + nx : row + (nx - 1 - i);
-  const long long hs = hc - nx;
   const long long lc = k * plane;
   const long long lt = lc - plane;
   const long long lb = lc + plane;
+  const Side side_e{row + (i + 1 == nx ? 0 : i + 1), kShard && i + 1 == nx, j, ny};
+  const Side side_w{row + (i == 0 ? nx - 1 : i - 1), kShard && i == 0, j, ny};
+  const Side side_n{j + 1 < ny ? hc + nx : row + (nx - 1 - i), kShard && j + 1 == ny, i, nx};
+  const Side side_s{hc - nx, kShard && j == 0, i, nx};
+  // A neighbour's value at level offset `lo` (lc, lt or lb) of a field, or
+  // beyond the shard's edge at level `lev` of its line. Outside shard mode
+  // these are K6's own reads, field[lo + h].
+  auto wet_at = [&](const unsigned char* line, const Side& s, long long lo, int lev) -> bool {
+    if constexpr (kShard) {
+      if (s.far) return line[lev * s.len + s.pos] != 0;
+    }
+    return wet[lo + s.h] != 0;
+  };
+  auto chi_at = [&](const V* x, const V* line, const Side& s, long long lo, int lev) -> V {
+    if constexpr (kShard) {
+      if (s.far) return line[lev * s.len + s.pos];
+    }
+    return x[lo + s.h];
+  };
+  // field `field` at level k, or field `slot` of the side's coefficient lines
+  auto coef_at = [&](int field, const C* lines, int slot, const Side& s) -> V {
+    if constexpr (kShard) {
+      if (s.far) {
+        const long long lev = static_cast<long long>(slot) * nz + k;
+        return static_cast<V>(widen(lines[lev * s.len + s.pos]));
+      }
+    }
+    return coef<C, V>(F.f[field], lc + s.h);
+  };
 
   // Wet flags of the 15 cells the stencil reaches (false where missing).
   const bool wc = wet[lc + hc] != 0;
-  const bool we = wet[lc + he] != 0;
-  const bool ww = wet[lc + hw] != 0;
-  const bool wn = has_n && wet[lc + hn] != 0;
-  const bool ws = has_s && wet[lc + hs] != 0;
+  const bool we = wet_at(h.wet_e, side_e, lc, k);
+  const bool ww = wet_at(h.wet_w, side_w, lc, k);
+  const bool wn = has_n && wet_at(h.wet_n, side_n, lc, k);
+  const bool ws = has_s && wet_at(h.wet_s, side_s, lc, k);
   const bool wt = has_t && wet[lt + hc] != 0;
-  const bool wte = has_t && wet[lt + he] != 0;
-  const bool wtw = has_t && wet[lt + hw] != 0;
-  const bool wtn = has_t && has_n && wet[lt + hn] != 0;
-  const bool wts = has_t && has_s && wet[lt + hs] != 0;
+  const bool wte = has_t && wet_at(h.wet_e, side_e, lt, k - 1);
+  const bool wtw = has_t && wet_at(h.wet_w, side_w, lt, k - 1);
+  const bool wtn = has_t && has_n && wet_at(h.wet_n, side_n, lt, k - 1);
+  const bool wts = has_t && has_s && wet_at(h.wet_s, side_s, lt, k - 1);
   const bool wb = has_b && wet[lb + hc] != 0;
-  const bool wbe = has_b && wet[lb + he] != 0;
-  const bool wbw = has_b && wet[lb + hw] != 0;
-  const bool wbn = has_b && has_n && wet[lb + hn] != 0;
-  const bool wbs = has_b && has_s && wet[lb + hs] != 0;
+  const bool wbe = has_b && wet_at(h.wet_e, side_e, lb, k + 1);
+  const bool wbw = has_b && wet_at(h.wet_w, side_w, lb, k + 1);
+  const bool wbn = has_b && has_n && wet_at(h.wet_n, side_n, lb, k + 1);
+  const bool wbs = has_b && has_s && wet_at(h.wet_s, side_s, lb, k + 1);
 
   const V zero = V(0);
   // dcz weights at the cell and its four horizontal neighbours
   const V czu_c = coef<C, V>(F.f[kCzu], lc + hc), czd_c = coef<C, V>(F.f[kCzd], lc + hc);
-  const V czu_e = coef<C, V>(F.f[kCzu], lc + he), czd_e = coef<C, V>(F.f[kCzd], lc + he);
-  const V czu_w = coef<C, V>(F.f[kCzu], lc + hw), czd_w = coef<C, V>(F.f[kCzd], lc + hw);
-  const V czu_n = has_n ? coef<C, V>(F.f[kCzu], lc + hn) : zero;
-  const V czd_n = has_n ? coef<C, V>(F.f[kCzd], lc + hn) : zero;
-  const V czu_s = has_s ? coef<C, V>(F.f[kCzu], lc + hs) : zero;
-  const V czd_s = has_s ? coef<C, V>(F.f[kCzd], lc + hs) : zero;
+  const V czu_e = coef_at(kCzu, h.east, 0, side_e), czd_e = coef_at(kCzd, h.east, 1, side_e);
+  const V czu_w = coef_at(kCzu, h.west, 0, side_w), czd_w = coef_at(kCzd, h.west, 1, side_w);
+  const V czu_n = has_n ? coef_at(kCzu, h.north, 0, side_n) : zero;
+  const V czd_n = has_n ? coef_at(kCzd, h.north, 1, side_n) : zero;
+  const V czu_s = has_s ? coef_at(kCzu, h.south, 0, side_s) : zero;
+  const V czd_s = has_s ? coef_at(kCzd, h.south, 1, side_s) : zero;
   // dcx and dcy weights at the cell and the levels above and below
   const V cxe_c = coef<C, V>(F.f[kCxe], lc + hc), cxw_c = coef<C, V>(F.f[kCxw], lc + hc);
   const V cyn_c = coef<C, V>(F.f[kCyn], lc + hc), cys_c = coef<C, V>(F.f[kCys], lc + hc);
@@ -123,14 +190,18 @@ redi_kernel(RediFields<C> F, const unsigned char* __restrict__ wet, const V* __r
   const V cys_b = has_b ? coef<C, V>(F.f[kCys], lb + hc) : zero;
   // east faces of the cell and its west neighbour
   const V ae_c = coef<C, V>(F.f[kAe], lc + hc), se_c = coef<C, V>(F.f[kSe], lc + hc);
-  const V ae_w = coef<C, V>(F.f[kAe], lc + hw), se_w = coef<C, V>(F.f[kSe], lc + hw);
-  const V ide_c = coef<C, V>(F.f[kInvDe], hc), ide_w = coef<C, V>(F.f[kInvDe], hw);
+  const V ae_w = coef_at(kAe, h.west, 2, side_w), se_w = coef_at(kSe, h.west, 3, side_w);
+  const V ide_c = coef<C, V>(F.f[kInvDe], hc);
+  const V ide_w = side_w.far ? static_cast<V>(widen(h.inv_de_w[j]))
+                              : coef<C, V>(F.f[kInvDe], side_w.h);
   // north faces of the cell and its south neighbour
   const V an_c = coef<C, V>(F.f[kAn], lc + hc), sn_c = coef<C, V>(F.f[kSn], lc + hc);
-  const V an_s = has_s ? coef<C, V>(F.f[kAn], lc + hs) : zero;
-  const V sn_s = has_s ? coef<C, V>(F.f[kSn], lc + hs) : zero;
+  const V an_s = has_s ? coef_at(kAn, h.south, 2, side_s) : zero;
+  const V sn_s = has_s ? coef_at(kSn, h.south, 3, side_s) : zero;
   const V idn_c = coef<C, V>(F.f[kInvDn], hc);
-  const V idn_s = has_s ? coef<C, V>(F.f[kInvDn], hs) : zero;
+  const V idn_s = !has_s       ? zero
+                  : side_s.far ? static_cast<V>(widen(h.inv_dn_s[i]))
+                               : coef<C, V>(F.f[kInvDn], side_s.h);
   // top faces of the cell and the one below
   const V at_c = coef<C, V>(F.f[kAt], lc + hc), sti_c = coef<C, V>(F.f[kSti], lc + hc);
   const V stj_c = coef<C, V>(F.f[kStj], lc + hc), gt_c = coef<C, V>(F.f[kGt], lc + hc);
@@ -145,20 +216,20 @@ redi_kernel(RediFields<C> F, const unsigned char* __restrict__ wet, const V* __r
     const V* __restrict__ x = chi + m * member;
     // chi masked by wet, 0 where the cell is missing
     const V xc = wc ? x[lc + hc] : zero;
-    const V xe = we ? x[lc + he] : zero;
-    const V xw = ww ? x[lc + hw] : zero;
-    const V xn = wn ? x[lc + hn] : zero;
-    const V xs = ws ? x[lc + hs] : zero;
+    const V xe = we ? chi_at(x, h.chi_e, side_e, lc, k) : zero;
+    const V xw = ww ? chi_at(x, h.chi_w, side_w, lc, k) : zero;
+    const V xn = wn ? chi_at(x, h.chi_n, side_n, lc, k) : zero;
+    const V xs = ws ? chi_at(x, h.chi_s, side_s, lc, k) : zero;
     const V xt = wt ? x[lt + hc] : zero;
-    const V xte = wte ? x[lt + he] : zero;
-    const V xtw = wtw ? x[lt + hw] : zero;
-    const V xtn = wtn ? x[lt + hn] : zero;
-    const V xts = wts ? x[lt + hs] : zero;
+    const V xte = wte ? chi_at(x, h.chi_e, side_e, lt, k - 1) : zero;
+    const V xtw = wtw ? chi_at(x, h.chi_w, side_w, lt, k - 1) : zero;
+    const V xtn = wtn ? chi_at(x, h.chi_n, side_n, lt, k - 1) : zero;
+    const V xts = wts ? chi_at(x, h.chi_s, side_s, lt, k - 1) : zero;
     const V xb = wb ? x[lb + hc] : zero;
-    const V xbe = wbe ? x[lb + he] : zero;
-    const V xbw = wbw ? x[lb + hw] : zero;
-    const V xbn = wbn ? x[lb + hn] : zero;
-    const V xbs = wbs ? x[lb + hs] : zero;
+    const V xbe = wbe ? chi_at(x, h.chi_e, side_e, lb, k + 1) : zero;
+    const V xbw = wbw ? chi_at(x, h.chi_w, side_w, lb, k + 1) : zero;
+    const V xbn = wbn ? chi_at(x, h.chi_n, side_n, lb, k + 1) : zero;
+    const V xbs = wbs ? chi_at(x, h.chi_s, side_s, lb, k + 1) : zero;
 
     // cell-centred derivatives
     const V dcz_c = czu_c * (xt - xc) + czd_c * (xc - xb);
@@ -191,17 +262,44 @@ redi_kernel(RediFields<C> F, const unsigned char* __restrict__ wet, const V* __r
   }
 }
 
-template <typename C, typename V>
+template <typename C, typename V, bool kShard>
 int launch_redi(const void* const* fields, const void* wet, const void* chi, void* out,
-                int nmembers, int nz, int ny, int nx, int tripolar, void* stream) {
+                int nmembers, int nz, int ny, int nx, int tripolar, RediHalo<C, V> h,
+                void* stream) {
   RediFields<C> F;
   for (int n = 0; n < kRediFields; ++n) F.f[n] = static_cast<const C*>(fields[n]);
   const dim3 block(kBlock);
   const dim3 grid((nx + kBlock - 1) / kBlock, ny, nz);
-  redi_kernel<C, V><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  redi_kernel<C, V, kShard><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       F, static_cast<const unsigned char*>(wet), static_cast<const V*>(chi), static_cast<V*>(out),
-      nmembers, nz, ny, nx, tripolar);
+      nmembers, nz, ny, nx, tripolar, h);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K9: K6 on one shard of a process grid, one tracer (kShard), with the
+// shard's edge neighbours in `lines` (RediHalo above, in its field order).
+//
+// Replaces the Pallas kernel of otmb_tpu/parallel/redi_halo.py
+// (_redi_kernel_shard). That kernel receives chi and dcz lines and the
+// west and south interface fluxes, which the receiver evaluates outside the
+// kernel. K6 instead recomputes every derivative and flux from reads in a
+// one-cell ring (k +- 1, no diagonal neighbours), so K9 receives what K6
+// reads in that ring beyond the shard's edges and runs K6's own
+// expressions: on each shard K9 equals K6 on the whole field bit for bit.
+// The static lines are exchanged once per operator and only chi's per
+// apply: one round of messages, as in the JAX package. `n_edge` says
+// whether the shard's last row has a north neighbour (a shard row above,
+// or the tripolar fold). Bound and design are K6's.
+template <typename C, typename V>
+int launch_redi_halo(const void* const* fields, const void* wet, const void* chi, void* out,
+                     const void* const* lines, int nz, int ny, int nx, int s_edge, int n_edge,
+                     void* stream) {
+  auto c = [&](int n) { return static_cast<const C*>(lines[n]); };
+  auto w = [&](int n) { return static_cast<const unsigned char*>(lines[n]); };
+  auto v = [&](int n) { return static_cast<const V*>(lines[n]); };
+  const RediHalo<C, V> h{c(0), c(1), c(2), c(3), c(4), c(5), w(6), w(7), w(8), w(9),
+                         v(10), v(11), v(12), v(13), s_edge};
+  return launch_redi<C, V, true>(fields, wet, chi, out, 1, nz, ny, nx, n_edge, h, stream);
 }
 
 }  // namespace otmb
@@ -210,10 +308,22 @@ int launch_redi(const void* const* fields, const void* wet, const void* chi, voi
   OTMB_EXPORT int NAME(const void* const* fields, const void* wet, const void* chi,      \
                        void* out, int nmembers, int nz, int ny, int nx, int tripolar,    \
                        void* stream) {                                                   \
-    return otmb::launch_redi<C, V>(fields, wet, chi, out, nmembers, nz, ny, nx, tripolar, \
-                                   stream);                                              \
+    return otmb::launch_redi<C, V, false>(fields, wet, chi, out, nmembers, nz, ny, nx,   \
+                                          tripolar, {}, stream);                         \
   }
 
 OTMB_REDI_ENTRY(otmb_redi_f32_f32, float, float)
 OTMB_REDI_ENTRY(otmb_redi_bf16_f32, __nv_bfloat16, float)
 OTMB_REDI_ENTRY(otmb_redi_f64_f64, double, double)
+
+#define OTMB_REDI_HALO_ENTRY(NAME, C, V)                                                 \
+  OTMB_EXPORT int NAME(const void* const* fields, const void* wet, const void* chi,      \
+                       void* out, const void* const* lines, int nz, int ny, int nx,      \
+                       int s_edge, int n_edge, void* stream) {                           \
+    return otmb::launch_redi_halo<C, V>(fields, wet, chi, out, lines, nz, ny, nx, s_edge, \
+                                        n_edge, stream);                                 \
+  }
+
+OTMB_REDI_HALO_ENTRY(otmb_redi_halo_f32_f32, float, float)
+OTMB_REDI_HALO_ENTRY(otmb_redi_halo_bf16_f32, __nv_bfloat16, float)
+OTMB_REDI_HALO_ENTRY(otmb_redi_halo_f64_f64, double, double)

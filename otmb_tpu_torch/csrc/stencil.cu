@@ -1,6 +1,8 @@
 // K1: the 7-point transport stencil, y = T @ chi, optionally fused with
-// the forward Euler update chi - dt * T @ chi; and K5, the same for a batch
-// of tracers (below K1).
+// the forward Euler update chi - dt * T @ chi; K5, the same for a batch of
+// tracers (below K1); and K7, both on one shard of a process grid, with the
+// shard's edge neighbours from halo lines (the kHalo instantiations, at the
+// end).
 //
 // Replaces the Pallas kernels of otmb_tpu/ops/stencil_pallas.py
 // (_stencil_kernel, _stencil_kernel_carry, _stencil_kernel_blocked): one
@@ -25,13 +27,27 @@
 
 namespace otmb {
 
-template <typename C, typename V>
+// K7's halo lines: the neighbours of a shard's edge cells, which lie on
+// other shards (or across the periodic wrap or the tripolar fold). Columns
+// are (nz, ny) and rows (nz, nx), per member of a batch; a member's lines
+// follow the previous member's. `east[k, j]` is the east neighbour of the
+// last column's cell (k, j), `north[k, i]` the north neighbour of the last
+// row's cell (k, i); a neighbour that does not exist is 0 in its line.
+template <typename V>
+struct Halo {
+  const V* east;
+  const V* west;
+  const V* north;
+  const V* south;
+};
+
+template <typename C, typename V, bool kHalo>
 __global__ void stencil_kernel(const C* __restrict__ diag, const C* __restrict__ east,
                                const C* __restrict__ west, const C* __restrict__ north,
                                const C* __restrict__ south, const C* __restrict__ top,
                                const C* __restrict__ bottom, const V* __restrict__ chi,
                                V* __restrict__ out, int nz, int ny, int nx, int tripolar,
-                               int euler, V dt) {
+                               int euler, V dt, Halo<V> h) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y;
   const int k = blockIdx.z;
@@ -41,15 +57,26 @@ __global__ void stencil_kernel(const C* __restrict__ diag, const C* __restrict__
   const long long c = row + i;
 
   const V x = chi[c];
-  const V xe = chi[row + (i + 1 == nx ? 0 : i + 1)];
-  const V xw = chi[row + (i == 0 ? nx - 1 : i - 1)];
-  V xn = V(0);
-  if (j + 1 < ny) {
-    xn = chi[c + nx];
-  } else if (tripolar) {
-    xn = chi[row + (nx - 1 - i)];
+  V xe, xw, xn, xs;
+  if constexpr (kHalo) {
+    // K7: an open box; what lies beyond its edges comes from the lines
+    const long long hcol = static_cast<long long>(k) * ny + j;
+    const long long hrow = static_cast<long long>(k) * nx + i;
+    xe = i + 1 < nx ? chi[c + 1] : h.east[hcol];
+    xw = i > 0 ? chi[c - 1] : h.west[hcol];
+    xn = j + 1 < ny ? chi[c + nx] : h.north[hrow];
+    xs = j > 0 ? chi[c - nx] : h.south[hrow];
+  } else {
+    xe = chi[row + (i + 1 == nx ? 0 : i + 1)];
+    xw = chi[row + (i == 0 ? nx - 1 : i - 1)];
+    xn = V(0);
+    if (j + 1 < ny) {
+      xn = chi[c + nx];
+    } else if (tripolar) {
+      xn = chi[row + (nx - 1 - i)];
+    }
+    xs = j > 0 ? chi[c - nx] : V(0);
   }
-  const V xs = j > 0 ? chi[c - nx] : V(0);
   const V xt = k > 0 ? chi[c - plane] : V(0);
   const V xb = k + 1 < nz ? chi[c + plane] : V(0);
 
@@ -63,18 +90,18 @@ __global__ void stencil_kernel(const C* __restrict__ diag, const C* __restrict__
   out[c] = euler ? x - dt * acc : acc;
 }
 
-template <typename C, typename V>
+template <typename C, typename V, bool kHalo>
 int launch_stencil(const void* diag, const void* east, const void* west, const void* north,
                    const void* south, const void* top, const void* bottom, const void* chi,
                    void* out, int nz, int ny, int nx, int tripolar, int euler, double dt,
-                   void* stream) {
+                   Halo<V> h, void* stream) {
   const dim3 block(kBlock);
   const dim3 grid((nx + kBlock - 1) / kBlock, ny, nz);
-  stencil_kernel<C, V><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  stencil_kernel<C, V, kHalo><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const C*>(diag), static_cast<const C*>(east), static_cast<const C*>(west),
       static_cast<const C*>(north), static_cast<const C*>(south), static_cast<const C*>(top),
       static_cast<const C*>(bottom), static_cast<const V*>(chi), static_cast<V*>(out), nz, ny,
-      nx, tripolar, euler, static_cast<V>(dt));
+      nx, tripolar, euler, static_cast<V>(dt), h);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -96,13 +123,13 @@ int launch_stencil(const void* diag, const void* east, const void* west, const v
 // Semantics and rounding are K1's (above): the same reads, the same sum
 // order in V, no FMA contraction, so member b of the result equals K1
 // applied to member b, bit for bit.
-template <typename C, typename V>
+template <typename C, typename V, bool kHalo>
 __global__ void stencil_multi_kernel(const C* __restrict__ diag, const C* __restrict__ east,
                                      const C* __restrict__ west, const C* __restrict__ north,
                                      const C* __restrict__ south, const C* __restrict__ top,
                                      const C* __restrict__ bottom, const V* __restrict__ chi,
                                      V* __restrict__ out, int nmembers, int nz, int ny, int nx,
-                                     int tripolar, int euler, V dt) {
+                                     int tripolar, int euler, V dt, Halo<V> h) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y;
   const int k = blockIdx.z;
@@ -111,11 +138,20 @@ __global__ void stencil_multi_kernel(const C* __restrict__ diag, const C* __rest
   const long long member = plane * nz;
   const long long row = k * plane + static_cast<long long>(j) * nx;
   const long long c = row + i;
-  const long long ce = row + (i + 1 == nx ? 0 : i + 1);
-  const long long cw = row + (i == 0 ? nx - 1 : i - 1);
-  const bool has_n = j + 1 < ny || tripolar;
+  // K7 (kHalo): an open box whose edge neighbours come from the lines
+  const bool in_e = !kHalo || i + 1 < nx;
+  const bool in_w = !kHalo || i > 0;
+  const bool in_n = !kHalo || j + 1 < ny;
+  const bool in_s = !kHalo || j > 0;
+  const long long hcol = static_cast<long long>(k) * ny + j;
+  const long long hrow = static_cast<long long>(k) * nx + i;
+  const long long col_member = static_cast<long long>(nz) * ny;
+  const long long row_member = static_cast<long long>(nz) * nx;
+  const long long ce = kHalo ? c + 1 : row + (i + 1 == nx ? 0 : i + 1);
+  const long long cw = kHalo ? c - 1 : row + (i == 0 ? nx - 1 : i - 1);
+  const bool has_n = kHalo || j + 1 < ny || tripolar;
   const long long cn = j + 1 < ny ? c + nx : row + (nx - 1 - i);
-  const bool has_s = j > 0;
+  const bool has_s = kHalo || j > 0;
   const bool has_t = k > 0;
   const bool has_b = k + 1 < nz;
 
@@ -130,10 +166,10 @@ __global__ void stencil_multi_kernel(const C* __restrict__ diag, const C* __rest
   for (int m = 0; m < nmembers; ++m) {
     const V* __restrict__ x = chi + m * member;
     const V xc = x[c];
-    const V xe = x[ce];
-    const V xw = x[cw];
-    const V xn = has_n ? x[cn] : V(0);
-    const V xs = has_s ? x[c - nx] : V(0);
+    const V xe = in_e ? x[ce] : h.east[m * col_member + hcol];
+    const V xw = in_w ? x[cw] : h.west[m * col_member + hcol];
+    const V xn = !has_n ? V(0) : in_n ? x[cn] : h.north[m * row_member + hrow];
+    const V xs = !has_s ? V(0) : in_s ? x[c - nx] : h.south[m * row_member + hrow];
     const V xt = has_t ? x[c - plane] : V(0);
     const V xb = has_b ? x[c + plane] : V(0);
 
@@ -148,19 +184,46 @@ __global__ void stencil_multi_kernel(const C* __restrict__ diag, const C* __rest
   }
 }
 
-template <typename C, typename V>
+template <typename C, typename V, bool kHalo>
 int launch_stencil_multi(const void* diag, const void* east, const void* west, const void* north,
                          const void* south, const void* top, const void* bottom, const void* chi,
                          void* out, int nmembers, int nz, int ny, int nx, int tripolar, int euler,
-                         double dt, void* stream) {
+                         double dt, Halo<V> h, void* stream) {
   const dim3 block(kBlock);
   const dim3 grid((nx + kBlock - 1) / kBlock, ny, nz);
-  stencil_multi_kernel<C, V><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  stencil_multi_kernel<C, V, kHalo><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const C*>(diag), static_cast<const C*>(east), static_cast<const C*>(west),
       static_cast<const C*>(north), static_cast<const C*>(south), static_cast<const C*>(top),
       static_cast<const C*>(bottom), static_cast<const V*>(chi), static_cast<V*>(out), nmembers,
-      nz, ny, nx, tripolar, euler, static_cast<V>(dt));
+      nz, ny, nx, tripolar, euler, static_cast<V>(dt), h);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K7: K1 (nmembers == 0) or K5 (nmembers >= 1) on one shard of a process
+// grid, with the shard's edge neighbours in the halo lines.
+//
+// Replaces the Pallas kernels of otmb_tpu/parallel/halo_pallas.py
+// (_stencil_kernel_local, _stencil_kernel_local_multi). Inside the shard
+// nothing is periodic and there is no fold: both live in the lines, which
+// parallel/halo.py exchanges. Bound and design are K1's and K5's; the lines
+// add 4 * (ny + nx) values per level and member. Every read of a value that
+// K1 or K5 would read at the same cell of the whole field returns that value,
+// and the sum runs in their order, so on each shard K7 equals K1 (K5 per
+// member) on the whole field bit for bit.
+template <typename C, typename V>
+int launch_stencil_halo(const void* diag, const void* east, const void* west, const void* north,
+                        const void* south, const void* top, const void* bottom, const void* chi,
+                        void* out, const void* h_east, const void* h_west, const void* h_north,
+                        const void* h_south, int nmembers, int nz, int ny, int nx, int euler,
+                        double dt, void* stream) {
+  const Halo<V> h{static_cast<const V*>(h_east), static_cast<const V*>(h_west),
+                  static_cast<const V*>(h_north), static_cast<const V*>(h_south)};
+  if (nmembers == 0) {
+    return launch_stencil<C, V, true>(diag, east, west, north, south, top, bottom, chi, out, nz,
+                                      ny, nx, 0, euler, dt, h, stream);
+  }
+  return launch_stencil_multi<C, V, true>(diag, east, west, north, south, top, bottom, chi, out,
+                                          nmembers, nz, ny, nx, 0, euler, dt, h, stream);
 }
 
 }  // namespace otmb
@@ -170,9 +233,9 @@ int launch_stencil_multi(const void* diag, const void* east, const void* west, c
                        const void* north, const void* south, const void* top,                \
                        const void* bottom, const void* chi, void* out, int nmembers, int nz, \
                        int ny, int nx, int tripolar, int euler, double dt, void* stream) {   \
-    return otmb::launch_stencil_multi<C, V>(diag, east, west, north, south, top, bottom, chi, \
-                                            out, nmembers, nz, ny, nx, tripolar, euler, dt,  \
-                                            stream);                                         \
+    return otmb::launch_stencil_multi<C, V, false>(diag, east, west, north, south, top,      \
+                                                   bottom, chi, out, nmembers, nz, ny, nx,   \
+                                                   tripolar, euler, dt, {}, stream);         \
   }
 
 OTMB_STENCIL_MULTI_ENTRY(otmb_stencil_multi_f32_f32, float, float)
@@ -185,14 +248,32 @@ OTMB_STENCIL_MULTI_ENTRY(otmb_stencil_multi_f64_f64, double, double)
                        const void* north, const void* south, const void* top,                \
                        const void* bottom, const void* chi, void* out, int nz, int ny,       \
                        int nx, int tripolar, int euler, double dt, void* stream) {           \
-    return otmb::launch_stencil<C, V>(diag, east, west, north, south, top, bottom, chi, out, \
-                                      nz, ny, nx, tripolar, euler, dt, stream);              \
+    return otmb::launch_stencil<C, V, false>(diag, east, west, north, south, top, bottom,    \
+                                             chi, out, nz, ny, nx, tripolar, euler, dt, {},  \
+                                             stream);                                        \
   }
 
 OTMB_STENCIL_ENTRY(otmb_stencil_f32_f32, float, float)
 OTMB_STENCIL_ENTRY(otmb_stencil_bf16_f32, __nv_bfloat16, float)
 OTMB_STENCIL_ENTRY(otmb_stencil_f32_f64, float, double)
 OTMB_STENCIL_ENTRY(otmb_stencil_f64_f64, double, double)
+
+#define OTMB_STENCIL_HALO_ENTRY(NAME, C, V)                                                  \
+  OTMB_EXPORT int NAME(const void* diag, const void* east, const void* west,                 \
+                       const void* north, const void* south, const void* top,                \
+                       const void* bottom, const void* chi, void* out, const void* h_east,   \
+                       const void* h_west, const void* h_north, const void* h_south,         \
+                       int nmembers, int nz, int ny, int nx, int euler, double dt,           \
+                       void* stream) {                                                       \
+    return otmb::launch_stencil_halo<C, V>(diag, east, west, north, south, top, bottom, chi, \
+                                           out, h_east, h_west, h_north, h_south, nmembers,  \
+                                           nz, ny, nx, euler, dt, stream);                   \
+  }
+
+OTMB_STENCIL_HALO_ENTRY(otmb_stencil_halo_f32_f32, float, float)
+OTMB_STENCIL_HALO_ENTRY(otmb_stencil_halo_bf16_f32, __nv_bfloat16, float)
+OTMB_STENCIL_HALO_ENTRY(otmb_stencil_halo_f32_f64, float, double)
+OTMB_STENCIL_HALO_ENTRY(otmb_stencil_halo_f64_f64, double, double)
 
 OTMB_EXPORT const char* otmb_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

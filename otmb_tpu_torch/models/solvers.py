@@ -110,41 +110,85 @@ def _axpy(y: torch.Tensor, a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.addcmul(y, a, x)
 
 
+class _Field(NamedTuple):
+    """What the solvers do on a field: apply a stencil (`apply(c, x)` = T x
+    through the kernel, coefficients possibly narrower than x), reduce (the
+    dot and the 2-norm), and where it starts (`offset`, the global (j0, i0)
+    of its first cell). On one device the field is whole; on a process grid
+    it is the rank's shard (`parallel.solve_halo.halo_field`), and every
+    reduction is all-reduced, so the ranks take the same decisions."""
+
+    apply: Callable[[StencilCoeffs, torch.Tensor], torch.Tensor]
+    dot: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+    norm: Callable[[torch.Tensor], float]
+    offset: tuple[int, int] = (0, 0)
+
+
+def _whole_field(topology: GridTopology) -> _Field:
+    """The whole field on one device: K1 on a field, K5 on a batch (B, nz,
+    ny, nx); plain dots and norms."""
+
+    def apply(c: StencilCoeffs, x: torch.Tensor) -> torch.Tensor:
+        if x.ndim == 4:
+            return stencil_apply_multi(c, x, topology)
+        return stencil_apply(c, x, topology)
+
+    return _Field(apply, _dot, lambda v: float(torch.linalg.vector_norm(v)))
+
+
 class _System(NamedTuple):
     """One shifted system (shift * I + D_extra + A) x = b in the engine's
     form: `a` is A with shift + extra folded into its diagonal, `M` the
     preconditioner, `m_legs` the Thomas legs (lower, guarded diagonal,
-    upper) when M is the tridiagonal one."""
+    upper) when M is the tridiagonal one, `field` the whole field or a
+    shard."""
 
     a: StencilCoeffs
     topology: GridTopology
     M: Callable[[torch.Tensor], torch.Tensor]
     m_legs: tuple | None
+    field: _Field
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        """A x: K1 on a field, K5 on a batch (B, nz, ny, nx)."""
-        if x.ndim == 4:
-            return stencil_apply_multi(self.a, x, self.topology)
-        return stencil_apply(self.a, x, self.topology)
+        """A x."""
+        return self.field.apply(self.a, x)
+
+    def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return self.field.dot(a, b)
+
+
+def _field_for(coeffs: StencilCoeffs, topology: GridTopology, transpose: bool, grid=None,
+               overlap: bool = True) -> tuple[_Field, StencilCoeffs]:
+    """The field operations, and A's coefficients with T' formed once when
+    `transpose`: the whole field on one device, or this rank's shard on a
+    process grid (`parallel.solve_halo`)."""
+    if grid is None:
+        return _whole_field(topology), (transpose_coeffs(coeffs, topology) if transpose
+                                        else coeffs)
+    from ..parallel.solve_halo import halo_field, transpose_coeffs_halo
+
+    return halo_field(topology, grid, overlap), (
+        transpose_coeffs_halo(coeffs, topology, grid) if transpose else coeffs)
 
 
 def _system(coeffs: StencilCoeffs, dtype: torch.dtype, topology: GridTopology, shift=0.0,
             extra_diag: torch.Tensor | None = None, transpose: bool = False,
-            preconditioner: str = "tridiag") -> _System:
-    """The engine's system in `dtype`. For T' the stencil form of T' is
-    built once (`transpose_coeffs`); its vertical legs are the transposed
-    operator's, so the Thomas M is built from them too."""
-    if transpose:
-        coeffs = transpose_coeffs(coeffs, topology)
+            preconditioner: str = "tridiag", grid=None, overlap: bool = True) -> _System:
+    """The engine's system in `dtype`, on the whole field or (`grid`) on
+    this rank's shard. For T' the stencil form of T' is built once; its
+    vertical legs are the transposed operator's, so the Thomas M is built
+    from them too. On a shard the Thomas solve needs no neighbours, since k
+    is never sharded."""
+    field, coeffs = _field_for(coeffs, topology, transpose, grid, overlap)
     coeffs = coeffs.to(dtype)
     extra = 0.0 if extra_diag is None else extra_diag.to(dtype)
     shifted = shift + extra + coeffs.diag
     a = coeffs._replace(diag=shifted)
     if preconditioner == "tridiag":
         m_legs = (coeffs.bottom, _guarded(shifted), coeffs.top)
-        return _System(a, topology, lambda v: tridiag_solve(*m_legs, v), m_legs)
+        return _System(a, topology, lambda v: tridiag_solve(*m_legs, v), m_legs, field)
     if preconditioner == "jacobi":
-        return _System(a, topology, _jacobi_preconditioner(shifted), None)
+        return _System(a, topology, _jacobi_preconditioner(shifted), None, field)
     raise ValueError(f"unknown preconditioner {preconditioner!r}")
 
 
@@ -171,17 +215,22 @@ class _State2(NamedTuple):
     omega: torch.Tensor
 
 
-def _jitter_rhat(r: torch.Tensor, jitter: int) -> torch.Tensor:
+def _jitter_rhat(r: torch.Tensor, jitter: int, offset: tuple[int, int] = (0, 0)) -> torch.Tensor:
     """A perturbed shadow vector for divergence restarts
     (`otmb_tpu/models/solvers.py:_jitter_rhat`): a +-10 % * jitter
     modulation alternating along k, j or i (cycling with the restart's
     ordinal), which keeps land's zeros and the overlap with r but changes
-    every <rhat, .> projection, so a restart does not replay the blow-up."""
+    every <rhat, .> projection, so a restart does not replay the blow-up.
+    The sign alternates with the global index: `offset` is the (j0, i0) of
+    a shard's first cell (k is never sharded), so a shard's shadow vector is
+    the slice of the whole field's."""
     if jitter == 0:
         return r
-    axis = (r.ndim - 3) + (jitter - 1) % 3
+    which = (jitter - 1) % 3
+    axis = (r.ndim - 3) + which
     n = r.shape[axis]
-    sign = ((torch.arange(n, device=r.device) % 2) * 2 - 1).to(r.dtype)
+    start = (0, *offset)[which]
+    sign = (((start + torch.arange(n, device=r.device)) % 2) * 2 - 1).to(r.dtype)
     sign = sign.reshape([n if d == axis else 1 for d in range(r.ndim)])
     return r * (1.0 + torch.tensor(0.1 * jitter, dtype=r.dtype) * sign)
 
@@ -191,11 +240,11 @@ def _scalars(b: torch.Tensor, value: float) -> torch.Tensor:
     return torch.full(b.shape[:-3], value, dtype=b.dtype, device=b.device)
 
 
-def _initial_state(algorithm: str, b: torch.Tensor):
+def _initial_state(sys_: _System, algorithm: str, b: torch.Tensor):
     """The state at x = 0: r = rhat = b."""
     zero = torch.zeros_like(b)
     if algorithm == "bicgstab":
-        return _State1(zero, b, b, b, _dot(b, b))
+        return _State1(zero, b, b, b, sys_.dot(b, b))
     one = _scalars(b, 1.0)
     return _State2(zero, b, zero, b, one, torch.zeros_like(one), one)
 
@@ -209,11 +258,11 @@ def _restart_state(sys_: _System, algorithm: str, step, x: torch.Tensor, b: torc
     rhat)."""
     if algorithm == "bicgstab":
         r = b - sys_.apply(x)
-        rhat = _jitter_rhat(r, jitter)
-        return _State1(x, r, r, rhat, _dot(rhat, r))
+        rhat = _jitter_rhat(r, jitter, sys_.field.offset)
+        return _State1(x, r, r, rhat, sys_.dot(rhat, r))
     r = b - step(x, None, None, None)[1]
     one = _scalars(b, 1.0)
-    return _State2(x, r, torch.zeros_like(r), _jitter_rhat(r, jitter), one,
+    return _State2(x, r, torch.zeros_like(r), _jitter_rhat(r, jitter, sys_.field.offset), one,
                    torch.zeros_like(one), one)
 
 
@@ -221,18 +270,18 @@ def _bicgstab_steps(sys_: _System, st: _State1, nsteps: int) -> _State1:
     """`nsteps` iterations of right-preconditioned BiCGStab, with the
     breakdown guards of the JAX package's `_sr_chunk1`."""
     x, r, p, rhat, rho = st
-    A, M = sys_.apply, sys_.M
+    A, M, dot = sys_.apply, sys_.M, sys_.dot
     for _ in range(nsteps):
         phat = M(p)
         v = A(phat)
-        alpha = rho / _nonzero(_dot(rhat, v))
+        alpha = rho / _nonzero(dot(rhat, v))
         s = _axpy(r, -alpha, v)
         shat = M(s)
         t = A(shat)
-        omega = _dot(t, s) / _nonzero(_dot(t, t))
+        omega = dot(t, s) / _nonzero(dot(t, t))
         x = _axpy(_axpy(x, alpha, phat), omega, shat)
         r = _axpy(s, -omega, t)
-        rho_new = _dot(rhat, r)
+        rho_new = dot(rhat, r)
         beta = (rho_new / _nonzero(rho)) * (alpha / _nonzero(omega))
         p = _axpy(r, beta, _axpy(p, -omega, v))
         rho = rho_new
@@ -246,7 +295,7 @@ def _unfused_step(sys_: _System):
     def step(x1, x2, c, rhat):
         z = x1 if x2 is None else _axpy(x1, c, x2)
         out = sys_.apply(sys_.M(z))
-        return z, out, (None if rhat is None else _dot(rhat, out))
+        return z, out, (None if rhat is None else sys_.dot(rhat, out))
 
     return step
 
@@ -262,19 +311,20 @@ def _fused_step(sys_: _System, scratch):
     return step
 
 
-def _bicgstab2_cycles(step, st: _State2, ncycles: int) -> _State2:
+def _bicgstab2_cycles(sys_: _System, step, st: _State2, ncycles: int) -> _State2:
     """`ncycles` of BiCGStab(l=2) (Sleijpen & Fokkema 1993) on K = A o M,
     in y-space. `step(x1, x2, c, rhat)` returns (z = x1 + c x2, K z,
     <rhat, K z>); the algebra is that of the JAX package's
     `_sr_chunk2_fused`, and with the unfused step that of
-    `_bicgstab2_cycles`."""
+    `_bicgstab2_cycles`. The dots are `sys_`'s (all-reduced on a shard)."""
+    dot = sys_.dot
     y, r0, u0, rhat, rho0, alpha, omega = st
     one = torch.ones_like(rho0)
     guard = lambda d: torch.where(d == 0, one, d)
     for _ in range(ncycles):
         rho0 = -omega * rho0
         # BiCG step j = 0
-        rho1 = _dot(rhat, r0)
+        rho1 = dot(rhat, r0)
         beta = alpha * rho1 / guard(rho0)
         rho0 = rho1
         u0, u1, d1 = step(r0, u0, -beta, rhat)
@@ -292,11 +342,11 @@ def _bicgstab2_cycles(step, st: _State2, ncycles: int) -> _State2:
         r1, r2, _ = step(r1, u2, -alpha, None)
         y = _axpy(y, alpha, u0)
         # 2D minimal-residual polish: min ||r0 - w1 r1 - w2 r2||
-        t11 = _dot(r1, r1)
-        t12 = _dot(r1, r2)
-        t22 = _dot(r2, r2)
-        s1 = _dot(r0, r1)
-        s2 = _dot(r0, r2)
+        t11 = dot(r1, r1)
+        t12 = dot(r1, r2)
+        t22 = dot(r2, r2)
+        s1 = dot(r0, r1)
+        s2 = dot(r0, r2)
         det = guard(t11 * t22 - t12 * t12)
         w1 = (t22 * s1 - t12 * s2) / det
         w2 = (t11 * s2 - t12 * s1) / det
@@ -343,10 +393,10 @@ def _engine(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, chunk: int
     member)."""
     step = _fused_step(sys_, krylov_scratch(*sys_.m_legs)) if fused else _unfused_step(sys_)
     batch = b.ndim == 4
-    bnorm2 = _dot(b, b).reshape(-1).tolist()
+    bnorm2 = sys_.dot(b, b).reshape(-1).tolist()
     members = range(len(bnorm2))
     atol2 = [tol ** 2 * v for v in bnorm2]
-    state = _initial_state(algorithm, b)
+    state = _initial_state(sys_, algorithm, b)
     best_x, best_rn2 = state.x, list(bnorm2)  # the residual at x0 = 0 is b
     rn2 = list(bnorm2)
     pass_rn2 = list(bnorm2)  # per member, at the start of its current Krylov pass
@@ -378,7 +428,7 @@ def _engine(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, chunk: int
 
     def read():
         nonlocal rn2, best_x
-        rn2 = _dot(state.r, state.r).reshape(-1).tolist()
+        rn2 = sys_.dot(state.r, state.r).reshape(-1).tolist()
         better = [v < w for v, w in zip(rn2, best_rn2)]  # False for NaN
         # No copies: the loop never writes a tensor in place.
         if all(better):
@@ -407,7 +457,7 @@ def _engine(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, chunk: int
                 state = _bicgstab_steps(sys_, state, n)
                 iters += n
             else:
-                state = _bicgstab2_cycles(step, state, n)
+                state = _bicgstab2_cycles(sys_, step, state, n)
                 iters += 2 * n
             read()
             say("rel recurrence residual "
@@ -493,7 +543,7 @@ def _engine(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, chunk: int
     x = sys_.M(best_x) if algorithm == "bicgstab2" else best_x  # y-space for BiCGStab(2)
     r = sys_.apply(x) - b
     rnorm = (torch.linalg.vector_norm(r.reshape(len(members), -1), dim=1).tolist() if batch
-             else [float(torch.linalg.vector_norm(r))])
+             else [sys_.field.norm(r)])
     return x, [v / (math.sqrt(w) if w > 0 else 1.0) for v, w in zip(rnorm, bnorm2)]
 
 
@@ -504,7 +554,7 @@ def solve_shifted_chunked(coeffs: StencilCoeffs, b: torch.Tensor, topology: Grid
                           verbose: bool = False, early_stop: bool = True,
                           max_restarts: int = 2, algorithm: str = "bicgstab",
                           stats: dict | None = None, fused: bool | None = None,
-                          max_diverge_restarts: int = 2):
+                          max_diverge_restarts: int = 2, grid=None, overlap: bool = True):
     """Solve (shift * I + D_extra + T) x = b (T' when `transpose`) with the
     host-driven Krylov engine. Returns (x, relative residual ||Ax - b|| /
     ||b||, recomputed from x in b's dtype).
@@ -537,14 +587,26 @@ def solve_shifted_chunked(coeffs: StencilCoeffs, b: torch.Tensor, topology: Grid
       ones included), ``stop`` ("converged" / "stall" / "diverged" /
       "maxiter"), ``diverge_restarts``, ``start_rel``, ``end_rel``
       (recurrence residuals) and ``chunk_s`` (wall seconds per chunk, host
-      read included)."""
+      read included).
+    - `grid` (a `parallel.mesh.ProcessGrid`; the JAX package's `mesh=`)
+      runs the solve on a process grid: `coeffs`, `b` (one field) and
+      `extra_diag` are the rank's shards, `topology` the global one, and
+      every rank calls it. The matvec is the halo exchange plus K7
+      (`overlap` as in `parallel.halo_kernel.stencil_apply_halo`), the
+      dots are all-reduced, and the solve runs unfused (K3 has no halo
+      mode). Returns the rank's shard of x and the whole field's
+      residual."""
     if algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}")
     if fused is None:
-        fused = algorithm == "bicgstab2" and preconditioner == "tridiag"
+        fused = algorithm == "bicgstab2" and preconditioner == "tridiag" and grid is None
     if fused and preconditioner != "tridiag":
         raise ValueError("fused=True needs the tridiag preconditioner (K3 is its Thomas solve)")
-    sys_ = _system(coeffs, b.dtype, topology, shift, extra_diag, transpose, preconditioner)
+    if grid is not None and (fused or b.ndim != 3):
+        raise ValueError("on a process grid the solve takes one field (nz, ny_l, nx_l) and "
+                         "runs unfused")
+    sys_ = _system(coeffs, b.dtype, topology, shift, extra_diag, transpose, preconditioner,
+                   grid, overlap)
     x, res = _engine(sys_, b, tol, maxiter, chunk, algorithm, fused and algorithm == "bicgstab2",
                      early_stop, max_restarts, max_diverge_restarts, stats, verbose)
     return x, res[0]
@@ -553,10 +615,11 @@ def solve_shifted_chunked(coeffs: StencilCoeffs, b: torch.Tensor, topology: Grid
 def solve_shifted(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopology,
                   shift: float = 0.0, extra_diag: torch.Tensor | None = None,
                   tol: float = 1e-10, maxiter: int = 2000, transpose: bool = False,
-                  preconditioner: str = "tridiag", stats: dict | None = None):
+                  preconditioner: str = "tridiag", stats: dict | None = None, grid=None):
     """Solve (shift * I + D_extra + T) x = b matrix-free with BiCGStab
     (T' instead of T when `transpose`). Returns (x, relative residual
-    ||Ax - b|| / ||b||, recomputed from x in b's dtype).
+    ||Ax - b|| / ||b||, recomputed from x in b's dtype). `grid` as in
+    `solve_shifted_chunked`.
 
     The operator runs in b's dtype. The solve runs until ||r|| <= tol *
     ||b|| (read every `CHUNK` iterations), maxiter, or a recurrence that
@@ -568,19 +631,18 @@ def solve_shifted(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopology
                                  tol=tol, maxiter=maxiter, transpose=transpose,
                                  preconditioner=preconditioner, early_stop=False,
                                  max_restarts=0, algorithm="bicgstab", stats=stats,
-                                 max_diverge_restarts=0)
+                                 max_diverge_restarts=0, grid=grid)
 
 
-def _ir_defect(c_narrow: StencilCoeffs, x: torch.Tensor, b_narrow: torch.Tensor,
-               extra_narrow: torch.Tensor, shift: float, bnorm_safe: float,
-               topology: GridTopology):
+def _ir_defect(field: _Field, c_narrow: StencilCoeffs, x: torch.Tensor,
+               b_narrow: torch.Tensor, extra_narrow: torch.Tensor, shift: float,
+               bnorm_safe: float):
     """One wide defect r = b - A x from the NARROW coefficients (widened
-    inside the K1 kernel, exactly), and its normalised form: returns
+    inside the K1 or K7 kernel, exactly), and its normalised form: returns
     (r / s, s, s / ||b||) with s = ||r|| (1 where r == 0)."""
     wide = x.dtype
-    r = b_narrow.to(wide) - (shift * x + extra_narrow.to(wide) * x
-                             + stencil_apply(c_narrow, x, topology))
-    s = float(torch.linalg.vector_norm(r))
+    r = b_narrow.to(wide) - (shift * x + extra_narrow.to(wide) * x + field.apply(c_narrow, x))
+    s = field.norm(r)
     s_safe = s if s != 0 else 1.0
     return r / s_safe, s_safe, s / bnorm_safe
 
@@ -591,11 +653,17 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
                      max_refinements: int = 10, maxiter: int = 2000,
                      inner_maxiter: int | None = None, transpose: bool = False,
                      preconditioner: str = "tridiag", stats: dict | None = None,
-                     inner_algorithm: str = "bicgstab"):
+                     inner_algorithm: str = "bicgstab", grid=None):
     """`solve_shifted` with mixed-precision iterative refinement: inner
     Krylov solves in the coefficients' precision (f32 or f64) and the
     defect b - A x in f64, through the K1 kernel on the narrow
     coefficients. Returns (x in f64, relative residual).
+
+    `grid` (a `parallel.mesh.ProcessGrid`; the JAX package's `mesh=`) runs
+    the solve on a process grid: `coeffs`, `b` and `extra_diag` are the
+    rank's shards, `topology` the global one, every rank calls it, and the
+    inner solves and the f64 defects go through the halo exchange and K7
+    (`parallel.solve_halo`). Returns the rank's shard of x.
 
     `inner_algorithm`: "bicgstab" runs each pass through `solve_shifted`;
     "bicgstab2" through `solve_shifted_chunked(algorithm="bicgstab2",
@@ -616,8 +684,7 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
     ``rel_final``."""
     if inner_algorithm not in ALGORITHMS:
         raise ValueError(f"unknown inner_algorithm {inner_algorithm!r}")
-    if transpose:
-        coeffs = transpose_coeffs(coeffs, topology)
+    field, coeffs = _field_for(coeffs, topology, transpose, grid)
     wide = torch.float64
     narrow = coeffs.diag.dtype
     if inner_maxiter is None:
@@ -627,7 +694,7 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
 
     extra_n = torch.zeros((), dtype=b.dtype, device=b.device) if extra_diag is None else extra_diag
     b_nv = b.to(narrow)
-    bn_n = float(torch.linalg.vector_norm(b_nv))
+    bn_n = field.norm(b_nv)
     bnorm_safe = bn_n if bn_n != 0 else 1.0
 
     x = torch.zeros(b.shape, dtype=wide, device=b.device)
@@ -644,8 +711,7 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
             # x == 0, so the defect is b: no wide apply needed.
             r_hat, s_safe, rel = b_nv / bnorm_safe, bnorm_safe, bn_n / bnorm_safe
         else:
-            r_hat, s_safe, rel = _ir_defect(coeffs, x, b, extra_n, shift,
-                                            bnorm_safe, topology)
+            r_hat, s_safe, rel = _ir_defect(field, coeffs, x, b, extra_n, shift, bnorm_safe)
         if rel < best_rel:
             best_rel = rel
             best_x = x.to(narrow)
@@ -655,8 +721,7 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
         if best_x is not None and not rel <= 4.0 * best_rel:
             # the last pass diverged: refine from the best iterate instead
             x = best_x.to(wide)
-            r_hat, s_safe, rel = _ir_defect(coeffs, x, b, extra_n, shift,
-                                            bnorm_safe, topology)
+            r_hat, s_safe, rel = _ir_defect(field, coeffs, x, b, extra_n, shift, bnorm_safe)
             reverted = True
         entry = {"rel_start": rel, "reverted": reverted}
         pass_log.append(entry)
@@ -676,29 +741,26 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
         inner = {}
         rhs = r_hat.to(narrow)
         del r_hat
+        kw = dict(shift=shift, extra_diag=extra_diag, tol=pass_tol, maxiter=inner_maxiter,
+                  preconditioner=preconditioner, stats=inner, grid=grid)
         if inner_algorithm == "bicgstab2":
-            d, _ = solve_shifted_chunked(coeffs, rhs, topology, shift=shift,
-                                         extra_diag=extra_diag, tol=pass_tol,
-                                         maxiter=inner_maxiter, preconditioner=preconditioner,
-                                         max_restarts=0, algorithm="bicgstab2", stats=inner)
+            d, _ = solve_shifted_chunked(coeffs, rhs, topology, max_restarts=0,
+                                         algorithm="bicgstab2", **kw)
         else:
-            d, _ = solve_shifted(coeffs, rhs, topology, shift=shift, extra_diag=extra_diag,
-                                 tol=pass_tol, maxiter=inner_maxiter,
-                                 preconditioner=preconditioner, stats=inner)
+            d, _ = solve_shifted(coeffs, rhs, topology, **kw)
         del rhs
         x = x + s_safe * d.to(wide)
         entry.update(inner_tol=pass_tol, inner_iters=inner["iters"], inner_stop=inner["stop"],
                      inner_restarts=inner["restarts"], inner_end_rel=inner["end_rel"],
                      inner_chunk_s=inner["chunk_s"], wall_s=time.perf_counter() - t_pass)
     else:
-        _, _, rel = _ir_defect(coeffs, x, b, extra_n, shift, bnorm_safe, topology)
+        _, _, rel = _ir_defect(field, coeffs, x, b, extra_n, shift, bnorm_safe)
         if rel < best_rel:
             best_rel, best_x = rel, x
     if best_x is not None and best_rel < rel:
         # the f32-rounded recovery point: keep it only if it really is better
         x_cand = best_x.to(wide)
-        _, _, rel_cand = _ir_defect(coeffs, x_cand, b, extra_n, shift,
-                                    bnorm_safe, topology)
+        _, _, rel_cand = _ir_defect(field, coeffs, x_cand, b, extra_n, shift, bnorm_safe)
         if rel_cand < rel:
             x, rel = x_cand, rel_cand
     if stats is not None:
@@ -708,9 +770,9 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
 
 def _steady_state(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: GridTopology,
                   surface_rate: float, tol: float, refine: bool, algorithm: str,
-                  transpose: bool, stats: dict | None):
+                  transpose: bool, stats: dict | None, grid=None):
     """(T + M) x = 1 (T' when `transpose`) on wet cells, M = surface_rate on
-    the surface layer; NaN on land."""
+    the surface layer; NaN on land. On a process grid, on the rank's shard."""
     if algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}")
     wet = wet3d.to(torch.bool)
@@ -718,7 +780,7 @@ def _steady_state(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: GridTopo
     surf = torch.zeros_like(ones)
     surf[0] = surface_rate
     surf = torch.where(wet, surf, 0.0)
-    kw = dict(extra_diag=surf, tol=tol, transpose=transpose, stats=stats)
+    kw = dict(extra_diag=surf, tol=tol, transpose=transpose, stats=stats, grid=grid)
     if refine:
         x, res = solve_shifted_ir(coeffs, ones, topology, inner_algorithm=algorithm, **kw)
     elif algorithm == "bicgstab":
@@ -730,27 +792,33 @@ def _steady_state(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: GridTopo
 
 def ideal_age(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: GridTopology,
               surface_rate: float = 1.0, tol: float = 1e-8, refine: bool = False,
-              stats: dict | None = None, algorithm: str = "bicgstab"):
+              stats: dict | None = None, algorithm: str = "bicgstab", grid=None):
     """Steady-state ideal mean age Gamma (seconds) from
     (T + M) Gamma = 1 on wet cells, M = surface_rate on the surface layer
     (reference test/local_full.jl:155-168). Returns (gamma with NaN on
     land, relative residual). `refine=True` runs `solve_shifted_ir`
     (f32 inner solves, f64 defects) and returns gamma in f64.
     `algorithm` ("bicgstab" or "bicgstab2") is the refinement's inner
-    algorithm, or the engine's algorithm without refinement."""
+    algorithm, or the engine's algorithm without refinement.
+
+    `grid` (a `parallel.mesh.ProcessGrid`; the JAX package's `mesh=`) runs
+    it on a process grid: `coeffs` and `wet3d` are the rank's shards,
+    `topology` the global one, every rank calls it, and it returns the
+    rank's shard of gamma (`parallel.solve_halo`)."""
     return _steady_state(coeffs, wet3d, topology, surface_rate, tol, refine, algorithm,
-                         False, stats)
+                         False, stats, grid)
 
 
 def sequestration_time(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: GridTopology,
                        surface_rate: float = 1.0, tol: float = 1e-8, refine: bool = False,
-                       stats: dict | None = None, algorithm: str = "bicgstab"):
+                       stats: dict | None = None, algorithm: str = "bicgstab", grid=None):
     """Mean sequestration time (seconds), the adjoint of the ideal age: the
     expected time for water at each cell to next reach the surface,
     (T' + M) Gamma_dagger = 1 on wet cells, through the stencil form of
-    T' (`transpose_coeffs`). Arguments and returns as `ideal_age`."""
+    T' (`transpose_coeffs`). Arguments and returns as `ideal_age`, `grid`
+    included."""
     return _steady_state(coeffs, wet3d, topology, surface_rate, tol, refine, algorithm,
-                         True, stats)
+                         True, stats, grid)
 
 
 def solve_shifted_chunked_multi(coeffs: StencilCoeffs, bs: torch.Tensor,

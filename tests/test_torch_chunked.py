@@ -485,7 +485,7 @@ def test_nonfinite_recurrence_stops_where_the_reference_runs_on(jax_T, T, topo, 
     rn2 = lambda pairs: (40.0 if pairs <= 20 else float("nan")) * bn2
     done = {"port": 0, "jax": 0}
 
-    def port_cycles(step, st, ncycles):
+    def port_cycles(sys_, step, st, ncycles):
         done["port"] += 2 * ncycles
         v = torch.tensor(rn2(done["port"]), dtype=torch.float32).sqrt()
         return st._replace(r=torch.where(wet, v, 0.0) / float(wet.sum()) ** 0.5)

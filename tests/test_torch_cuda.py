@@ -1,5 +1,6 @@
 """otmb_tpu_torch's CUDA kernels against their plain PyTorch versions (and
-K5 against K1, member by member), on the card. Every test here needs an
+K5 against K1, member by member; K7, K8 and K9 on shards against K1/K5, K4
+and K6 on the whole field), on the card. Every test here needs an
 NVIDIA GPU and skips without one. The file imports no JAX, so it also runs
 where JAX is not installed:
 
@@ -16,7 +17,11 @@ import otmb_tpu_torch as P
 from otmb_tpu_torch.models import redi_kernel
 from otmb_tpu_torch.ops import krylov, stencil, tridiag
 from otmb_tpu_torch.ops.krylov import fused_krylov_step_plain
+from otmb_tpu_torch.ops.coeffs import StencilCoeffs
 from otmb_tpu_torch.ops.tridiag import tridiag_solve_plain
+from otmb_tpu_torch.parallel import assemble_halo, halo_kernel, redi_halo
+from otmb_tpu_torch.parallel.halo import _local_stencil
+from otmb_tpu_torch.parallel.mesh import ProcessGrid
 from otmb_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
@@ -381,3 +386,165 @@ def test_k6_wrapper_raises_on_card(case):
         P.redi_apply_fused(op, chi.float())
     with pytest.raises(ValueError, match="B, "):
         P.redi_apply_fused_multi(op, chi)
+
+
+# ----------------------------------------------------------------------------
+# K7, K8 and K9 on shards, in one process: each shard's halo lines are cut
+# from the whole field (no exchange), so these test the kernels without the
+# transport (tests/test_torch_parallel.py tests the exchange on the CPU).
+
+SHARD_SHAPES = [(2, 2), (1, 4), (1, 3), (2, 1)]
+SIDES = ("east", "west", "north", "south")
+
+
+def _shards(shape, device, ny, nx):
+    """Each rank's ProcessGrid and a slicer of (..., ny, nx) fields."""
+    for rank in range(shape[0] * shape[1]):
+        g = ProcessGrid(shape, rank, device, "gloo")
+        (j0, i0), (ny_l, nx_l) = g.offset(ny, nx), g.local_shape(ny, nx)
+        yield g, lambda f, j0=j0, i0=i0, a=ny_l, b=nx_l: f[..., j0:j0 + a, i0:i0 + b].contiguous()
+
+
+def _cut(f, g, topo, side):
+    """The line of (..., ny, nx) field `f` beyond shard `g`'s `side`: the
+    neighbours' values, periodic in x, the i-reversed top row across the
+    tripolar fold, zeros where the grid ends."""
+    ny, nx = topo.ny, topo.nx
+    (j0, i0), (ny_l, nx_l) = g.offset(ny, nx), g.local_shape(ny, nx)
+    j1, i1 = j0 + ny_l, i0 + nx_l
+    if side == "east":
+        return f[..., j0:j1, i1 % nx].contiguous()
+    if side == "west":
+        return f[..., j0:j1, (i0 - 1) % nx].contiguous()
+    if side == "south":
+        return f[..., j0 - 1, i0:i1].contiguous() if j0 > 0 else torch.zeros_like(f[..., 0, i0:i1])
+    if j1 < ny:
+        return f[..., j1, i0:i1].contiguous()
+    if topo.is_tripolar:
+        return torch.flip(f[..., ny - 1, nx - i1:nx - i0], dims=(-1,)).contiguous()
+    return torch.zeros_like(f[..., 0, i0:i1])
+
+
+@pytest.mark.parametrize("shape", SHARD_SHAPES)
+@pytest.mark.parametrize("types", ["f64,f64", "f32,f64", "f32,f32", "bf16,f32"])
+def test_k7_equals_k1_and_k5_on_each_shard(case, types, shape):
+    """K7 on each shard, apply and Euler step, one tracer and a batch of 3,
+    equals K1 and K5 on the whole field, and its plain version, bit for bit."""
+    _, gm, idx, T, chi = case
+    ctype, vtype = ({"f64": torch.float64, "f32": torch.float32, "bf16": torch.bfloat16}[t]
+                    for t in types.split(","))
+    topo = gm.topology
+    dt = 0.25 / float(T.diag.abs().max())
+    x = chi.to(vtype)
+    xs = torch.stack([x, 2 * x, -x])
+    for c in (T.to(ctype), P.transpose_coeffs(T, topo).to(ctype)):
+        whole = {"apply": P.stencil_apply(c, x, topo), "step": P.euler_step(c, x, dt, topo),
+                 "multi": P.stencil_apply_multi(c, xs, topo),
+                 "multi_step": P.euler_step_multi(c, xs, dt, topo)}
+        for g, sl in _shards(shape, chi.device, topo.ny, topo.nx):
+            c_l = StencilCoeffs(*(sl(leg) for leg in c))
+            h = tuple(_cut(x, g, topo, s) for s in SIDES)
+            hb = tuple(_cut(xs, g, topo, s) for s in SIDES)
+            n7, n7m = halo_kernel.LAUNCHES, halo_kernel.MULTI_LAUNCHES
+            got = {"apply": halo_kernel.local_apply(c_l, sl(x), h),
+                   "step": halo_kernel.local_apply(c_l, sl(x), h, dt),
+                   "multi": halo_kernel.local_apply(c_l, sl(xs), hb),
+                   "multi_step": halo_kernel.local_apply(c_l, sl(xs), hb, dt)}
+            assert (halo_kernel.LAUNCHES, halo_kernel.MULTI_LAUNCHES) == (n7 + 2, n7m + 2)
+            for name, y in got.items():
+                torch.testing.assert_close(y, sl(whole[name]), rtol=0, atol=0, msg=name)
+            torch.testing.assert_close(got["apply"], _local_stencil(c_l, sl(x), h), rtol=0,
+                                       atol=0)
+            torch.testing.assert_close(got["multi"], _local_stencil(c_l, sl(xs), hb), rtol=0,
+                                       atol=0)
+
+
+def _k8_shard(ds, gm, g, sl, topo, rho, upwind):
+    """Shard `g`'s K8 inputs with lines cut from the whole field (the lines
+    of parallel/assemble_halo.py:_lines: v3d, the transport, rho; 1/area and
+    the neighbour's edge)."""
+    from otmb_tpu_torch.ops.assemble import _levels, _residents
+
+    dev, dtype = gm.v3d.device, gm.v3d.dtype
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+    umo, vmo, ml = t(ds.umo), t(ds.vmo), t(ds.mlotst)
+    res = _residents(gm, ml, P.KAPPA_H_DEFAULT)
+    rho_c = None if rho is None else torch.where(torch.isnan(rho), 1.0, rho)
+    cut = lambda f, side: _cut(f, g, topo, side)
+    (j0, _), (ny_l, _) = g.offset(topo.ny, topo.nx), g.local_shape(topo.ny, topo.nx)
+    top = j0 + ny_l == topo.ny
+    flux = {"east": umo, "west": umo, "north": vmo, "south": vmo}
+    # the neighbour's edge in its face area (rows E, W, N, S of the
+    # residents): its west, east, south (across the fold: north), north edge
+    edge = {"east": res[1], "west": res[0], "north": res[2] if top else res[3],
+            "south": res[2]}
+    level = {s: torch.stack([cut(gm.v3d, s), cut(flux[s], s)]
+                            + ([] if rho_c is None else [cut(rho_c, s)])) for s in SIDES}
+    static = {s: torch.stack([cut(res[9], s), cut(edge[s], s)]) for s in SIDES}
+    return assemble_halo._Shard(
+        sl(umo), sl(vmo), sl(gm.v3d), None if rho_c is None else sl(rho_c), sl(res),
+        _levels(gm.zt, P.KAPPA_VML_DEFAULT, P.KAPPA_VDEEP_DEFAULT),
+        (tuple(level[s] for s in SIDES), tuple(static[s] for s in SIDES)), j0 > 0, not top,
+        topo.is_tripolar, upwind, 0.0 if rho is not None else 1.0 / 1035.0)
+
+
+@pytest.mark.parametrize("shape", SHARD_SHAPES)
+@pytest.mark.parametrize("variant", ["upwind", "centered", "rho3d"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k8_equals_k4_on_each_shard(case, variant, dtype, shape):
+    """K8 on each shard equals K4 on the whole field, and its plain version,
+    bit for bit."""
+    ds, gm64, _, _, _ = case
+    gm = P.makegridmetrics(areacello=ds.areacello, volcello=ds.volcello, lon=ds.lon,
+                           lat=ds.lat, lev=ds.lev, lon_vertices=ds.lon_vertices,
+                           lat_vertices=ds.lat_vertices, dtype=dtype, device=gm64.v3d.device)
+    topo = gm.topology
+    upwind = variant != "centered"
+    rho = None
+    if variant == "rho3d":
+        rng = np.random.default_rng(5)
+        rho = torch.as_tensor(np.where(ds.wet3d, 1025.0 + 20.0 * rng.random(ds.umo.shape),
+                                       np.nan), dtype=dtype, device=gm.v3d.device)
+    whole = P.assemble_T(ds.umo, ds.vmo, ds.mlotst, gm, rho=1035.0 if rho is None else rho,
+                         upwind=upwind)
+    for g, sl in _shards(shape, gm.v3d.device, topo.ny, topo.nx):
+        a = _k8_shard(ds, gm, g, sl, topo, rho, upwind)
+        n8 = assemble_halo.LAUNCHES
+        got = assemble_halo._launch(a)
+        assert assemble_halo.LAUNCHES == n8 + 1
+        plain = assemble_halo._assemble_plain(*a)
+        for leg in got._fields:
+            torch.testing.assert_close(got[leg], sl(whole[leg]), rtol=0, atol=0, msg=leg)
+            torch.testing.assert_close(got[leg], plain[leg], rtol=0, atol=0, msg=leg)
+
+
+@pytest.mark.parametrize("shape", SHARD_SHAPES)
+@pytest.mark.parametrize("types", list(REDI_TYPES))
+def test_k9_equals_k6_on_each_shard(case, types, shape):
+    """K9 on each shard (NaN on land) equals K6 on the whole field, and its
+    plain version, bit for bit."""
+    _, gm, idx, _, chi = case
+    ctype, vtype = REDI_TYPES[types]
+    op = _redi(case).to(ctype)
+    topo = gm.topology
+    x = torch.where(idx.wet3d, chi, torch.nan).to(vtype)
+    whole = P.redi_apply_fused(op, x)
+    for g, sl in _shards(shape, chi.device, topo.ny, topo.nx):
+        cut = lambda f, side: _cut(f, g, topo, side)
+        fields = lambda names, side: torch.stack([cut(getattr(op, n), side) for n in names])
+        dz = ("cz_u", "cz_d")
+        (j0, _), (ny_l, _) = g.offset(topo.ny, topo.nx), g.local_shape(topo.ny, topo.nx)
+        op_l = dataclasses.replace(op, wet=sl(op.wet), **{n: sl(getattr(op, n))
+                                                          for n in redi_halo._COEF_FIELDS})
+        rs = redi_halo.RediShard(
+            op_l, (fields(dz, "east"), fields(dz + ("ae", "s_e"), "west"), fields(dz, "north"),
+                   fields(dz + ("an", "s_n"), "south")),
+            (cut(op.inv_de, "west"), cut(op.inv_dn, "south")),
+            tuple(cut(op.wet, s) for s in SIDES), j0 > 0,
+            j0 + ny_l < topo.ny or topo.is_tripolar)
+        h = tuple(cut(x, s) for s in SIDES)
+        n9 = redi_halo.LAUNCHES
+        got = redi_halo._launch(rs, sl(x), h)
+        assert redi_halo.LAUNCHES == n9 + 1
+        torch.testing.assert_close(got, sl(whole), rtol=0, atol=0)
+        torch.testing.assert_close(got, redi_halo._redi_plain(rs, sl(x), h), rtol=0, atol=0)

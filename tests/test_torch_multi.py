@@ -373,7 +373,7 @@ def test_jittered_member_restart_seeds_rho_from_rhat(jax_T, T, topo, wet, gridme
     bs = _batch(wet, 9, 3, torch.float32)
     x = 0.3 * _batch(wet, 10, 3, torch.float32)
     sys_ = S._system(T, torch.float32, topo)
-    state = S._initial_state("bicgstab", bs)
+    state = S._initial_state(sys_, "bicgstab", bs)
     mask = [True, False, True]
     for jitter in (1, 2, 3):
         st = S._restart_members(sys_, "bicgstab", None, state, x, bs, mask, jitter)
@@ -402,7 +402,7 @@ def _scripted(monkeypatch, wet, bs, script):
     nwet = float(wet.sum())
     done = {"port": 0, "jax": 0}
 
-    def port_cycles(step, st, ncycles):
+    def port_cycles(sys_, step, st, ncycles):
         done["port"] += 2 * ncycles
         v = [math.sqrt(script(m, done["port"]) * bn2[m] / nwet) for m in range(len(bs))]
         r = torch.stack([torch.where(wet, torch.tensor(x, dtype=bs.dtype), 0.0) for x in v])
