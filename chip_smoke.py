@@ -13,7 +13,9 @@ otmb_tpu_torch/csrc, one nvcc per source in parallel, then:
      to 0 just before: grid metrics -> indices -> face fluxes ->
      transportmatrix, the fused assembly (K4), 200 explicit Euler steps
      (K1) and the refined ideal age (K1 + K2, f64 defects through K1);
-  3. checks that K1, K2 and K4 each launched during that run;
+  3. checks that K1, K2 and K4 each launched during that run, then runs
+     the same refined age on the bf16-rounded operator (the bf16-narrow
+     mode: K1 in (bf16, f32), K2 on f32 legs), launches counted;
   4. holds each kernel against its plain PyTorch version at the main
      path's shapes, on both topologies, with the tolerances stated below,
      K2 on a batch of 3 against one launch per member, and K5 in every
@@ -316,6 +318,32 @@ def phase_main_path(P, device, card):
     return ds, gm, idx, T, launches, mean_age
 
 
+def phase_bf16_age(P, gm, idx, T, mean_age: float) -> dict:
+    """The 1-degree refined ideal age on the bf16-rounded operator (the JAX
+    package's bf16-narrow mode: K1 in (bf16, f32), K2 on f32 legs, f64
+    defects), beside the f32 one of the main path; launches counted."""
+    wet = idx.wet3d
+    read = reset_launches()
+    stats = {}
+    t0 = time.perf_counter()
+    gamma, res = P.ideal_age(T.to(torch.bfloat16), wet, gm.topology, tol=TOL_AGE, refine=True,
+                             stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in read().items() if v}
+    log_passes("ideal_age bf16", stats)
+    g_ok = bool(torch.isfinite(gamma[wet]).all()) and bool((gamma[wet] > 0).all())
+    mean_b = mean_years(gamma, gm.v3d, wet) if g_ok else float("nan")
+    log(f"[ideal_age bf16] 1-degree refined on bf16 coefficients (f32 Krylov vectors), tol "
+        f"{TOL_AGE}: relative residual {res:.3e} (against the bf16-rounded operator) after "
+        f"{stats['refinements']} passes, {wall:.3f} s wall, mean age {mean_b:.6f} yr vs f32 "
+        f"{mean_age:.6f} yr (rel {abs(mean_b / mean_age - 1):.3e}); launches {counts}")
+    require(g_ok and res < 1.0, f"bf16 refined age: residual {res:.3e}, ages finite {g_ok}")
+    require(counts.get("K1", 0) > 0 and counts.get("K2", 0) > 0,
+            "the bf16 refined age did not launch K1 and K2")
+    return {"res": res, "passes": stats["refinements"], "wall_s": wall, "mean_yr": mean_b}
+
+
 def phase_k4(P, device, cases):
     """K4 against assemble_transport(...).T on the card."""
     worst = {}
@@ -450,7 +478,7 @@ def phase_times(P, card, T, gm, idx):
     """CUDA-event medians of each kernel and its plain version at 1-degree f32."""
     from otmb_tpu_torch.models.transport import assemble_transport
     from otmb_tpu_torch.ops.apply import apply_stencil
-    from otmb_tpu_torch.ops.tridiag import tridiag_solve_plain
+    from otmb_tpu_torch.ops.tridiag import tridiag_factor_plain, tridiag_solve_factored_plain
 
     ds = P.synthetic_dataset(nx=NX, ny=NY, nz=NZ, topology="tripolar", seed=SEED)
     dev = gm.v3d.device
@@ -463,20 +491,29 @@ def phase_times(P, card, T, gm, idx):
     dt = 0.25 / float(T.diag.abs().max())
     diag = torch.where(T.diag != 0, T.diag, 1.0)
     lower, upper = T.bottom.contiguous(), T.top.contiguous()
+    cp, rden = P.tridiag_factor(lower, diag, upper)
+    legs64 = [t.double() for t in (lower, diag, upper)]
+    f64 = (*P.tridiag_factor(*legs64), legs64[2], chi.double())
     pairs = {
         "K1 apply": (lambda: P.stencil_apply(T, chi, topo),
                      lambda: apply_stencil(T, chi, topo), 50, 10),
         "K1 euler_step": (lambda: P.euler_step(T, chi, dt, topo),
                           lambda: chi - dt * apply_stencil(T, chi, topo), 50, 10),
-        "K2": (lambda: P.tridiag_solve(lower, diag, upper, chi),
-               lambda: tridiag_solve_plain(lower, diag, upper, chi), 50, 5),
+        # K2 as the engine runs it: the solve against the factor of the system
+        "K2": (lambda: P.tridiag_solve_factored(cp, rden, upper, chi),
+               lambda: tridiag_solve_factored_plain(cp, rden, upper, chi), 50, 5),
+        "K2 f64": (lambda: P.tridiag_solve_factored(*f64),
+                   lambda: tridiag_solve_factored_plain(*f64), 50, 5),
+        "K2 factor": (lambda: P.tridiag_factor(lower, diag, upper),
+                      lambda: tridiag_factor_plain(lower, diag, upper), 20, 3),
         "K4": (lambda: P.assemble_T(umo, vmo, ml, gm),
                lambda: assemble_transport(umo, vmo, ml, gm, wet).T, 20, 5),
     }
     times = {}
     for name, (kernel, plain, calls_k, calls_p) in pairs.items():
         times[name] = time_pair(kernel, plain, calls_k, calls_p)
-        log(f"[time] {name} at {NX}x{NY}x{NZ} f32: kernel {times[name][0]:.4f} ms, plain "
+        log(f"[time] {name} at {NX}x{NY}x{NZ}{'' if 'f64' in name else ' f32'}: kernel "
+            f"{times[name][0]:.4f} ms, plain "
             f"{times[name][1]:.4f} ms per call (CUDA events over back-to-back calls, median "
             f"of 5; card {card})")
     return times
@@ -712,7 +749,7 @@ def phase_times_quarter(P, card, T, gm, idx):
     from otmb_tpu_torch.models import solvers as S
     from otmb_tpu_torch.ops.apply import apply_stencil
     from otmb_tpu_torch.ops.krylov import fused_krylov_step_plain, krylov_scratch
-    from otmb_tpu_torch.ops.tridiag import tridiag_solve_plain
+    from otmb_tpu_torch.ops.tridiag import tridiag_solve_factored_plain
 
     topo, wet = gm.topology, idx.wet3d
     nx, ny, nz = QUARTER
@@ -722,11 +759,13 @@ def phase_times_quarter(P, card, T, gm, idx):
     gen = torch.Generator(device=b.device).manual_seed(SEED + 4)
     x2 = torch.where(wet, torch.randn(wet.shape, generator=gen, device=b.device), 0.0)
     c2 = torch.tensor(-0.37, dtype=torch.float32, device=b.device)
-    scratch = krylov_scratch(*m)
+    scratch = krylov_scratch(*m, factor=sys_.factor)
+    cp, rden = sys_.factor
     pairs = {
         "K1 apply": (lambda: P.stencil_apply(a, b, topo), lambda: apply_stencil(a, b, topo),
                      20, 5),
-        "K2": (lambda: P.tridiag_solve(*m, b), lambda: tridiag_solve_plain(*m, b), 20, 3),
+        "K2": (lambda: P.tridiag_solve_factored(cp, rden, m[2], b),
+               lambda: tridiag_solve_factored_plain(cp, rden, m[2], b), 20, 3),
         "K3": (lambda: P.fused_krylov_step(a, *m, b, x2, c2, x2, topo, scratch=scratch),
                lambda: fused_krylov_step_plain(a, *m, b, x2, c2, x2, topo), 20, 3),
     }
@@ -736,6 +775,13 @@ def phase_times_quarter(P, card, T, gm, idx):
         log(f"[time] {name} at {nx}x{ny}x{nz} f32: kernel {times[name][0]:.4f} ms, plain "
             f"{times[name][1]:.4f} ms per call (CUDA events over back-to-back calls, median "
             f"of 5; card {card})")
+    legs64 = [t.double() for t in m]
+    f64 = (*P.tridiag_factor(*legs64), legs64[2], b.double())
+    del legs64
+    times["K2 f64"] = (cuda_ms(lambda: P.tridiag_solve_factored(*f64), 10), float("nan"))
+    log(f"[time] K2 at {nx}x{ny}x{nz} f64: kernel {times['K2 f64'][0]:.4f} ms per call (CUDA "
+        f"events over back-to-back calls, median of 5; card {card})")
+    del f64
     state = S._initial_state(sys_, "bicgstab2", b)
     fused = S._fused_step(sys_, scratch)
     unfused = S._unfused_step(sys_)
@@ -992,14 +1038,15 @@ def phase_k5_times(P, card, T, topo, wet, plain_bmax: int, k_calls: int):
             f"of 5; card {card})")
         del xs
     diag = torch.where(T.diag != 0, T.diag, 1.0)
-    legs = (T.bottom.contiguous(), diag, T.top.contiguous())
+    fac = (*P.tridiag_factor(T.bottom.contiguous(), diag, T.top.contiguous()),
+           T.top.contiguous())
     bs = torch.where(wet, torch.randn((4,) + tuple(wet.shape), generator=gen,
                                       device=wet.device), 0.0)
-    require(torch.equal(P.tridiag_solve(*legs, bs),
-                        torch.stack([P.tridiag_solve(*legs, b) for b in bs])),
+    require(torch.equal(P.tridiag_solve_factored(*fac, bs),
+                        torch.stack([P.tridiag_solve_factored(*fac, b) for b in bs])),
             f"batched K2 at {size}, B = 4: differs from per-member K2")
-    k2 = time_set({"batched K2": lambda: P.tridiag_solve(*legs, bs),
-                   "4 x K2": lambda: [P.tridiag_solve(*legs, b) for b in bs]},
+    k2 = time_set({"batched K2": lambda: P.tridiag_solve_factored(*fac, bs),
+                   "4 x K2": lambda: [P.tridiag_solve_factored(*fac, b) for b in bs]},
                   {"batched K2": k_calls, "4 x K2": k_calls})
     log(f"[time] K2 at {size} f32, B = 4: batched {k2['batched K2']:.4f} ms, 4 launches "
         f"{k2['4 x K2']:.4f} ms per call, equal bit for bit (card {card})")
@@ -1655,6 +1702,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s to load")
 
     ds, gm32, idx, T32, launches, mean_age = phase_main_path(P, device, card)
+    phase_bf16_age(P, gm32, idx, T32, mean_age)
     # the density path; its f64 grid is also the tripolar grid of the checks
     gm64, _, R64, dT32, dR32, dlaunches = phase_density(P, card)
 
@@ -1723,7 +1771,12 @@ def main() -> int:
     cells, plane = NX * NY * NZ, NY * NX
     qcells, qplane = QUARTER[0] * QUARTER[1] * QUARTER[2], QUARTER[0] * QUARTER[1]
     one, quarter = f"{NX}x{NY}x{NZ}", "x".join(map(str, QUARTER))
-    log_rates([("K6", f"{one} f32", redi_bytes(cells, plane, 4, 1, 4), k6_times["K6"][0]),
+    # K2 as the solvers run it: the solve against a factor made once per
+    # system (cp, rden, upper and b read, x written)
+    log_rates([*(("K2 solve", f"{size} {dt}", 5 * n * nb, ms) for size, n, t in (
+                   (one, cells, times), (quarter, qcells, qtimes))
+                 for dt, nb, ms in (("f32", 4, t["K2"][0]), ("f64", 8, t["K2 f64"][0]))),
+               ("K6", f"{one} f32", redi_bytes(cells, plane, 4, 1, 4), k6_times["K6"][0]),
                ("K6 bf16", f"{one} (bf16, f32)", redi_bytes(cells, plane, 2, 1, 4),
                 k6_times["K6 bf16"][0]),
                *((f"K6 batch B = {nb}", f"{one} f32", redi_bytes(cells, plane, 4, nb, 4),
@@ -1756,6 +1809,10 @@ def main() -> int:
     }
     log_rates([(f"{name} on one {ny_l}x{nx_l}x{NZ} shard", "f32", s_bytes[name],
                 s_times[name][0]) for name in s_bytes], gbps)
+    log(f"[launches] K2 (factor and solve) {launches['K2']} on the 1-degree main path, "
+        f"{batched['K2']} on the batched path, {qbatched['K2']} in the 0.25-degree batched "
+        f"solve; K6 {dlaunches['K6']} and K6 batch {dlaunches['K6 multi']} on the density "
+        f"path; K9 {s_launches('K9')} on the {SHARD_GRIDS[0]} sharded path")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, nbytes, flops, library_ms):
         bound_ms, bound_by = bound(nbytes, flops)

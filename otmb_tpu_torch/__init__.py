@@ -12,8 +12,10 @@ built from `csrc/` at first use:
     coefficients; the matvec of the batched solves `solve_shifted_multi`,
     `solve_shifted_chunked_multi` and `water_mass_fractions`
     (csrc/stencil.cu);
-  * K2 `tridiag_solve` — the per-column Thomas solve that preconditions
-    the Krylov solves, for one field or a batch (csrc/tridiag.cu);
+  * K2 `tridiag_solve` (`tridiag_factor`, once per system, then
+    `tridiag_solve_factored`) — the per-column Thomas solve that
+    preconditions the Krylov solves, for one field or a batch
+    (csrc/tridiag.cu);
   * K3 `fused_krylov_step` — the fused half-step of the BiCGStab(2)
     engine: combination, Thomas solve, stencil and dot in one pass
     (csrc/krylov.cu);
@@ -107,7 +109,7 @@ from .ops.stencil import (
     stencil_apply,
     stencil_apply_multi,
 )
-from .ops.tridiag import tridiag_solve
+from .ops.tridiag import tridiag_factor, tridiag_solve, tridiag_solve_factored
 from .ops.velocities import (
     ArakawaGrid,
     facefluxesfromvelocities,
@@ -196,7 +198,9 @@ __all__ = [
     "synthetic_dataset",
     "transportmatrix",
     "transpose_coeffs",
+    "tridiag_factor",
     "tridiag_solve",
+    "tridiag_solve_factored",
     "velocity2fluxes",
     "water_mass_fractions",
     "wet_vector",

@@ -23,4 +23,35 @@ inline unsigned int blocks_for(long long n) {
   return static_cast<unsigned int>((n + kBlock - 1) / kBlock);
 }
 
+// Shared memory a block may take on the H100 (dynamic, after opting in).
+constexpr int kMaxSharedBytes = 232448;
+
+// Asynchronous copy of one 4- or 8-byte value from device to shared memory
+// (cp.async, which bypasses the registers), and its groups: a thread
+// commits the copies it issued as one group and waits until at most N of
+// its groups are in flight. A thread's wait covers its own copies only, so
+// copies other threads read need a __syncthreads after the wait.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "cp.async of 4 or 8 bytes");
+  const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src),
+               "n"(static_cast<int>(sizeof(T))));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Opt a kernel in to `bytes` of dynamic shared memory above the default 48 KB.
+template <typename Kernel>
+inline cudaError_t allow_shared(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 }  // namespace otmb

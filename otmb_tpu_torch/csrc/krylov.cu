@@ -12,11 +12,10 @@
 // K2 and K1 kernels computes, in one launch that keeps M(z) out of device
 // memory.
 //
-// M's factorization depends on the operator only, so krylov_factor_kernel
-// computes it once per solve, column by column as K2's forward sweep does:
-// cp = lower/denom and rden = 1/denom (denom = diag - upper*cp_prev, a
-// denom of exactly 0 replaced by 1). Each half-step then runs only the
-// z-dependent part of the solve.
+// M's factorization depends on the operator only: K2's factor kernel
+// (csrc/tridiag.cu, thomas_factor_kernel) computes cp = lower/denom and
+// rden = 1/denom once per system, and K3 runs on that same factor. Each
+// half-step then runs only the z-dependent part of the solve.
 //
 // Bound on the H100: device-memory bandwidth. Per cell, f32: x1, x2, upper
 // and rden are read (4 streams), z and dp are written (2), cp and dp are
@@ -72,24 +71,6 @@ constexpr int kThreads = kBX * kBY;
 constexpr int kWarps = kThreads / 32;
 constexpr int kFinishThreads = 1024;
 
-// The factorization of M, column by column in K2's order (see above).
-template <typename T>
-__global__ void krylov_factor_kernel(const T* __restrict__ lower, const T* __restrict__ diag,
-                                     const T* __restrict__ upper, T* __restrict__ cp,
-                                     T* __restrict__ rden, int nz, long long plane) {
-  const long long col = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (col >= plane) return;
-  T cp_prev = T(0);
-  for (int k = 0; k < nz; ++k) {
-    const long long c = k * plane + col;
-    T denom = diag[c] - upper[c] * cp_prev;
-    denom = denom != T(0) ? denom : T(1);
-    cp_prev = lower[c] / denom;
-    cp[c] = cp_prev;
-    rden[c] = T(1) / denom;
-  }
-}
-
 template <typename T, bool kCombine, bool kDot>
 __global__ void __launch_bounds__(kThreads)
 krylov_kernel(const T* __restrict__ diag, const T* __restrict__ east, const T* __restrict__ west,
@@ -124,8 +105,8 @@ krylov_kernel(const T* __restrict__ diag, const T* __restrict__ east, const T* _
   const long long col = static_cast<long long>(sj) * nx + si;
 
   // Forward sweep of the Thomas solve on z. The factorization (cp and
-  // rden = 1/denom, K2's values) depends on the operator only and comes
-  // from krylov_factor_kernel, once per solve; dp = (z - upper*dp_prev) *
+  // rden = 1/denom) depends on the operator only and comes from K2's
+  // factor kernel, once per system; dp = (z - upper*dp_prev) *
   // rden is K2's operation.
   T cp_last = T(0);
   T dp_prev = T(0);
@@ -261,25 +242,9 @@ int launch_krylov(const KrylovArgs& p, void* d, int npartials, int nz, int ny, i
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_factor(const void* lower, const void* diag, const void* upper, void* cp, void* rden,
-                  int nz, int ny, int nx, cudaStream_t s) {
-  const long long plane = static_cast<long long>(ny) * nx;
-  krylov_factor_kernel<T><<<blocks_for(plane), kBlock, 0, s>>>(
-      static_cast<const T*>(lower), static_cast<const T*>(diag), static_cast<const T*>(upper),
-      static_cast<T*>(cp), static_cast<T*>(rden), nz, plane);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace otmb
 
 #define OTMB_KRYLOV_ENTRIES(SUFFIX, T)                                                          \
-  OTMB_EXPORT int otmb_krylov_factor_##SUFFIX(const void* lower, const void* diag,             \
-                                              const void* upper, void* cp, void* rden, int nz, \
-                                              int ny, int nx, void* stream) {                  \
-    return otmb::launch_factor<T>(lower, diag, upper, cp, rden, nz, ny, nx,                    \
-                                  static_cast<cudaStream_t>(stream));                          \
-  }                                                                                            \
   OTMB_EXPORT int otmb_krylov_##SUFFIX(                                                        \
       const void* diag, const void* east, const void* west, const void* north,                 \
       const void* south, const void* top, const void* bottom, const void* m_upper,             \

@@ -1,295 +1,324 @@
 // K6: the Redi isoneutral-diffusion operator, out = R chi, for one tracer
-// (nz, ny, nx) or a batch of B tracers (B, nz, ny, nx) that share one read
-// of the coefficients; and K9, K6 on one shard of a process grid (the kShard
-// instantiations, at the end).
-//
-// Replaces the Pallas kernels of otmb_tpu/models/redi_pallas.py
-// (_redi_kernel, _redi_kernel_blocked, _redi_kernel_multi). The TPU
-// kernels sweep k from the floor up and carry seven VMEM slabs, deferring
-// each slab's divergence by one step, because a cell's top-face flux needs
-// the horizontal derivatives of both slabs; at 0.25 degrees they also need
-// j-blocking with side streams, and a scan for batches that overflow VMEM.
-// None of that carries over: blocks run in parallel on Hopper, in no order.
-//
-// Design: one thread per cell, i fastest, as K1. The thread recomputes
-// every intermediate it needs from neighbour reads (which the neighbouring
-// threads, rows and levels read too, so they hit L1/L2): the vertical
-// derivative dcz at the cell and its four horizontal neighbours, dcx and
-// dcy at the cell and the levels above and below, then the six face fluxes
-// f_e at the cell and its west neighbour, f_n at the cell and its south
-// neighbour, f_t at the cell and the one below. No scratch fields, one
-// launch. The thread reads its 43 coefficient values into registers once
-// and loops over the batch's members at a 64-bit member stride
-// (B * nz * ny * nx passes 2^31 at 0.25 degrees from B = 19).
+// (nz, ny, nx) or a batch (B, nz, ny, nx) that shares one read of the
+// coefficients; and K9, K6 on one shard of a process grid (kShard, at the
+// end). Replaces the Pallas kernels of otmb_tpu/models/redi_pallas.py
+// (_redi_kernel, _redi_kernel_blocked, _redi_kernel_multi).
 //
 // Bound on the H100: device-memory bandwidth. Per cell it must read the 15
 // coefficient fields, chi and the wet mask and write out: in f32, 68 bytes
-// and one, against ~46 flops; bf16 coefficients take 38 + 1.
+// and one, against ~111 flops; bf16 coefficients take 38 + 1.
 //
-// Semantics are those of models/redi.py:redi_apply, the plain version: every
-// chi read is masked by wet; i is periodic; a missing neighbour (j-1 at the
-// south edge, j+1 at a bipolar north edge, k-1 at the surface, k+1 at the
-// floor) reads 0, and so does a missing derived quantity (dcz north of a
-// bipolar top row, dcx and dcy above the surface, f_n south of the south
-// edge, f_t below the floor), and nothing outside the field is read; the
-// tripolar north neighbour of (k, ny-1, i) is (k, ny-1, nx-1-i), read
-// directly. Each expression runs the plain version's operations in its
-// order in the value type V, and the library is built without FMA
-// contraction, so the kernel rounds where the plain version does. Member b
-// of a batch runs the same code as a single tracer.
+// Design: k-marching tiles. A block owns kTJ x kTI columns and a one-cell
+// ring and walks k down, with four levels of chi in shared memory (staged by
+// cp.async three levels ahead, masked once landed). Each quantity is computed
+// once: dcz on tile and ring, the east and north face fluxes on the tile and
+// its west and south ring, dcx, dcy and the top flux carried to the next
+// level. A thread loads its column's coefficients into registers as its step
+// starts; the other blocks of the SM (four at 64 registers in f32) hide the
+// latency (measured: staging them through shared memory, or carrying a second
+// register set, costs that occupancy and is slower). Where the tiles leave SMs
+// idle (a shard), blocks split the levels into chunks, each walk starting two
+// steps above its chunk. A batch's members share each coefficient read, as
+// many as fit in half an SM per group.
+//
+// Semantics are those of models/redi.py:redi_apply, the plain version: chi
+// is masked by wet; i is periodic; a missing neighbour (j-1 at the south
+// edge, j+1 at a bipolar north edge, k-1 at the surface, k+1 at the floor)
+// or derived quantity reads 0; the tripolar north neighbour of (k, ny-1, i)
+// is (k, ny-1, nx-1-i). Each value is the plain version's expression on the
+// same operands in the same order, in the value type V, built without FMA
+// contraction: equal bit for bit, and member b of a batch equals a single run.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace otmb {
 
 // The 17 coefficient fields, in the order of models/redi.py:_COEF_FIELDS.
 enum RediField {
-  kAe, kSe, kAn, kSn, kAt, kSti, kStj, kGt,
-  kCzu, kCzd, kCxe, kCxw, kCyn, kCys,
+  kAe, kSe, kAn, kSn, kAt, kSti, kStj, kGt, kCzu, kCzd, kCxe, kCxw, kCyn, kCys,
   kInvDe, kInvDn, kInvV, kRediFields
 };
 
-template <typename C>
-struct RediFields {
-  const C* f[kRediFields];
-};
-
-template <typename C, typename V>
-__device__ __forceinline__ V coef(const C* p, long long x) {
-  return static_cast<V>(widen(p[x]));
-}
-
-// K9's lines (shard mode): what K6 reads at a shard's edge neighbours, which
-// lie on other shards. Static per operator: the neighbours' dcz weights
-// (cz_u, cz_d) on all four sides, the west neighbours' east faces (ae, s_e,
-// inv_de) and the south neighbours' north faces (an, s_n, inv_dn), and the
-// wet flags; per apply: chi. Per level, a line is (nz, ny) for the east and
-// west columns and (nz, nx) for the north and south rows; the coefficient
-// lines stack their fields first: east and north (2, nz, L), west and south
-// (4, nz, L). The north row of the global top shard row is the fold
-// partner's top row, i-reversed (tripolar), or never read (bipolar).
+// K9's lines (shard mode), what K6 reads beyond a shard's edges: cz_u, cz_d
+// (2, nz, L) east and north, with ae, s_e (west) or an, s_n (south) (4, nz,
+// L); inv_de west, inv_dn south; wet and chi (nz, L). L is ny east and west,
+// nx north and south; north of the top row, the fold partner's reversed row.
 template <typename C, typename V>
 struct RediHalo {
-  const C* east;
-  const C* west;
-  const C* north;
-  const C* south;
-  const C* inv_de_w;
-  const C* inv_dn_s;
-  const unsigned char* wet_e;
-  const unsigned char* wet_w;
-  const unsigned char* wet_n;
-  const unsigned char* wet_s;
-  const V* chi_e;
-  const V* chi_w;
-  const V* chi_n;
-  const V* chi_s;
+  const C *east, *west, *north, *south, *inv_de_w, *inv_dn_s;
+  const unsigned char *wet_e, *wet_w, *wet_n, *wet_s;
+  const V *chi_e, *chi_w, *chi_n, *chi_s;
   int s_edge;  // the shard's first row has a south neighbour
 };
 
-// A horizontal neighbour of a thread's cell: its offset `h` within a level
-// of the whole field; in shard mode, whether it lies beyond the shard's edge
-// (`far`), and then its position `pos` in the lines of length `len`.
-struct Side {
-  long long h;
-  bool far;
-  long long pos;
-  long long len;
-};
+constexpr int kTI = 32, kTJ = 8;        // owned columns along i and j
+constexpr int kPI = kTI + 2;            // positions along i, with the ring
+constexpr int kPos = kPI * (kTJ + 2);   // positions of the tile and its ring
+constexpr int kThreads = kTI * kTJ, kPosPerThread = (kPos + kThreads - 1) / kThreads;
+constexpr int kMinChunk = 4;            // fewest levels of a chunk of the walk
+
+// Where a position reads: offset h in a level of the field (side 0), in a
+// shard's line (sides 1..4: east, west, north, south), or nothing (side -1).
+struct Loc { int h; int side; };
+
+template <typename P>  // the line of side 1..4
+__device__ __forceinline__ P side_of(int side, P e, P w, P n, P s) {
+  return side == 1 ? e : side == 2 ? w : side == 3 ? n : s;
+}
 
 template <typename C, typename V, bool kShard>
-__global__ void __launch_bounds__(kBlock)
-redi_kernel(RediFields<C> F, const unsigned char* __restrict__ wet, const V* __restrict__ chi,
-            V* __restrict__ out, int nmembers, int nz, int ny, int nx, int tripolar,
-            RediHalo<C, V> h) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y;
-  const int k = blockIdx.z;
-  if (i >= nx) return;
-  const long long plane = static_cast<long long>(ny) * nx;
-  const long long member = plane * nz;
-  const bool has_t = k > 0;
-  const bool has_b = k + 1 < nz;
-  // shard mode: `tripolar` says whether the shard's last row has a north
-  // neighbour (the next shard row, or the fold)
-  const bool has_s = j > 0 || (kShard && h.s_edge);
-  const bool has_n = j + 1 < ny || tripolar;
+struct Reader {
+  const C* f[kRediFields];
+  const unsigned char* wet;
+  const V* chi;
+  RediHalo<C, V> h;
+  int plane, nz, ny, nx;  // the launch checks nz * plane < 2^31
+  int north;              // the row past the top is read (fold or shard row)
 
-  // Offsets within a level: the cell and its east, west, north (the fold
-  // at a tripolar top row) and south neighbours; then the level offsets.
-  const long long row = static_cast<long long>(j) * nx;
-  const long long hc = row + i;
-  const long long lc = k * plane;
-  const long long lt = lc - plane;
-  const long long lb = lc + plane;
-  const Side side_e{row + (i + 1 == nx ? 0 : i + 1), kShard && i + 1 == nx, j, ny};
-  const Side side_w{row + (i == 0 ? nx - 1 : i - 1), kShard && i == 0, j, ny};
-  const Side side_n{j + 1 < ny ? hc + nx : row + (nx - 1 - i), kShard && j + 1 == ny, i, nx};
-  const Side side_s{hc - nx, kShard && j == 0, i, nx};
-  // A neighbour's value at level offset `lo` (lc, lt or lb) of a field, or
-  // beyond the shard's edge at level `lev` of its line. Outside shard mode
-  // these are K6's own reads, field[lo + h].
-  auto wet_at = [&](const unsigned char* line, const Side& s, long long lo, int lev) -> bool {
-    if constexpr (kShard) {
-      if (s.far) return line[lev * s.len + s.pos] != 0;
+  // The position at (gj, gi): i periodic and the tripolar fold row on the
+  // whole field; the edge lines in shard mode.
+  __device__ Loc locate(int gj, int gi) const {
+    if (!kShard) {
+      const int i = ((gi % nx) + nx) % nx;
+      if (gj >= 0 && gj < ny) return {gj * nx + i, 0};
+      if (gj == ny && north) return {(ny - 1) * nx + (nx - 1 - i), 0};
+      return {0, -1};
     }
-    return wet[lo + s.h] != 0;
-  };
-  auto chi_at = [&](const V* x, const V* line, const Side& s, long long lo, int lev) -> V {
-    if constexpr (kShard) {
-      if (s.far) return line[lev * s.len + s.pos];
-    }
-    return x[lo + s.h];
-  };
-  // field `field` at level k, or field `slot` of the side's coefficient lines
-  auto coef_at = [&](int field, const C* lines, int slot, const Side& s) -> V {
-    if constexpr (kShard) {
-      if (s.far) {
-        const long long lev = static_cast<long long>(slot) * nz + k;
-        return static_cast<V>(widen(lines[lev * s.len + s.pos]));
-      }
-    }
-    return coef<C, V>(F.f[field], lc + s.h);
-  };
-
-  // Wet flags of the 15 cells the stencil reaches (false where missing).
-  const bool wc = wet[lc + hc] != 0;
-  const bool we = wet_at(h.wet_e, side_e, lc, k);
-  const bool ww = wet_at(h.wet_w, side_w, lc, k);
-  const bool wn = has_n && wet_at(h.wet_n, side_n, lc, k);
-  const bool ws = has_s && wet_at(h.wet_s, side_s, lc, k);
-  const bool wt = has_t && wet[lt + hc] != 0;
-  const bool wte = has_t && wet_at(h.wet_e, side_e, lt, k - 1);
-  const bool wtw = has_t && wet_at(h.wet_w, side_w, lt, k - 1);
-  const bool wtn = has_t && has_n && wet_at(h.wet_n, side_n, lt, k - 1);
-  const bool wts = has_t && has_s && wet_at(h.wet_s, side_s, lt, k - 1);
-  const bool wb = has_b && wet[lb + hc] != 0;
-  const bool wbe = has_b && wet_at(h.wet_e, side_e, lb, k + 1);
-  const bool wbw = has_b && wet_at(h.wet_w, side_w, lb, k + 1);
-  const bool wbn = has_b && has_n && wet_at(h.wet_n, side_n, lb, k + 1);
-  const bool wbs = has_b && has_s && wet_at(h.wet_s, side_s, lb, k + 1);
-
-  const V zero = V(0);
-  // dcz weights at the cell and its four horizontal neighbours
-  const V czu_c = coef<C, V>(F.f[kCzu], lc + hc), czd_c = coef<C, V>(F.f[kCzd], lc + hc);
-  const V czu_e = coef_at(kCzu, h.east, 0, side_e), czd_e = coef_at(kCzd, h.east, 1, side_e);
-  const V czu_w = coef_at(kCzu, h.west, 0, side_w), czd_w = coef_at(kCzd, h.west, 1, side_w);
-  const V czu_n = has_n ? coef_at(kCzu, h.north, 0, side_n) : zero;
-  const V czd_n = has_n ? coef_at(kCzd, h.north, 1, side_n) : zero;
-  const V czu_s = has_s ? coef_at(kCzu, h.south, 0, side_s) : zero;
-  const V czd_s = has_s ? coef_at(kCzd, h.south, 1, side_s) : zero;
-  // dcx and dcy weights at the cell and the levels above and below
-  const V cxe_c = coef<C, V>(F.f[kCxe], lc + hc), cxw_c = coef<C, V>(F.f[kCxw], lc + hc);
-  const V cyn_c = coef<C, V>(F.f[kCyn], lc + hc), cys_c = coef<C, V>(F.f[kCys], lc + hc);
-  const V cxe_t = has_t ? coef<C, V>(F.f[kCxe], lt + hc) : zero;
-  const V cxw_t = has_t ? coef<C, V>(F.f[kCxw], lt + hc) : zero;
-  const V cyn_t = has_t ? coef<C, V>(F.f[kCyn], lt + hc) : zero;
-  const V cys_t = has_t ? coef<C, V>(F.f[kCys], lt + hc) : zero;
-  const V cxe_b = has_b ? coef<C, V>(F.f[kCxe], lb + hc) : zero;
-  const V cxw_b = has_b ? coef<C, V>(F.f[kCxw], lb + hc) : zero;
-  const V cyn_b = has_b ? coef<C, V>(F.f[kCyn], lb + hc) : zero;
-  const V cys_b = has_b ? coef<C, V>(F.f[kCys], lb + hc) : zero;
-  // east faces of the cell and its west neighbour
-  const V ae_c = coef<C, V>(F.f[kAe], lc + hc), se_c = coef<C, V>(F.f[kSe], lc + hc);
-  const V ae_w = coef_at(kAe, h.west, 2, side_w), se_w = coef_at(kSe, h.west, 3, side_w);
-  const V ide_c = coef<C, V>(F.f[kInvDe], hc);
-  const V ide_w = side_w.far ? static_cast<V>(widen(h.inv_de_w[j]))
-                              : coef<C, V>(F.f[kInvDe], side_w.h);
-  // north faces of the cell and its south neighbour
-  const V an_c = coef<C, V>(F.f[kAn], lc + hc), sn_c = coef<C, V>(F.f[kSn], lc + hc);
-  const V an_s = has_s ? coef_at(kAn, h.south, 2, side_s) : zero;
-  const V sn_s = has_s ? coef_at(kSn, h.south, 3, side_s) : zero;
-  const V idn_c = coef<C, V>(F.f[kInvDn], hc);
-  const V idn_s = !has_s       ? zero
-                  : side_s.far ? static_cast<V>(widen(h.inv_dn_s[i]))
-                               : coef<C, V>(F.f[kInvDn], side_s.h);
-  // top faces of the cell and the one below
-  const V at_c = coef<C, V>(F.f[kAt], lc + hc), sti_c = coef<C, V>(F.f[kSti], lc + hc);
-  const V stj_c = coef<C, V>(F.f[kStj], lc + hc), gt_c = coef<C, V>(F.f[kGt], lc + hc);
-  const V at_b = has_b ? coef<C, V>(F.f[kAt], lb + hc) : zero;
-  const V sti_b = has_b ? coef<C, V>(F.f[kSti], lb + hc) : zero;
-  const V stj_b = has_b ? coef<C, V>(F.f[kStj], lb + hc) : zero;
-  const V gt_b = has_b ? coef<C, V>(F.f[kGt], lb + hc) : zero;
-  const V invv_c = coef<C, V>(F.f[kInvV], lc + hc);
-  const V half = V(0.5);
-
-  for (int m = 0; m < nmembers; ++m) {
-    const V* __restrict__ x = chi + m * member;
-    // chi masked by wet, 0 where the cell is missing
-    const V xc = wc ? x[lc + hc] : zero;
-    const V xe = we ? chi_at(x, h.chi_e, side_e, lc, k) : zero;
-    const V xw = ww ? chi_at(x, h.chi_w, side_w, lc, k) : zero;
-    const V xn = wn ? chi_at(x, h.chi_n, side_n, lc, k) : zero;
-    const V xs = ws ? chi_at(x, h.chi_s, side_s, lc, k) : zero;
-    const V xt = wt ? x[lt + hc] : zero;
-    const V xte = wte ? chi_at(x, h.chi_e, side_e, lt, k - 1) : zero;
-    const V xtw = wtw ? chi_at(x, h.chi_w, side_w, lt, k - 1) : zero;
-    const V xtn = wtn ? chi_at(x, h.chi_n, side_n, lt, k - 1) : zero;
-    const V xts = wts ? chi_at(x, h.chi_s, side_s, lt, k - 1) : zero;
-    const V xb = wb ? x[lb + hc] : zero;
-    const V xbe = wbe ? chi_at(x, h.chi_e, side_e, lb, k + 1) : zero;
-    const V xbw = wbw ? chi_at(x, h.chi_w, side_w, lb, k + 1) : zero;
-    const V xbn = wbn ? chi_at(x, h.chi_n, side_n, lb, k + 1) : zero;
-    const V xbs = wbs ? chi_at(x, h.chi_s, side_s, lb, k + 1) : zero;
-
-    // cell-centred derivatives
-    const V dcz_c = czu_c * (xt - xc) + czd_c * (xc - xb);
-    const V dcz_e = czu_e * (xte - xe) + czd_e * (xe - xbe);
-    const V dcz_w = czu_w * (xtw - xw) + czd_w * (xw - xbw);
-    const V dcz_n = has_n ? czu_n * (xtn - xn) + czd_n * (xn - xbn) : zero;
-    const V dcz_s = czu_s * (xts - xs) + czd_s * (xs - xbs);
-    const V dcx_c = cxe_c * (xe - xc) + cxw_c * (xc - xw);
-    const V dcy_c = cyn_c * (xn - xc) + cys_c * (xc - xs);
-    const V dcx_t = has_t ? cxe_t * (xte - xt) + cxw_t * (xt - xtw) : zero;
-    const V dcy_t = has_t ? cyn_t * (xtn - xt) + cys_t * (xt - xts) : zero;
-    const V dcx_b = cxe_b * (xbe - xb) + cxw_b * (xb - xbw);
-    const V dcy_b = cyn_b * (xbn - xb) + cys_b * (xb - xbs);
-
-    // face fluxes: east of the cell and of its west neighbour, north of the
-    // cell and of its south neighbour, top of the cell and of the one below
-    const V fe_c = ae_c * (ide_c * (xe - xc) + se_c * (half * (dcz_c + dcz_e)));
-    const V fe_w = ae_w * (ide_w * (xc - xw) + se_w * (half * (dcz_w + dcz_c)));
-    const V fn_c = an_c * (idn_c * (xn - xc) + sn_c * (half * (dcz_c + dcz_n)));
-    const V fn_s =
-        has_s ? an_s * (idn_s * (xc - xs) + sn_s * (half * (dcz_s + dcz_c))) : zero;
-    const V ft_c = at_c * ((sti_c * (half * (dcx_c + dcx_t)) + stj_c * (half * (dcy_c + dcy_t))) +
-                           gt_c * (xt - xc));
-    const V ft_b =
-        has_b ? at_b * ((sti_b * (half * (dcx_b + dcx_c)) + stj_b * (half * (dcy_b + dcy_c))) +
-                        gt_b * (xc - xb))
-              : zero;
-
-    out[m * member + lc + hc] = invv_c * (((((fe_c - fe_w) + fn_c) - fn_s) + ft_c) - ft_b);
+    const bool in_i = gi >= 0 && gi < nx, in_j = gj >= 0 && gj < ny;
+    if (in_i && in_j) return {gj * nx + gi, 0};
+    if (in_j && (gi == nx || gi == -1)) return {gj, gi == nx ? 1 : 2};
+    if (in_i && gj == ny && north) return {gi, 3};
+    if (in_i && gj == -1 && h.s_edge) return {gi, 4};
+    return {0, -1};
   }
+  __device__ bool has(const Loc& L, int k) const { return L.side >= 0 && k >= 0 && k < nz; }
+  __device__ int line(const Loc& L, int k) const { return k * (L.side <= 2 ? ny : nx) + L.h; }
+  __device__ bool wet_at(const Loc& L, int k) const {
+    if (!has(L, k)) return false;
+    if (kShard && L.side > 0)
+      return side_of(L.side, h.wet_e, h.wet_w, h.wet_n, h.wet_s)[line(L, k)] != 0;
+    return wet[k * plane + L.h] != 0;
+  }
+  // chi of the member at offset m at level k
+  __device__ const V* chi_at(const Loc& L, int k, long long m) const {
+    if (kShard && L.side > 0)
+      return side_of(L.side, h.chi_e, h.chi_w, h.chi_n, h.chi_s) + line(L, k);
+    return chi + m + k * plane + L.h;
+  }
+  // field `fi` at level k, or field `slot` of the side's coefficient lines
+  __device__ V coef(const Loc& L, int fi, int slot, int k) const {
+    if (!has(L, k)) return V(0);
+    if (kShard && L.side > 0)
+      return widen(side_of(L.side, h.east, h.west, h.north, h.south)[line(L, slot * nz + k)]);
+    return widen(f[fi][k * plane + L.h]);
+  }
+  // inv_de or inv_dn, (ny, nx); beyond a shard's west or south edge its line
+  __device__ V plane_coef(const Loc& L, int fi) const {
+    if (L.side < 0) return V(0);
+    if (kShard && L.side > 0) return widen((fi == kInvDe ? h.inv_de_w : h.inv_dn_s)[L.h]);
+    return widen(f[fi][L.h]);
+  }
+};
+
+// A thread's reads for step k: dcz weights and face coefficients at level k,
+// dcx, dcy and top-face weights at k + 1, wet flags that mask level k + 2.
+template <typename V>
+struct Level {
+  V czu[kPosPerThread], czd[kPosPerThread], ae, se, an, sn, invv, cxe, cxw, cyn, cys, at, sti,
+      stj, gt, ae_w, se_w, an_s, sn_s;
+  bool wet[kPosPerThread];
+};
+
+// The shard mode is held to four blocks an SM (64 registers), as K6 in f32
+// compiles by itself, so that its chunks fill the SMs.
+template <typename C, typename V, bool kShard>
+__global__ void __launch_bounds__(kThreads, kShard ? 4 : 0)
+redi_kernel(Reader<C, V, kShard> R, V* __restrict__ out, int nmembers, int group, int nchunks) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nz = R.nz, t = threadIdx.x, tx = t % kTI, ty = t / kTI;
+  const int i0 = blockIdx.x * kTI, j0 = blockIdx.y * kTJ, m0 = blockIdx.z / nchunks * group;
+  const int nm = nmembers - m0 < group ? nmembers - m0 : group;
+  // this block's levels [k_lo, k_hi); its walk starts two steps above (or at
+  // the surface, k_s = -1) to carry in dcx, dcy and the top flux
+  const int span = (nz + nchunks - 1) / nchunks, k_lo = blockIdx.z % nchunks * span;
+  const int k_hi = k_lo + span < nz ? k_lo + span : nz, k_s = k_lo > 0 ? k_lo - 2 : -1;
+  if (k_lo >= nz) return;
+  const long long member = static_cast<long long>(R.plane) * nz;
+  // shared: chi [4][group][kPos]; dcz, fe, fn [group][kPos]; dcx, dcy, 2 ft [group][kThreads]
+  V* const chi_s = reinterpret_cast<V*>(smem_raw);
+  V *const dcz_s = chi_s + 4 * group * kPos, *const fe_s = dcz_s + group * kPos;
+  V *const fn_s = fe_s + group * kPos, *const dcx_s = fn_s + group * kPos;
+  V *const dcy_s = dcx_s + group * kThreads, *const ft_s = dcy_s + group * kThreads;
+
+  // this thread's column, its neighbours' positions, its staging positions
+  const int i = i0 + tx, j = j0 + ty;
+  const bool live = i < R.nx && j < R.ny;
+  const bool has_s = j > 0 || (kShard && R.h.s_edge);
+  const int pc = (ty + 1) * kPI + tx + 1, pe = pc + 1, pw = pc - 1, pn = pc + kPI, ps = pc - kPI;
+  const Loc none{0, -1}, lc = live ? R.locate(j, i) : none;
+  const Loc lw = live && tx == 0 ? R.locate(j, i - 1) : none;
+  const Loc ls = live && ty == 0 && has_s ? R.locate(j - 1, i) : none;
+  int pos[kPosPerThread];
+  Loc lp[kPosPerThread];
+#pragma unroll
+  for (int q = 0; q < kPosPerThread; ++q) {
+    pos[q] = t + q * kThreads < kPos ? t + q * kThreads : -1;
+    lp[q] = pos[q] < 0 ? none : R.locate(j0 - 1 + pos[q] / kPI, i0 - 1 + pos[q] % kPI);
+  }
+  const V ide = R.plane_coef(lc, kInvDe), idn = R.plane_coef(lc, kInvDn);
+  const V ide_w = R.plane_coef(lw, kInvDe), idn_s = R.plane_coef(ls, kInvDn);
+  auto read_wet = [&](int k, bool* w) {
+#pragma unroll
+    for (int q = 0; q < kPosPerThread; ++q) w[q] = R.wet_at(lp[q], k);
+  };
+  auto load = [&](int k) {
+    Level<V> c;
+#pragma unroll
+    for (int q = 0; q < kPosPerThread; ++q) {
+      c.czu[q] = R.coef(lp[q], kCzu, 0, k);
+      c.czd[q] = R.coef(lp[q], kCzd, 1, k);
+    }
+    auto own = [&](int f, int lev) { return R.coef(lc, f, 0, lev); };
+    c.ae = own(kAe, k), c.se = own(kSe, k), c.an = own(kAn, k), c.sn = own(kSn, k);
+    c.invv = own(kInvV, k), c.cxe = own(kCxe, k + 1), c.cxw = own(kCxw, k + 1);
+    c.cyn = own(kCyn, k + 1), c.cys = own(kCys, k + 1), c.at = own(kAt, k + 1);
+    c.sti = own(kSti, k + 1), c.stj = own(kStj, k + 1), c.gt = own(kGt, k + 1);
+    c.ae_w = R.coef(lw, kAe, 2, k), c.se_w = R.coef(lw, kSe, 3, k);
+    c.an_s = R.coef(ls, kAn, 2, k), c.sn_s = R.coef(ls, kSn, 3, k);
+    read_wet(k + 2, c.wet);
+    return c;
+  };
+  auto buf = [](int k) { return (k + 4) & 3; };  // level k's chi buffer (k >= -1)
+  auto chi_m = [&](int k, int m, int p) -> V { return chi_s[(buf(k) * group + m) * kPos + p]; };
+  auto stage = [&](int k) {  // level k's chi, as read
+#pragma unroll
+    for (int q = 0; q < kPosPerThread; ++q)
+      for (int m = 0; m < nm && pos[q] >= 0 && R.has(lp[q], k); ++m)
+        cp_async(chi_s + (buf(k) * group + m) * kPos + pos[q],
+                 R.chi_at(lp[q], k, (m0 + m) * member));
+    cp_async_commit();
+  };
+  auto mask = [&](int k, const bool* wet_k) {  // zero dry chi once landed: own positions
+#pragma unroll
+    for (int q = 0; q < kPosPerThread; ++q)
+      for (int m = 0; m < nm && pos[q] >= 0 && !wet_k[q]; ++m)
+        chi_s[(buf(k) * group + m) * kPos + pos[q]] = V(0);
+  };
+  bool wet1[kPosPerThread];  // level k_s + 1's flags, for its mask in step k_s
+  read_wet(k_s + 1, wet1);
+
+  // Step k: dcz and face fluxes of level k, dcx, dcy and the top flux of
+  // level k + 1, and level k's divergence; without `fluxes` (above k_lo) only
+  // dcx, dcy and the top flux, from dcx, dcy of 0 in the `first` step (exact
+  // at the surface, not read below it). Level k + 2's chi lands and is
+  // masked at the end; level k + 3's is staged.
+  const V zero = V(0), half = V(0.5);
+  auto step = [&](int k, const Level<V>& cur, bool first, bool fluxes) {
+    if (fluxes) {  // dcz at level k on every position of the tile and its ring
+#pragma unroll
+      for (int q = 0; q < kPosPerThread; ++q) {
+        for (int m = 0; m < nm && pos[q] >= 0; ++m) {
+          const int p = pos[q];
+          const V xc = chi_m(k, m, p);
+          dcz_s[m * kPos + p] = lp[q].side < 0 ? zero
+              : cur.czu[q] * (chi_m(k - 1, m, p) - xc) + cur.czd[q] * (xc - chi_m(k + 1, m, p));
+        }
+      }
+    } else if (first) {
+      cp_async_wait<2>();  // level k_s + 1
+      mask(k_s + 1, wet1);
+    }
+    __syncthreads();
+    if (!first) stage(k + 3);  // into level k - 1's buffer, read no more
+    for (int m = 0; m < nm && live; ++m) {
+      const V* dcz = dcz_s + m * kPos;
+      const int slot = m * kThreads + t;
+      const V xc = chi_m(k, m, pc);
+      if (fluxes) {  // face fluxes: east and north of this cell, of the west / south ring
+        const V xe = chi_m(k, m, pe), xn = chi_m(k, m, pn);
+        fe_s[m * kPos + pc] = cur.ae * (ide * (xe - xc) + cur.se * (half * (dcz[pc] + dcz[pe])));
+        fn_s[m * kPos + pc] = cur.an * (idn * (xn - xc) + cur.sn * (half * (dcz[pc] + dcz[pn])));
+        if (tx == 0)
+          fe_s[m * kPos + pw] = cur.ae_w * (ide_w * (xc - chi_m(k, m, pw)) +
+                                            cur.se_w * (half * (dcz[pw] + dcz[pc])));
+        if (ty == 0)
+          fn_s[m * kPos + ps] = has_s ? cur.an_s * (idn_s * (xc - chi_m(k, m, ps)) +
+                                                   cur.sn_s * (half * (dcz[ps] + dcz[pc])))
+                                      : zero;
+      }
+      // dcx, dcy and the top face flux of level k + 1, from the carried
+      // dcx, dcy of level k (0 above the surface); ft in slot (k + 1) & 1
+      V ft = zero;
+      if (k + 1 < nz) {
+        const V xb = chi_m(k + 1, m, pc);
+        const V dcx_c = first ? zero : dcx_s[slot], dcy_c = first ? zero : dcy_s[slot];
+        const V dcx_b = cur.cxe * (chi_m(k + 1, m, pe) - xb) + cur.cxw * (xb - chi_m(k + 1, m, pw));
+        const V dcy_b = cur.cyn * (chi_m(k + 1, m, pn) - xb) + cur.cys * (xb - chi_m(k + 1, m, ps));
+        ft = cur.at * ((cur.sti * (half * (dcx_b + dcx_c)) + cur.stj * (half * (dcy_b + dcy_c))) +
+                       cur.gt * (xc - xb));
+        dcx_s[slot] = dcx_b;
+        dcy_s[slot] = dcy_b;
+      }
+      ft_s[((k + 1) & 1) * group * kThreads + slot] = ft;
+    }
+    cp_async_wait<1>();  // level k + 2
+    mask(k + 2, cur.wet);
+    __syncthreads();
+    for (int m = 0; m < nm && live && fluxes; ++m) {
+      const V* fe = fe_s + m * kPos;
+      const V* fn = fn_s + m * kPos;
+      const int slot = m * kThreads + t;
+      const V ft_c = ft_s[(k & 1) * group * kThreads + slot];
+      const V ft_b = ft_s[((k + 1) & 1) * group * kThreads + slot];
+      out[(m0 + m) * member + k * R.plane + lc.h] =
+          cur.invv * (((((fe[pc] - fe[pw]) + fn[pc]) - fn[ps]) + ft_c) - ft_b);
+    }
+  };
+
+  // level k_s reads 0 (level -1: above the surface); k_s + 1 .. k_s + 3 go ahead
+  for (int p = t; p < group * kPos; p += kThreads) chi_s[buf(k_s) * group * kPos + p] = zero;
+  for (int k = k_s + 1; k < k_s + 4; ++k) stage(k);
+  step(k_s, load(k_s), true, false);
+  if (k_s < k_lo - 1) step(k_lo - 1, load(k_lo - 1), false, false);
+  for (int k = k_lo; k < k_hi; ++k) step(k, load(k), false, true);
 }
 
 template <typename C, typename V, bool kShard>
 int launch_redi(const void* const* fields, const void* wet, const void* chi, void* out,
-                int nmembers, int nz, int ny, int nx, int tripolar, RediHalo<C, V> h,
-                void* stream) {
-  RediFields<C> F;
-  for (int n = 0; n < kRediFields; ++n) F.f[n] = static_cast<const C*>(fields[n]);
-  const dim3 block(kBlock);
-  const dim3 grid((nx + kBlock - 1) / kBlock, ny, nz);
-  redi_kernel<C, V, kShard><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      F, static_cast<const unsigned char*>(wet), static_cast<const V*>(chi), static_cast<V*>(out),
-      nmembers, nz, ny, nx, tripolar, h);
+                int nmembers, int nz, int ny, int nx, int north, RediHalo<C, V> h, void* stream) {
+  Reader<C, V, kShard> R{{}, static_cast<const unsigned char*>(wet), static_cast<const V*>(chi),
+                         h, ny * nx, nz, ny, nx, north};
+  for (int n = 0; n < kRediFields; ++n) R.f[n] = static_cast<const C*>(fields[n]);
+  if (static_cast<long long>(nz) * ny * nx >= (1LL << 31)) return cudaErrorInvalidValue;
+  const size_t per_member = (7 * kPos + 4 * kThreads) * sizeof(V);
+  int group = static_cast<int>(kMaxSharedBytes / 2 / per_member);
+  group = group < nmembers ? group : nmembers;
+  const size_t bytes = group * per_member;
+  auto kernel = redi_kernel<C, V, kShard>;
+  cudaError_t err = allow_shared(kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // as many chunks of the levels as the SMs hold tiles beyond one each
+  int device = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((nx + kTI - 1) / kTI, (ny + kTJ - 1) / kTJ, (nmembers + group - 1) / group);
+  int nchunks = static_cast<int>(sms * per_sm / (grid.x * grid.y * grid.z));
+  nchunks = std::max(1, std::min(nchunks, nz / kMinChunk));
+  kernel<<<dim3(grid.x, grid.y, grid.z * nchunks), kThreads, bytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      R, static_cast<V*>(out), nmembers, group, nchunks);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K9: K6 on one shard of a process grid, one tracer (kShard), with the
-// shard's edge neighbours in `lines` (RediHalo above, in its field order).
-//
-// Replaces the Pallas kernel of otmb_tpu/parallel/redi_halo.py
-// (_redi_kernel_shard). That kernel receives chi and dcz lines and the
-// west and south interface fluxes, which the receiver evaluates outside the
-// kernel. K6 instead recomputes every derivative and flux from reads in a
-// one-cell ring (k +- 1, no diagonal neighbours), so K9 receives what K6
-// reads in that ring beyond the shard's edges and runs K6's own
-// expressions: on each shard K9 equals K6 on the whole field bit for bit.
-// The static lines are exchanged once per operator and only chi's per
-// apply: one round of messages, as in the JAX package. `n_edge` says
-// whether the shard's last row has a north neighbour (a shard row above,
-// or the tripolar fold). Bound and design are K6's.
+// K9: K6 on one shard, one tracer (kShard), its edge neighbours in `lines`
+// (RediHalo's order). Replaces otmb_tpu/parallel/redi_halo.py's
+// _redi_kernel_shard, which receives derived lines. K6 derives everything
+// from a one-cell ring, so K9's edge tiles fill their ring from the lines:
+// on each shard K9 equals K6 on the whole field bit for bit. `n_edge`: the
+// shard's last row has a north neighbour (a shard row, or the fold).
 template <typename C, typename V>
 int launch_redi_halo(const void* const* fields, const void* wet, const void* chi, void* out,
                      const void* const* lines, int nz, int ny, int nx, int s_edge, int n_edge,
@@ -304,26 +333,21 @@ int launch_redi_halo(const void* const* fields, const void* wet, const void* chi
 
 }  // namespace otmb
 
-#define OTMB_REDI_ENTRY(NAME, C, V)                                                      \
-  OTMB_EXPORT int NAME(const void* const* fields, const void* wet, const void* chi,      \
-                       void* out, int nmembers, int nz, int ny, int nx, int tripolar,    \
-                       void* stream) {                                                   \
-    return otmb::launch_redi<C, V, false>(fields, wet, chi, out, nmembers, nz, ny, nx,   \
-                                          tripolar, {}, stream);                         \
+#define OTMB_REDI_ENTRIES(SUFFIX, C, V)                                                         \
+  OTMB_EXPORT int otmb_redi_##SUFFIX(const void* const* fields, const void* wet,               \
+                                     const void* chi, void* out, int nmembers, int nz, int ny, \
+                                     int nx, int tripolar, void* stream) {                     \
+    return otmb::launch_redi<C, V, false>(fields, wet, chi, out, nmembers, nz, ny, nx,         \
+                                          tripolar, {}, stream);                               \
+  }                                                                                            \
+  OTMB_EXPORT int otmb_redi_halo_##SUFFIX(const void* const* fields, const void* wet,          \
+                                          const void* chi, void* out, const void* const* lines, \
+                                          int nz, int ny, int nx, int s_edge, int n_edge,      \
+                                          void* stream) {                                      \
+    return otmb::launch_redi_halo<C, V>(fields, wet, chi, out, lines, nz, ny, nx, s_edge,      \
+                                        n_edge, stream);                                       \
   }
 
-OTMB_REDI_ENTRY(otmb_redi_f32_f32, float, float)
-OTMB_REDI_ENTRY(otmb_redi_bf16_f32, __nv_bfloat16, float)
-OTMB_REDI_ENTRY(otmb_redi_f64_f64, double, double)
-
-#define OTMB_REDI_HALO_ENTRY(NAME, C, V)                                                 \
-  OTMB_EXPORT int NAME(const void* const* fields, const void* wet, const void* chi,      \
-                       void* out, const void* const* lines, int nz, int ny, int nx,      \
-                       int s_edge, int n_edge, void* stream) {                           \
-    return otmb::launch_redi_halo<C, V>(fields, wet, chi, out, lines, nz, ny, nx, s_edge, \
-                                        n_edge, stream);                                 \
-  }
-
-OTMB_REDI_HALO_ENTRY(otmb_redi_halo_f32_f32, float, float)
-OTMB_REDI_HALO_ENTRY(otmb_redi_halo_bf16_f32, __nv_bfloat16, float)
-OTMB_REDI_HALO_ENTRY(otmb_redi_halo_f64_f64, double, double)
+OTMB_REDI_ENTRIES(f32_f32, float, float)
+OTMB_REDI_ENTRIES(bf16_f32, __nv_bfloat16, float)
+OTMB_REDI_ENTRIES(f64_f64, double, double)

@@ -1,13 +1,13 @@
 """K6: the Redi isoneutral-diffusion kernel, for one tracer and a batch.
 
 Replaces `otmb_tpu/models/redi_pallas.py` (`redi_apply_pallas`,
-`redi_apply_pallas_multi`) with one CUDA kernel, `csrc/redi.cu`: one
-thread per cell recomputes the derivatives and face fluxes it needs from
-neighbour reads. A batch is (B, nz, ny, nx), batch-major as in the JAX
-package; the thread reads its coefficients once and loops over the
-members, so member b of `redi_apply_fused_multi` equals
-`redi_apply_fused` on member b, bit for bit, and both equal the plain
-version `models.redi.redi_apply` on the card.
+`redi_apply_pallas_multi`) with one CUDA kernel, `csrc/redi.cu`: a block
+walks k down a tile of columns with four levels of chi in shared memory
+and computes each derivative and face flux once. A batch is (B, nz, ny,
+nx), batch-major as in the JAX package; the block reads the coefficients
+once for a group of members, so member b of `redi_apply_fused_multi`
+equals `redi_apply_fused` on member b, bit for bit, and both equal the
+plain version `models.redi.redi_apply` on the card.
 
 Coefficient and value types (C, V) are one of (f32, f32), (bf16, f32)
 (`redi_operator_to_bf16`) and (f64, f64); the arithmetic runs in V. chi is

@@ -46,7 +46,7 @@ from ..ops.apply import transpose_coeffs
 from ..ops.coeffs import StencilCoeffs
 from ..ops.krylov import fused_krylov_step, krylov_scratch
 from ..ops.stencil import euler_propagate, euler_step, stencil_apply, stencil_apply_multi
-from ..ops.tridiag import tridiag_solve
+from ..ops.tridiag import tridiag_factor, tridiag_solve_factored
 
 #: Matvec pairs (BiCGStab(1) iterations, half BiCGStab(2) cycles) between
 #: host reads of the residual: the one cadence of every Krylov solve.
@@ -78,13 +78,23 @@ def _guarded(shifted_diag: torch.Tensor) -> torch.Tensor:
     return torch.where(shifted_diag != 0, shifted_diag, 1.0)
 
 
+def _thomas(coeffs: StencilCoeffs, shifted_diag: torch.Tensor):
+    """The Thomas legs (lower, guarded diagonal, upper) of M = diag(shifted)
+    + T_top + T_bottom, in the shifted diagonal's dtype (bf16 legs widen
+    exactly to f32), and their factor (cp, rden): one K2 factor launch."""
+    diag = _guarded(shifted_diag)
+    # lower = bottom couples to k+1, upper = top to k-1
+    legs = (coeffs.bottom.to(diag.dtype), diag, coeffs.top.to(diag.dtype))
+    return legs, tridiag_factor(*legs)
+
+
 def _tridiag_preconditioner(coeffs: StencilCoeffs, shifted_diag: torch.Tensor):
     """Vertical-line preconditioner: a per-column Thomas solve (K2) of
     M = diag(shifted) + T_top + T_bottom, the stiff vertical-diffusion part
-    of T. Land columns get a unit diagonal."""
-    diag = _guarded(shifted_diag)
-    # lower = bottom couples to k+1, upper = top to k-1
-    return lambda b: tridiag_solve(coeffs.bottom, diag, coeffs.top, b)
+    of T, factored once here and solved per right-hand side. Land columns
+    get a unit diagonal."""
+    legs, (cp, rden) = _thomas(coeffs, shifted_diag)
+    return lambda b: tridiag_solve_factored(cp, rden, legs[2], b)
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -140,18 +150,26 @@ class _System(NamedTuple):
     """One shifted system (shift * I + D_extra + A) x = b in the engine's
     form: `a` is A with shift + extra folded into its diagonal, `M` the
     preconditioner, `m_legs` the Thomas legs (lower, guarded diagonal,
-    upper) when M is the tridiagonal one, `field` the whole field or a
-    shard."""
+    upper) and `factor` their (cp, rden) when M is the tridiagonal one,
+    `field` the whole field or a shard. With bf16 coefficients and f32
+    vectors (`solve_shifted_ir`'s bf16-narrow mode) `a` keeps the bf16
+    coefficients and `outside` holds (shift, extra), applied beside the
+    kernel as the JAX package's matvec applies them."""
 
     a: StencilCoeffs
     topology: GridTopology
     M: Callable[[torch.Tensor], torch.Tensor]
     m_legs: tuple | None
     field: _Field
+    factor: tuple | None = None
+    outside: tuple | None = None
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        """A x."""
-        return self.field.apply(self.a, x)
+        """(shift * I + D_extra + A) x."""
+        if self.outside is None:
+            return self.field.apply(self.a, x)
+        shift, extra = self.outside
+        return shift * x + extra * x + self.field.apply(self.a, x)
 
     def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return self.field.dot(a, b)
@@ -177,19 +195,30 @@ def _system(coeffs: StencilCoeffs, dtype: torch.dtype, topology: GridTopology, s
     """The engine's system in `dtype`, on the whole field or (`grid`) on
     this rank's shard. For T' the stencil form of T' is built once; its
     vertical legs are the transposed operator's, so the Thomas M is built
-    from them too. On a shard the Thomas solve needs no neighbours, since k
-    is never sharded."""
+    from them too, and factored once. On a shard the Thomas solve needs no
+    neighbours, since k is never sharded. bf16 coefficients with f32
+    vectors stay bf16 in A (K1's (bf16, f32) kernel) and are widened to f32
+    in M."""
     field, coeffs = _field_for(coeffs, topology, transpose, grid, overlap)
-    coeffs = coeffs.to(dtype)
+    narrow = _narrow(coeffs, dtype)
+    if not narrow:
+        coeffs = coeffs.to(dtype)
     extra = 0.0 if extra_diag is None else extra_diag.to(dtype)
-    shifted = shift + extra + coeffs.diag
-    a = coeffs._replace(diag=shifted)
+    shifted = shift + extra + coeffs.diag.to(dtype)
+    a = coeffs if narrow else coeffs._replace(diag=shifted)
+    outside = (shift, extra) if narrow else None
     if preconditioner == "tridiag":
-        m_legs = (coeffs.bottom, _guarded(shifted), coeffs.top)
-        return _System(a, topology, lambda v: tridiag_solve(*m_legs, v), m_legs, field)
+        m_legs, (cp, rden) = _thomas(coeffs, shifted)
+        return _System(a, topology, lambda v: tridiag_solve_factored(cp, rden, m_legs[2], v),
+                       m_legs, field, (cp, rden), outside)
     if preconditioner == "jacobi":
-        return _System(a, topology, _jacobi_preconditioner(shifted), None, field)
+        return _System(a, topology, _jacobi_preconditioner(shifted), None, field, None, outside)
     raise ValueError(f"unknown preconditioner {preconditioner!r}")
+
+
+def _narrow(coeffs: StencilCoeffs, dtype: torch.dtype) -> bool:
+    """bf16 coefficients under f32 vectors: the bf16-narrow mode."""
+    return coeffs.diag.dtype == torch.bfloat16 and dtype == torch.float32
 
 
 class _State1(NamedTuple):
@@ -391,7 +420,8 @@ def _engine(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, chunk: int
     member whose state stays a field with 0-d scalars. Returns (x, relative
     residuals ||A x - b|| / ||b|| recomputed from x, a list of one float per
     member)."""
-    step = _fused_step(sys_, krylov_scratch(*sys_.m_legs)) if fused else _unfused_step(sys_)
+    step = (_fused_step(sys_, krylov_scratch(*sys_.m_legs, factor=sys_.factor)) if fused
+            else _unfused_step(sys_))
     batch = b.ndim == 4
     bnorm2 = sys_.dot(b, b).reshape(-1).tolist()
     members = range(len(bnorm2))
@@ -598,10 +628,14 @@ def solve_shifted_chunked(coeffs: StencilCoeffs, b: torch.Tensor, topology: Grid
       residual."""
     if algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}")
+    narrow = _narrow(coeffs, b.dtype)
     if fused is None:
-        fused = algorithm == "bicgstab2" and preconditioner == "tridiag" and grid is None
+        fused = (algorithm == "bicgstab2" and preconditioner == "tridiag" and grid is None
+                 and not narrow)
     if fused and preconditioner != "tridiag":
         raise ValueError("fused=True needs the tridiag preconditioner (K3 is its Thomas solve)")
+    if fused and narrow:
+        raise ValueError("fused=True needs coefficients of b's dtype (K3 has no bf16 entry)")
     if grid is not None and (fused or b.ndim != 3):
         raise ValueError("on a process grid the solve takes one field (nz, ny_l, nx_l) and "
                          "runs unfused")
@@ -657,7 +691,11 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
     """`solve_shifted` with mixed-precision iterative refinement: inner
     Krylov solves in the coefficients' precision (f32 or f64) and the
     defect b - A x in f64, through the K1 kernel on the narrow
-    coefficients. Returns (x in f64, relative residual).
+    coefficients. Returns (x in f64, relative residual). bf16 coefficients
+    run the JAX package's bf16-narrow mode: the inner solves keep b and
+    their Krylov vectors in f32 and stream the bf16 coefficients through
+    K1's (bf16, f32) kernel, M is built on the legs widened to f32, and the
+    refinement converges against the bf16-rounded operator.
 
     `grid` (a `parallel.mesh.ProcessGrid`; the JAX package's `mesh=`) runs
     the solve on a process grid: `coeffs`, `b` and `extra_diag` are the
@@ -687,13 +725,18 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
     field, coeffs = _field_for(coeffs, topology, transpose, grid)
     wide = torch.float64
     narrow = coeffs.diag.dtype
+    # bf16-narrow mode (the JAX package's `narrow_vec`): bf16 coefficients
+    # stream into the inner matvecs, while b, the Krylov vectors and M stay
+    # f32; the f64 defect reads the coefficients widened to f32 (exactly).
+    narrow_vec = torch.float32 if narrow == torch.bfloat16 else narrow
+    c_defect = coeffs.to(narrow_vec)
     if inner_maxiter is None:
         inner_maxiter = min(maxiter, 600) if inner_algorithm == "bicgstab2" else maxiter
     else:
         inner_maxiter = min(maxiter, inner_maxiter)
 
     extra_n = torch.zeros((), dtype=b.dtype, device=b.device) if extra_diag is None else extra_diag
-    b_nv = b.to(narrow)
+    b_nv = b.to(narrow_vec)
     bn_n = field.norm(b_nv)
     bnorm_safe = bn_n if bn_n != 0 else 1.0
 
@@ -711,17 +754,17 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
             # x == 0, so the defect is b: no wide apply needed.
             r_hat, s_safe, rel = b_nv / bnorm_safe, bnorm_safe, bn_n / bnorm_safe
         else:
-            r_hat, s_safe, rel = _ir_defect(field, coeffs, x, b, extra_n, shift, bnorm_safe)
+            r_hat, s_safe, rel = _ir_defect(field, c_defect, x, b, extra_n, shift, bnorm_safe)
         if rel < best_rel:
             best_rel = rel
-            best_x = x.to(narrow)
+            best_x = x.to(narrow_vec)
         if rel <= tol:
             break
         reverted = False
         if best_x is not None and not rel <= 4.0 * best_rel:
             # the last pass diverged: refine from the best iterate instead
             x = best_x.to(wide)
-            r_hat, s_safe, rel = _ir_defect(field, coeffs, x, b, extra_n, shift, bnorm_safe)
+            r_hat, s_safe, rel = _ir_defect(field, c_defect, x, b, extra_n, shift, bnorm_safe)
             reverted = True
         entry = {"rel_start": rel, "reverted": reverted}
         pass_log.append(entry)
@@ -739,7 +782,7 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
         rel_prev, prev_reverted = rel, reverted
         pass_tol = min(0.9, max(inner_tol, 0.5 * tol / rel))
         inner = {}
-        rhs = r_hat.to(narrow)
+        rhs = r_hat.to(narrow_vec)
         del r_hat
         kw = dict(shift=shift, extra_diag=extra_diag, tol=pass_tol, maxiter=inner_maxiter,
                   preconditioner=preconditioner, stats=inner, grid=grid)
@@ -754,13 +797,13 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
                      inner_restarts=inner["restarts"], inner_end_rel=inner["end_rel"],
                      inner_chunk_s=inner["chunk_s"], wall_s=time.perf_counter() - t_pass)
     else:
-        _, _, rel = _ir_defect(field, coeffs, x, b, extra_n, shift, bnorm_safe)
+        _, _, rel = _ir_defect(field, c_defect, x, b, extra_n, shift, bnorm_safe)
         if rel < best_rel:
             best_rel, best_x = rel, x
     if best_x is not None and best_rel < rel:
         # the f32-rounded recovery point: keep it only if it really is better
         x_cand = best_x.to(wide)
-        _, _, rel_cand = _ir_defect(field, coeffs, x_cand, b, extra_n, shift, bnorm_safe)
+        _, _, rel_cand = _ir_defect(field, c_defect, x_cand, b, extra_n, shift, bnorm_safe)
         if rel_cand < rel:
             x, rel = x_cand, rel_cand
     if stats is not None:
@@ -797,7 +840,8 @@ def ideal_age(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: GridTopology
     (T + M) Gamma = 1 on wet cells, M = surface_rate on the surface layer
     (reference test/local_full.jl:155-168). Returns (gamma with NaN on
     land, relative residual). `refine=True` runs `solve_shifted_ir`
-    (f32 inner solves, f64 defects) and returns gamma in f64.
+    (inner solves in the coefficients' f32 or f64, f32 for bf16
+    coefficients; f64 defects) and returns gamma in f64.
     `algorithm` ("bicgstab" or "bicgstab2") is the refinement's inner
     algorithm, or the engine's algorithm without refinement.
 

@@ -35,7 +35,7 @@ from .. import _build
 from ..grid.topology import UNKNOWN, GridTopology
 from .apply import apply_stencil
 from .coeffs import StencilCoeffs
-from .tridiag import tridiag_solve_plain
+from .tridiag import tridiag_factor, tridiag_solve_plain
 
 #: Kernel launches made by this module's wrappers.
 LAUNCHES = 0
@@ -44,9 +44,7 @@ LAUNCHES = 0
 TILE_I, TILE_J = 254, 2
 
 _ENTRY = {torch.float32: "otmb_krylov_f32", torch.float64: "otmb_krylov_f64"}
-_FACTOR = {torch.float32: "otmb_krylov_factor_f32", torch.float64: "otmb_krylov_factor_f64"}
 _ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_FACTOR_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 class KrylovScratch(NamedTuple):
@@ -66,27 +64,12 @@ def _legs_key(m_legs) -> tuple:
     return tuple((t.data_ptr(), t._version, tuple(t.shape), t.dtype, t.device) for t in m_legs)
 
 
-def krylov_factor_plain(m_lower, m_diag, m_upper):
-    """cp and rden of the Thomas forward sweep, in K2's order and with its
-    denom != 0 guard: denom = diag - upper*cp_prev, cp = lower/denom,
-    rden = 1/denom."""
-    cps, rdens = [], []
-    cp_prev = torch.zeros_like(m_diag[0])
-    for k in range(m_diag.shape[0]):
-        denom = m_diag[k] - m_upper[k] * cp_prev
-        denom = torch.where(denom != 0, denom, 1.0)
-        cp_prev = m_lower[k] / denom
-        cps.append(cp_prev)
-        rdens.append(torch.reciprocal(denom))
-    return torch.stack(cps), torch.stack(rdens)
-
-
-def krylov_scratch(m_lower: torch.Tensor, m_diag: torch.Tensor,
-                   m_upper: torch.Tensor) -> KrylovScratch:
-    """Factor M and allocate the rest of the scratch for `fused_krylov_step`
-    on these Thomas legs (one kernel launch on the card). Do it once per
-    solve and pass the result to every step of the solve."""
-    global LAUNCHES
+def krylov_scratch(m_lower: torch.Tensor, m_diag: torch.Tensor, m_upper: torch.Tensor,
+                   factor: tuple[torch.Tensor, torch.Tensor] | None = None) -> KrylovScratch:
+    """The scratch of `fused_krylov_step` on these Thomas legs: M's factor
+    (`factor`, K2's (cp, rden) of the same legs, or one `tridiag_factor`
+    launch here) and the rest, allocated. Do it once per solve and pass the
+    result to every step of the solve."""
     m_legs = (m_lower, m_diag, m_upper)
     for name, t in zip(("m_lower", "m_diag", "m_upper"), m_legs):
         if t.dtype not in _ENTRY:
@@ -98,14 +81,7 @@ def krylov_scratch(m_lower: torch.Tensor, m_diag: torch.Tensor,
     nz, ny, nx = m_diag.shape
     nblocks = -(-nx // TILE_I) * -(-ny // TILE_J)
     partials = torch.empty(nblocks, dtype=torch.float64, device=m_diag.device)
-    if m_diag.is_cuda:
-        cp, rden = torch.empty_like(m_diag), torch.empty_like(m_diag)
-        _build.launch(_FACTOR[m_diag.dtype], _FACTOR_ARGTYPES, m_diag.device,
-                      *(t.data_ptr() for t in m_legs), cp.data_ptr(), rden.data_ptr(),
-                      nz, ny, nx)
-        LAUNCHES += 1
-    else:
-        cp, rden = krylov_factor_plain(*m_legs)
+    cp, rden = tridiag_factor(*m_legs) if factor is None else factor
     return KrylovScratch(cp, rden, torch.empty_like(m_diag), partials, _legs_key(m_legs))
 
 

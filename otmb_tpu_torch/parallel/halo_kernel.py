@@ -32,7 +32,8 @@ from .. import _build
 from ..grid.topology import UNKNOWN, GridTopology
 from ..ops.coeffs import StencilCoeffs
 from ..ops.stencil import _ENTRY as _K1_ENTRY
-from .halo import _boundary_patch, _halo_exchange, _local_stencil, _zero_halos
+from .halo import (_boundary_patch, _exchange, _halo_exchange, _halo_lines, _local_stencil,
+                   _zero_halos, ready_event)
 from .mesh import ProcessGrid
 
 #: Kernel launches made by this module's wrappers: K7 on one tracer, on a batch.
@@ -95,10 +96,15 @@ def local_apply(coeffs: StencilCoeffs, chi: torch.Tensor, halos, dt: float | Non
 
 
 def _step(coeffs, chi, topology, grid, dt, overlap):
-    pending = _halo_exchange(chi, topology, grid)
     if not overlap:
-        return local_apply(coeffs, chi, pending.wait(), dt)
+        return local_apply(coeffs, chi, _halo_exchange(chi, topology, grid).wait(), dt)
+    # The bulk launch goes before the lines are staged, and their staging
+    # waits only for the lines (`ready`, after the fold's flip), so the
+    # copies and the messages overlap the bulk kernel.
+    lines = _halo_lines(chi, topology)
+    ready = ready_event(chi)
     bulk = local_apply(coeffs, chi, _zero_halos(chi), dt)
+    pending = _exchange(grid, *lines, ready)
     return _boundary_patch(coeffs, bulk, pending.wait(), 1.0 if dt is None else -dt)
 
 

@@ -1,8 +1,8 @@
 """K9: the Redi operator R chi on one shard of a process grid.
 
 Replaces `otmb_tpu/parallel/redi_halo.py` (`redi_apply_halo_pallas`). K6
-gives each thread one cell and recomputes every derivative and face flux
-from reads in a one-cell ring (k +- 1, no diagonal neighbours). So a shard
+derives every derivative and face flux from reads in a one-cell ring
+(k +- 1, no diagonal neighbours) around its tiles. So a shard
 needs at its four edges the ring of wet flags and of chi at every level,
 and the neighbours' coefficients that K6 reads there: cz_u and cz_d on all
 four sides; ae, s_e and inv_de of the west neighbours; an, s_n and inv_dn

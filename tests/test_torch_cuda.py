@@ -79,6 +79,33 @@ def test_k2_equals_plain(case, dtype):
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("nmembers", [0, 1, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nz", [1, 2, 50, 75])
+def test_k2_cut_shapes_equal_plain(device, nz, dtype, nmembers):
+    """The factor and the solve at nz up to 75, on 7 x 45 columns (not a
+    multiple of the solve's 64-column block), one field (nmembers 0) or a
+    batch, with a zero pivot guarded: bit for bit against the plain
+    versions, and every member against its own solve."""
+    rng = np.random.default_rng(nz + 10 * nmembers)
+    t = lambda *shape: torch.as_tensor(rng.standard_normal(shape), device=device).to(dtype)
+    lower, upper = t(nz, 7, 45), t(nz, 7, 45)
+    diag = 4.0 + t(nz, 7, 45).abs()
+    diag[:, 0, 0], upper[:, 0, 0] = 0.0, 0.0
+    b = t(*(((nmembers,) if nmembers else ()) + (nz, 7, 45)))
+    n2 = tridiag.LAUNCHES
+    cp, rden = P.tridiag_factor(lower, diag, upper)
+    x = P.tridiag_solve_factored(cp, rden, upper, b)
+    assert tridiag.LAUNCHES == n2 + 2
+    pcp, prden = tridiag.tridiag_factor_plain(lower, diag, upper)
+    torch.testing.assert_close(cp, pcp, rtol=0, atol=0)
+    torch.testing.assert_close(rden, prden, rtol=0, atol=0)
+    torch.testing.assert_close(x, tridiag_solve_plain(lower, diag, upper, b), rtol=0, atol=0)
+    for m in range(nmembers):
+        torch.testing.assert_close(x[m], P.tridiag_solve_factored(cp, rden, upper, b[m]),
+                                   rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("variant", ["upwind", "centered", "rho3d"])
 def test_k4_matches_plain(case, variant):
     ds, gm, idx, _, _ = case
@@ -102,6 +129,20 @@ def test_refined_ideal_age_goes_through_the_kernels(case):
     assert res < 1e-9
     assert bool(torch.isfinite(gamma[idx.wet3d]).all())
     assert stencil.LAUNCHES > k1 and tridiag.LAUNCHES > k2
+
+
+def test_bf16_refined_ideal_age_runs_in_f32(case):
+    """bf16 coefficients: K1's (bf16, f32) matvecs and K2 on f32 legs, f64
+    defects; the age agrees with the f32 one to the bf16 rounding."""
+    ds, gm, idx, _, _ = case
+    T = P.assemble_T(ds.umo, ds.vmo, ds.mlotst, gm).to(torch.float32)
+    wet = idx.wet3d
+    age32, _ = P.ideal_age(T, wet, gm.topology, tol=1e-9, refine=True)
+    k1, k2 = stencil.LAUNCHES, tridiag.LAUNCHES
+    gamma, res = P.ideal_age(T.to(torch.bfloat16), wet, gm.topology, tol=1e-9, refine=True)
+    assert res < 1e-9 and bool(torch.isfinite(gamma[wet]).all())
+    assert stencil.LAUNCHES > k1 and tridiag.LAUNCHES > k2
+    assert float((gamma[wet] / age32[wet]).mean()) == pytest.approx(1.0, abs=1e-2)
 
 
 def test_wrappers_raise_on_card(case):
@@ -168,9 +209,11 @@ def test_k3_equals_composition(case, dtype, flags, transpose):
 def test_k3_factorization_equals_plain(case, dtype):
     topo, a, m, _, _, _ = _k3_inputs(case, dtype, False)
     got = krylov.krylov_scratch(*m)
-    cp, rden = krylov.krylov_factor_plain(*m)
+    cp, rden = tridiag.tridiag_factor_plain(*m)
     torch.testing.assert_close(got.cp, cp, rtol=0, atol=0)
     torch.testing.assert_close(got.rden, rden, rtol=0, atol=0)
+    shared = P.tridiag_factor(*m)  # K3 on K2's factor: the same tensors
+    assert krylov.krylov_scratch(*m, factor=shared).cp is shared[0]
     with pytest.raises(ValueError, match="other Thomas legs"):
         P.fused_krylov_step(a, *m, m[1], None, 0.0, None, topo, with_combine=False,
                             with_dot=False, scratch=krylov.krylov_scratch(*(t.clone() for t in m)))
@@ -256,7 +299,7 @@ def test_batched_k2_equals_per_member(case, dtype):
     bs = torch.as_tensor(rng.standard_normal((4,) + chi.shape), device=chi.device).to(dtype)
     n2 = tridiag.LAUNCHES
     got = P.tridiag_solve(*legs, bs)
-    assert tridiag.LAUNCHES == n2 + 1
+    assert tridiag.LAUNCHES == n2 + 2  # the factor, then one solve for the batch
     for m in range(4):
         torch.testing.assert_close(got[m], P.tridiag_solve(*legs, bs[m]), rtol=0, atol=0)
     torch.testing.assert_close(got, tridiag_solve_plain(*legs, bs), rtol=0, atol=0)
@@ -361,6 +404,41 @@ def test_k6_multi_equals_k6_per_member(case, types, nmembers):
     for m in range(nmembers):
         torch.testing.assert_close(got[m], P.redi_apply_fused(op, xs[m]), rtol=0, atol=0)
     torch.testing.assert_close(got, P.redi_apply(op, xs), rtol=0, atol=0)
+
+
+def _random_redi(kind, nz, ny, nx, device, seed):
+    """A RediOperator of random coefficient fields and a random wet mask:
+    the kernel's arithmetic on any shape, physical or not."""
+    from otmb_tpu_torch.grid.topology import GridTopology
+    from otmb_tpu_torch.models.redi import _COEF_FIELDS, RediOperator
+
+    rng = np.random.default_rng(seed)
+    shape = lambda n: (ny, nx) if n in ("inv_de", "inv_dn") else (nz, ny, nx)
+    f = {n: torch.as_tensor(rng.standard_normal(shape(n)), device=device) for n in _COEF_FIELDS}
+    return RediOperator(**f, wet=torch.as_tensor(rng.random((nz, ny, nx)) < 0.8, device=device),
+                        topology=GridTopology(kind=kind, nx=nx, ny=ny, nz=nz))
+
+
+@pytest.mark.parametrize("kind", ["tripolar", "bipolar"])
+@pytest.mark.parametrize("types", list(REDI_TYPES))
+@pytest.mark.parametrize("dims", [(1, 1, 33), (2, 1, 37), (2, 9, 45), (1, 17, 70), (3, 11, 5),
+                                  (13, 9, 45)])
+def test_k6_cut_shapes_equal_plain(device, kind, types, dims):
+    """K6 on shapes that cut its 32 x 8 tile on every side (ny = 1, nz of 1
+    and 2, i wrapping inside one tile) and its walk into uneven chunks of
+    levels (nz = 13), one tracer and B = 1, 4 and 8: bit for bit against
+    the plain version, NaN on land masked."""
+    ctype, vtype = REDI_TYPES[types]
+    nz, ny, nx = dims
+    op = _random_redi(kind, nz, ny, nx, device, seed=nz + ny + nx).to(ctype)
+    rng = np.random.default_rng(nx)
+    for nb in (0, 1, 4, 8):
+        x = torch.as_tensor(rng.standard_normal(((nb,) if nb else ()) + (nz, ny, nx)),
+                            device=device).to(vtype)
+        x = torch.where(op.wet, x, torch.nan)
+        got = P.redi_apply_fused_multi(op, x) if nb else P.redi_apply_fused(op, x)
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, P.redi_apply(op, x), rtol=0, atol=0)
 
 
 def test_k6_invariants(case):

@@ -158,6 +158,32 @@ def test_k2_float32_matches_pallas(jax_T, chi, dataset):
     assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_k2_factor_then_solve_equals_plain(jax_T, chi, dataset, dtype):
+    """The engine's pair, the factor once per system and the solve per
+    right-hand side, equals tridiag_solve_plain bit for bit on a field and
+    on a batch; in f64 it equals the JAX package's _tridiag_preconditioner
+    to rounding (XLA contracts b - upper*dp_prev into an FMA)."""
+    from otmb_tpu.models.solvers import _tridiag_preconditioner
+
+    surf = np.zeros(chi.shape)
+    surf[0] = np.where(dataset.wet3d[0], 1.0, 0.0)
+    shifted = np.asarray(jax_T.diag) + surf
+    t = lambda a: torch.tensor(np.asarray(a, dtype))
+    lo, di, up = t(jax_T.bottom), t(np.where(shifted != 0, shifted, 1.0)), t(jax_T.top)
+    bs = t(np.stack([chi, -2.0 * chi, chi ** 2]))
+    cp, rden = tridiag.tridiag_factor_plain(lo, di, up)
+    for b in (bs[0], bs):
+        got = tridiag.tridiag_solve_factored_plain(cp, rden, up, b)
+        assert torch.equal(got, tridiag.tridiag_solve_plain(lo, di, up, b))
+        assert torch.equal(got, tridiag.tridiag_solve_factored(*tridiag.tridiag_factor(lo, di, up),
+                                                               up, b))
+    if dtype == np.float64:
+        want = np.asarray(_tridiag_preconditioner(jax_T, jnp.asarray(shifted))(jnp.asarray(chi)))
+        got = tridiag.tridiag_solve_factored_plain(cp, rden, up, bs[0]).numpy()
+        assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+
+
 # --- K4 --------------------------------------------------------------------
 
 
