@@ -34,9 +34,10 @@ otmb_tpu_torch/csrc, one nvcc per source in parallel, then:
      with BiCGStab(2) inner solves (K3 on T' and on T), counts reset
      before and read after;
   9. drives the 0.25-degree main path (1440x1080x75, tripolar, seed 0,
-     f32): grid metrics -> assemble_T (K4) -> the refined ideal age with
-     BiCGStab(2) inner solves on K3 and f64 defects through K1, counts
-     reset before and read after;
+     f32): grid metrics -> assemble_T (K4 and its prep entry; that call
+     timed with CUDA events and its kernels under torch.profiler) -> the
+     refined ideal age with BiCGStab(2) inner solves on K3 and f64 defects
+     through K1, counts reset before and read after;
  10. holds K3 against the composition of the K2 and K1 kernels and its
      plain version at 0.25 degrees (tripolar) and 720x540x75 (bipolar),
      in f32 and f64, on T and T', for each use the engine makes of it,
@@ -82,10 +83,13 @@ otmb_tpu_torch/csrc, one nvcc per source in parallel, then:
      f32 and f64, and on (2, 2) the refined ideal age and sequestration time
      with grid= and one BiCGStab(2) solve_shifted_halo. K7, K8 and K9 are
      held to K1/K5, K4 and K6 on the rank's shard and to their plain
-     versions, bit for bit (overlap to its stated bound); the sharded mean
-     ages to the single-device ones; every rank must launch K7, K7 multi,
-     K8 and K9 and none of K1, K3-K6. Rank 0 times each kernel on its shard
-     while the others wait at a barrier.
+     versions, bit for bit (overlap to its stated bound), and so are K7's
+     pack and edge entries and K4's prep entry; the sharded mean ages to
+     the single-device ones; every rank must launch K7, K7 multi, K8, K9,
+     the pack, edge and prep entries and none of K1, K3-K6. Rank 0 traces
+     20 overlapped sharded matvecs under torch.profiler (3 kernels and at
+     most one copy each way per matvec, required) and times each kernel on
+     its shard while the others wait at a barrier.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 device and exits non-zero, printing no result, without one, and whenever
@@ -212,6 +216,15 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return err, err / scale if scale else err
 
 
+def exact_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """The largest |got - ref| where the two differ, NaN equal to NaN (inf
+    where a NaN meets a number); 0 when they are equal."""
+    same = (got == ref) | (torch.isnan(got) & torch.isnan(ref))
+    if bool(same.all()):
+        return 0.0
+    return float((got.double() - ref.double())[~same].abs().nan_to_num(nan=float("inf")).max())
+
+
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -311,7 +324,7 @@ def phase_main_path(P, device, card):
         f"{stats['refinements']} passes, {t_age:.3f} s wall, volume-weighted mean age "
         f"{mean_age:.3f} yr")
 
-    launches = {name: n for name, n in read().items() if name in ("K1", "K2", "K4")}
+    launches = {name: n for name, n in read().items() if name in ("K1", "K2", "K4", "K4 prep")}
     log(f"[launches] main path: {launches}")
     for name, n in launches.items():
         require(n > 0, f"{name} was not launched on the main path")
@@ -477,6 +490,7 @@ def phase_golden(P, device):
 def phase_times(P, card, T, gm, idx):
     """CUDA-event medians of each kernel and its plain version at 1-degree f32."""
     from otmb_tpu_torch.models.transport import assemble_transport
+    from otmb_tpu_torch.ops import assemble
     from otmb_tpu_torch.ops.apply import apply_stencil
     from otmb_tpu_torch.ops.tridiag import tridiag_factor_plain, tridiag_solve_factored_plain
 
@@ -508,6 +522,10 @@ def phase_times(P, card, T, gm, idx):
                       lambda: tridiag_factor_plain(lower, diag, upper), 20, 3),
         "K4": (lambda: P.assemble_T(umo, vmo, ml, gm),
                lambda: assemble_transport(umo, vmo, ml, gm, wet).T, 20, 5),
+        # K4's prep entry: the resident fields and per-level rows
+        "K4 prep": (lambda: assemble._prep(gm, ml, *KAPPAS(P)),
+                    lambda: (assemble._residents(gm, ml, P.KAPPA_H_DEFAULT),
+                             assemble._levels(gm.zt, *KAPPAS(P)[1:])), 50, 10),
     }
     times = {}
     for name, (kernel, plain, calls_k, calls_p) in pairs.items():
@@ -517,6 +535,11 @@ def phase_times(P, card, T, gm, idx):
             f"{times[name][1]:.4f} ms per call (CUDA events over back-to-back calls, median "
             f"of 5; card {card})")
     return times
+
+
+def KAPPAS(P) -> tuple[float, float, float]:
+    """The default kappa_h, kappa_vml, kappa_vdeep."""
+    return P.KAPPA_H_DEFAULT, P.KAPPA_VML_DEFAULT, P.KAPPA_VDEEP_DEFAULT
 
 
 def time_pair(kernel, plain, calls_k: int, calls_p: int) -> tuple[float, float]:
@@ -539,7 +562,9 @@ def reset_launches():
                 "K5": (stencil, "MULTI_LAUNCHES"), "K6": (redi_kernel, "LAUNCHES"),
                 "K6 multi": (redi_kernel, "MULTI_LAUNCHES"), "K10": (profiling, "LAUNCHES"),
                 "K7": (halo_kernel, "LAUNCHES"), "K7 multi": (halo_kernel, "MULTI_LAUNCHES"),
-                "K8": (assemble_halo, "LAUNCHES"), "K9": (redi_halo, "LAUNCHES")}
+                "K8": (assemble_halo, "LAUNCHES"), "K9": (redi_halo, "LAUNCHES"),
+                "K4 prep": (assemble, "PREP_LAUNCHES"), "K7 pack": (halo_kernel, "PACK_LAUNCHES"),
+                "K7 edge": (halo_kernel, "EDGE_LAUNCHES")}
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
     return lambda: {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
@@ -616,13 +641,32 @@ def phase_quarter(P, device):
     t0 = time.perf_counter()
     ds, gm, idx = build_case(P, nx, ny, nz, "tripolar", torch.float32, device)
     t_grid = time.perf_counter() - t0
-    T = P.assemble_T(ds.umo, ds.vmo, ds.mlotst, gm)
-    torch.cuda.synchronize()
+    umo, vmo, ml = (torch.as_tensor(a, dtype=torch.float32, device=device)
+                    for a in (ds.umo, ds.vmo, ds.mlotst))
+    # K4's time on this call itself: CUDA events around it (the call's host
+    # work included), and its kernels' device time under torch.profiler
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        T = P.assemble_T(umo, vmo, ml, gm)
+        end.record()
+        end.synchronize()
+    k4_ms = start.elapsed_time(end)
+    dev = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+           if e.device_type == DeviceType.CUDA]
+    k4_dev = sum(v for name, v in dev if "assemble_kernel" in name)
+    prep_dev = sum(v for name, v in dev if "prep_kernel" in name)
     t_setup = time.perf_counter() - t0
-    del ds
+    del ds, umo, vmo, ml
     wet = idx.wet3d
     log(f"[quarter] {nx}x{ny}x{nz} tripolar seed {SEED}: {idx.nwet} wet cells; dataset + grid "
         f"metrics + indices {t_grid:.3f} s, + assemble_T {t_setup:.3f} s")
+    log(f"[time] K4 at {nx}x{ny}x{nz} f32, the main path's call: assemble_T {k4_ms:.4f} ms "
+        f"(CUDA events around the call), device: K4 kernel {k4_dev:.4f} ms, prep entry "
+        f"{prep_dev:.4f} ms, {len(dev)} kernels (torch.profiler; card {card_line()})")
     stats = {}
     t0 = time.perf_counter()
     gamma, res = P.ideal_age(T, wet, gm.topology, tol=TOL_AGE, refine=True,
@@ -639,9 +683,10 @@ def phase_quarter(P, device):
         f"{t_age:.3f} s wall, volume-weighted mean age {mean_age:.6f} yr; launches {counts}")
     require(g_ok, "0.25-degree ideal age not finite and positive")
     require(res <= TOL_QUARTER, f"0.25-degree ideal age residual {res:.3e} > {TOL_QUARTER}")
-    for name in ("K1", "K2", "K3", "K4"):
+    for name in ("K1", "K2", "K3", "K4", "K4 prep"):
         require(counts[name] > 0, f"{name} was not launched on the 0.25-degree path")
     del gamma
+    counts["K4 ms"], counts["K4 device ms"] = k4_ms, k4_dev
     return gm, idx, T, counts
 
 
@@ -1460,7 +1505,8 @@ def _shard_rank(grid, with_solves: bool) -> dict:
 
     import otmb_tpu_torch as P
     from otmb_tpu_torch import parallel as Q
-    from otmb_tpu_torch.parallel import assemble_halo, halo_kernel, redi_halo
+    from otmb_tpu_torch.ops import assemble
+    from otmb_tpu_torch.parallel import assemble_halo, halo, halo_kernel, redi_halo
     from otmb_tpu_torch.parallel.halo import _halo_exchange, _local_stencil
 
     device = grid.device
@@ -1574,6 +1620,28 @@ def _shard_rank(grid, with_solves: bool) -> dict:
         "K9": max(err(r32, sh(ref["redi"])), err(r64, sh(ref["redi64"])),
                   err(r32, redi_halo._redi_plain(rs32, chi_l, halos))),
     }
+    # K7's pack and edge entries and K4's prep entry against their plain
+    # versions on this rank's shard (the pack's buffer, the edge on the
+    # exchanged lines, the prep of the f32 and f64 shard metrics)
+    entry_errs = {"K7 pack": 0.0, "K7 edge": 0.0}
+    for x in (chi_l, chis_l):
+        plan, plain = halo.HaloExchange(x, topo, grid), halo.HaloExchange(x, topo, grid)
+        halo_kernel._pack(plan, x, topo)
+        halo._pack_plain(x, topo, plain.lines)
+        entry_errs["K7 pack"] = max(entry_errs["K7 pack"], err(plan.send, plain.send))
+        plan.exchange(halo.ready_event(x))
+        bulk = halo_kernel._bulk(T_l, x, halo_kernel._NO_HALOS, None)
+        for scale in (1.0, -dt):
+            entry_errs["K7 edge"] = max(entry_errs["K7 edge"], err(
+                halo_kernel._edge(T_l, bulk.clone(), plan.halos, scale),
+                halo._boundary_patch(T_l, bulk.clone(), plan.halos, scale)))
+    ml32, ml64 = sh(f32["mlotst"]), sh(f64["mlotst"])
+    entry_errs["K4 prep"] = max(
+        max(exact_err(a, b) for a, b in zip(assemble._prep(g, ml, *KAPPAS(P)),
+                                       (assemble._residents(g, ml, P.KAPPA_H_DEFAULT),
+                                        assemble._levels(g.zt, *KAPPAS(P)[1:]))))
+        for g, ml in ((gm32_l, ml32), (gm64_l, ml64)))
+    errs.update(entry_errs)
     for name, e in errs.items():
         require(e <= TOL_SHARD, f"rank {grid.rank} {grid.shape}: {name} differs from its "
                 f"single-device kernel or its plain version by {e:.3e}")
@@ -1589,6 +1657,11 @@ def _shard_rank(grid, with_solves: bool) -> dict:
                 f"{rels[name]:.3e} > {bound_}")
     out.update(errs=errs, rels=rels)
 
+    # one overlapped sharded matvec (the solvers' matvec): rank 0's kernels
+    # and copies per matvec under torch.profiler, its host ms without it
+    out["matvec"] = _trace_matvecs(grid, lambda: Q.stencil_apply_halo(T_l, chi_l, topo, grid,
+                                                                      overlap=True))
+
     # kernel times on one shard: rank 0 alone on the card
     dist.barrier()
     if grid.rank == 0:
@@ -1602,6 +1675,16 @@ def _shard_rank(grid, with_solves: bool) -> dict:
             "K9": time_pair(lambda: redi_halo._launch(rs32, chi_l, halos),
                             lambda: redi_halo._redi_plain(rs32, chi_l, halos), 50, 5),
         }
+        # K7's pack and edge entries on this shard (the edge adds in place)
+        plan, plain = halo.HaloExchange(chi_l, topo, grid), halo.HaloExchange(chi_l, topo, grid)
+        bulk = halo_kernel._bulk(T_l, chi_l, halo_kernel._NO_HALOS, None)
+        out["times"]["K7 pack"] = time_pair(lambda: halo_kernel._pack(plan, chi_l, topo),
+                                            lambda: halo._pack_plain(chi_l, topo, plain.lines),
+                                            50, 10)
+        out["times"]["K7 edge"] = time_pair(
+            lambda: halo_kernel._edge(T_l, bulk, plan.halos, 1.0),
+            lambda: halo._boundary_patch(T_l, bulk, plan.halos, 1.0), 50, 10)
+        out["send_values"] = plan.send.numel()
         # the library call of K7's function: one CSR product over the shard
         # and its halo lines
         A = _shard_csr(T_l, *chi_l.shape[-2:])
@@ -1615,6 +1698,46 @@ def _shard_rank(grid, with_solves: bool) -> dict:
         del A, v, V
     dist.barrier()
     return out
+
+
+MATVECS = 20  # overlapped sharded matvecs in rank 0's trace
+
+
+def _trace_matvecs(grid, matvec) -> dict:
+    """Every rank runs MATVECS matvecs twice (collective); rank 0 times the
+    first run with the host clock and traces the second under
+    torch.profiler: kernels, device-to-host and host-to-device copies, host
+    ms and device-busy ms per matvec (other ranks: {})."""
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    matvec()
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MATVECS):
+        matvec()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / MATVECS
+    dist.barrier()
+    if grid.rank != 0:
+        for _ in range(MATVECS):
+            matvec()
+        torch.cuda.synchronize()
+        return {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(MATVECS):
+            matvec()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    count = lambda pred: sum(1 for e in ev if pred(e.name)) / MATVECS
+    return {"kernels": count(lambda n: not n.startswith(("Memcpy", "Memset"))),
+            "d2h": count(lambda n: n.startswith("Memcpy DtoH")),
+            "h2d": count(lambda n: n.startswith("Memcpy HtoD")),
+            "copies": count(lambda n: n.startswith("Memcpy")),
+            "host_ms": host_ms,
+            "busy_ms": sum(e.time_range.elapsed_us() for e in ev) / 1e3 / MATVECS}
 
 
 def phase_sharded(card, mean_age: float, mean_seq: float) -> dict:
@@ -1634,7 +1757,7 @@ def phase_sharded(card, mean_age: float, mean_seq: float) -> dict:
         ny_l, nx_l = NY // shape[0], NX // shape[1]
         for r in ranks:
             counts = {k: v for k, v in r["launches"].items() if v}
-            for name in ("K7", "K7 multi", "K8", "K9"):
+            for name in ("K7", "K7 multi", "K8", "K9", "K7 pack", "K7 edge", "K4 prep"):
                 require(r["launches"][name] > 0, f"{name} was not launched on rank {r['rank']} "
                         f"of the {shape} grid")
             for name in ("K1", "K3", "K4", "K5", "K6", "K6 multi"):
@@ -1647,6 +1770,15 @@ def phase_sharded(card, mean_age: float, mean_seq: float) -> dict:
                 f"and plain " + ", ".join(f"{k} {v:.1e}" for k, v in r["errs"].items())
                 + "; overlap max rel " + ", ".join(f"{k} {v:.3e}" for k, v in r["rels"].items()))
         r0 = ranks[0]
+        mv = r0["matvec"]
+        log(f"[sharded {shape[0]}x{shape[1]}] rank 0, {MATVECS} overlapped matvecs "
+            f"(stencil_apply_halo, overlap=True): {mv['kernels']:.2f} kernels, "
+            f"{mv['d2h']:.2f} device-to-host and {mv['h2d']:.2f} host-to-device copies, "
+            f"{mv['host_ms']:.4f} host ms and {mv['busy_ms']:.4f} device-busy ms per matvec "
+            f"(torch.profiler; host ms without it; card {card})")
+        require(mv["kernels"] == 3 and mv["d2h"] <= 1 and mv["h2d"] <= 1,
+                f"an overlapped sharded matvec on rank 0 of {shape}: {mv['kernels']} kernels, "
+                f"{mv['d2h']} / {mv['h2d']} copies each way (3 and at most 1 expected)")
         if "age_res" in r0:
             for r in ranks:
                 require(r["age_res"] <= TOL_AGE and r["seq_res"] <= TOL_AGE,
@@ -1807,6 +1939,13 @@ def main() -> int:
         "K9": (redi_bytes(s_cells, s_plane, 4, 1, 4) + 6 * s_edge // 2 * NZ * 4
                + s_edge // 2 * 4 + s_edge * NZ * (1 + 4)),
     }
+    # K7's pack (its lines read, the send buffer written) and edge entries
+    # (each edge cell read and written, and the leg and halo of each term
+    # rank 0 adds: east, west and north; it has no south neighbour)
+    s_perimeter = 2 * nx_l + 2 * (ny_l - 2)
+    s_terms = 2 * ny_l + nx_l
+    s_bytes["K7 pack"] = 2 * ranks0[0]["send_values"] * 4
+    s_bytes["K7 edge"] = NZ * (s_perimeter + s_terms) * 2 * 4
     log_rates([(f"{name} on one {ny_l}x{nx_l}x{NZ} shard", "f32", s_bytes[name],
                 s_times[name][0]) for name in s_bytes], gbps)
     log(f"[launches] K2 (factor and solve) {launches['K2']} on the 1-degree main path, "
@@ -1832,6 +1971,11 @@ def main() -> int:
         entry("K4 assemble_T", "assemble.cu", "otmb_tpu/ops/assemble_pallas.py:60",
               launches["K4"], k4_worst[("tripolar", "float32")], *times["K4"], 10 * cells * 4,
               40 * cells, None),
+        # K4's prep entry: 10 (ny, nx) fields and zt read, 11 fields and the
+        # (nz, 6) rows written; 6 operations a column
+        entry("K4 prep (assemble_T, assemble_T_halo)", "assemble.cu",
+              "otmb_tpu/ops/assemble_pallas.py:336", launches["K4 prep"], s_worst("K4 prep"),
+              *times["K4 prep"], (21 * plane + 7 * NZ) * 4, 6 * plane + 10 * NZ, None),
         entry("K3 fused_krylov_step", "krylov.cu", "otmb_tpu/ops/krylov_pallas.py:68",
               qlaunches["K3"], k3_worst[("tripolar", str(torch.float32), "T")], *qtimes["K3"],
               15 * qcells * 4, 30 * qcells, None),
@@ -1857,6 +2001,12 @@ def main() -> int:
               "otmb_tpu/parallel/halo_pallas.py:263", s_launches("K7 multi"),
               s_worst("K7 multi"), *s_times["K7 multi"], s_bytes["K7 multi"],
               15 * BATCH * s_cells, ranks0[0]["library"]["K7 multi"]),
+        entry("K7 halo pack", "stencil.cu", "otmb_tpu/parallel/halo_pallas.py:64",
+              s_launches("K7 pack"), s_worst("K7 pack"), *s_times["K7 pack"],
+              s_bytes["K7 pack"], 0, None),
+        entry("K7 halo edge", "stencil.cu", "otmb_tpu/parallel/halo_pallas.py:64",
+              s_launches("K7 edge"), s_worst("K7 edge"), *s_times["K7 edge"],
+              s_bytes["K7 edge"], 3 * NZ * s_terms, None),
         entry("K8 assemble_T_halo", "assemble.cu", "otmb_tpu/parallel/assemble_halo.py:229",
               s_launches("K8"), s_worst("K8", "K8 rho3d"), *s_times["K8"], s_bytes["K8"],
               40 * s_cells, None),

@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -40,6 +41,10 @@ build_seconds: float | None = None
 
 _lib: ctypes.CDLL | None = None
 _functions: dict[str, ctypes._CFuncPtr] = {}
+# The device the library's own CUDA runtime has current, per host thread:
+# only this module changes it, so a launch selects a device only when it
+# differs from the last one selected on the thread.
+_selected = threading.local()
 
 
 def _nvcc() -> str:
@@ -122,7 +127,9 @@ def launch(name: str, argtypes: list, device: torch.device, *args) -> None:
     """Call the C entry point `name` on `device`, on PyTorch's current
     stream there (appended as the last argument); raise on a CUDA error."""
     lib = library()
-    check(lib.otmb_set_device(device.index), "cudaSetDevice")
+    if getattr(_selected, "index", None) != device.index:
+        check(lib.otmb_set_device(device.index), "cudaSetDevice")
+        _selected.index = device.index
     stream = torch.cuda.current_stream(device).cuda_stream
     check(function(name, argtypes)(*args, stream), name)
 

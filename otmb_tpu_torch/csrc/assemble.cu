@@ -1,6 +1,7 @@
 // K4: fused assembly of T = Tadv + TkH + TkVML + TkVdeep from raw umo,
-// vmo and v3d, in one bottom-up k sweep per column; and K8, the same on
-// one shard of a process grid (the kShard instantiations, at the end).
+// vmo and v3d; and K8, the same on one shard of a process grid (the kShard
+// instantiations, at the end); and the prep entry that writes their
+// resident fields and per-level rows.
 //
 // Replaces the Pallas kernels of otmb_tpu/ops/assemble_pallas.py
 // (_assembly_kernel, _assembly_kernel_blocked) and computes what they
@@ -9,14 +10,14 @@
 //     faces are the i-1 and j-1 neighbours' east and north faces, which
 //     each thread recomputes from their umo/vmo and wet factors;
 //   * the vertical closure phi_top[k] = phi_top[k+1] + (W + S - E - N)[k],
-//     carried in a register down the column (the suffix sum);
+//     carried in a register up the column from the floor (the suffix sum);
 //   * upwind or centered advection with the tripolar seam's north outflux
 //     (ops/coeffs.py:_advection_north_outflux), per-face masses from a
 //     scalar rho or from pair means of a 3D rho;
 //   * horizontal diffusion with the min-face-area rule and the seam case
 //     where the far face is the fold partner's north face;
 //   * mixed-layer and background vertical diffusion from per-level kappa/dz
-//     rows prepared outside (ops/assemble.py).
+//     rows (the prep entry, below, or ops/assemble.py's plain version).
 // The surface top face (k = 0) is skipped. The tripolar partner
 // (k, ny-1, nx-1-i) is read directly. The partner's face area is
 // (vclean * (1/area)) * edge_north, the same expression as the cell's own
@@ -26,12 +27,20 @@
 // NaN is data: land volumes are NaN. Wet tests use isnan explicitly and
 // the library is never built with fast-math, which could fold them.
 //
-// Bound on the H100: device-memory bandwidth and L1/L2 traffic. Per cell
-// it reads umo, vmo, v3d (+ rho) and writes 7 legs: 10 (11) streams, 40
-// (44) bytes in f32; the neighbour reads hit lines other threads read. The
-// (ny, nx) metric fields are read once per column. Design: one thread per
-// (j, i) column with i fastest, the k loop inside the thread, carries
-// (phi_top, the level below's wet factor and rho) in registers.
+// Bound on the H100: device-memory bandwidth. Per cell it reads umo, vmo,
+// v3d (+ rho) and writes 7 legs: 10 (11) streams, 40 (44) bytes in f32;
+// the neighbour reads hit lines other threads read. The (ny, nx) metric
+// fields are read once per column. The TPU kernel carried the suffix sum
+// through a sequential grid of k planes. Design: one thread per (j, i)
+// column with i fastest, the k loop inside the thread, unrolled by two so
+// that two levels' loads are in flight; it carries (phi_top, the level
+// below's wet factor and rho) in registers. The walk is latency-bound where
+// columns are few (about 1.3 waves of blocks at 1 degree, 47 % of the
+// bound; 61 % at 0.25 degrees). A cell-parallel design (tiles of 32 x 4
+// columns, the divergences and their suffix sums in shared memory, the legs
+// over (level, column)) was measured slower on the whole field at 1 and
+// 0.25 degrees, since it reads each cell's neighbours twice, and faster only
+// on a shard's few columns (PERF.md); the walk was kept.
 #include "common.cuh"
 
 namespace otmb {
@@ -94,6 +103,80 @@ struct AssembleHalo {
   int n_interior;  // the shard's last row has a north neighbour that is not the fold
 };
 
+// NaN-propagating maximum, as torch.maximum (the first NaN operand).
+template <typename T>
+__device__ __forceinline__ T nan_max(T a, T b) {
+  if (isnan(a)) return a;
+  if (isnan(b)) return b;
+  return a < b ? b : a;
+}
+
+template <typename T>
+__device__ __forceinline__ T largest();
+template <>
+__device__ __forceinline__ float largest<float>() { return 3.402823466e+38f; }
+template <>
+__device__ __forceinline__ double largest<double>() { return 1.7976931348623157e+308; }
+
+// The prep entry: K4's resident fields (11, ny, nx) and per-level rows
+// (nz, 6), one thread per (j, i) column and one per level, in one launch.
+// The expressions are those of ops/assemble.py:_residents and _levels, its
+// plain version, in the same type: kappa rounded to T before it divides,
+// IEEE divisions (a correctly rounded 1/area), nan_to_num's replacements
+// (0 for NaN, the largest finite value for an infinity), isfinite tests.
+template <typename T>
+__global__ void assemble_prep_kernel(const T* __restrict__ el_e, const T* __restrict__ el_w,
+                                     const T* __restrict__ el_n, const T* __restrict__ el_s,
+                                     const T* __restrict__ d_e, const T* __restrict__ d_w,
+                                     const T* __restrict__ d_n, const T* __restrict__ d_s,
+                                     const T* __restrict__ area, const T* __restrict__ ml,
+                                     const T* __restrict__ zt, T* __restrict__ res,
+                                     T* __restrict__ levels, int nz, long long plane,
+                                     T kappa_h, T kappa_vml, T kappa_vdeep) {
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t < plane) {
+    auto khd = [&](T d) { return isfinite(d) ? kappa_h / d : T(0); };
+    const T a = area[t];
+    res[kEdgeE * plane + t] = el_e[t];
+    res[kEdgeW * plane + t] = el_w[t];
+    res[kEdgeN * plane + t] = el_n[t];
+    res[kEdgeS * plane + t] = el_s[t];
+    res[kKhdE * plane + t] = khd(d_e[t]);
+    res[kKhdW * plane + t] = khd(d_w[t]);
+    res[kKhdN * plane + t] = khd(d_n[t]);
+    res[kKhdS * plane + t] = khd(d_s[t]);
+    res[kArea * plane + t] = isnan(a) ? T(0) : isinf(a) ? (a > T(0) ? largest<T>() : -largest<T>()) : a;
+    res[kInvArea * plane + t] = isfinite(a) ? T(1) / a : T(0);
+    res[kMl * plane + t] = ml[t];
+  } else if (t < plane + nz) {
+    const int k = static_cast<int>(t - plane);
+    const T inf = static_cast<T>(INFINITY);
+    const T z = zt[k];
+    const T dz_up = k > 0 ? fabs(z - zt[k - 1]) : inf;
+    const T dz_dn = k + 1 < nz ? fabs(z - zt[k + 1]) : inf;
+    T* lv = levels + static_cast<long long>(k) * kNumLevel;
+    lv[kZupMax] = k > 0 ? nan_max(z, zt[k - 1]) : inf;
+    lv[kZdnMax] = k + 1 < nz ? nan_max(z, zt[k + 1]) : inf;
+    lv[kUpDeep] = kappa_vdeep / dz_up;
+    lv[kUpMl] = kappa_vml / dz_up;
+    lv[kDnDeep] = kappa_vdeep / dz_dn;
+    lv[kDnMl] = kappa_vml / dz_dn;
+  }
+}
+
+template <typename T>
+int launch_assemble_prep(const void* const* fields, void* res, void* levels, int nz, int ny,
+                         int nx, double kappa_h, double kappa_vml, double kappa_vdeep,
+                         void* stream) {
+  const long long plane = static_cast<long long>(ny) * nx;
+  auto F = [&](int n) { return static_cast<const T*>(fields[n]); };
+  assemble_prep_kernel<T><<<blocks_for(plane + nz), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      F(0), F(1), F(2), F(3), F(4), F(5), F(6), F(7), F(8), F(9), F(10), static_cast<T*>(res),
+      static_cast<T*>(levels), nz, plane, static_cast<T>(kappa_h), static_cast<T>(kappa_vml),
+      static_cast<T>(kappa_vdeep));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, bool kShard>
 __global__ void assemble_kernel(const T* __restrict__ umo, const T* __restrict__ vmo,
                                 const T* __restrict__ v3d, const T* __restrict__ rho,
@@ -151,6 +234,8 @@ __global__ void assemble_kernel(const T* __restrict__ umo, const T* __restrict__
   T prev_wet = T(0);  // wet factor of level k+1
   T prev_rho = T(0);  // rho of level k+1 (3D-rho mode)
 
+  // two levels' loads in flight per thread
+#pragma unroll 2
   for (int k = nz - 1; k >= 0; --k) {
     const long long o = k * plane;
     const T v = v3d[o + col];
@@ -301,6 +386,18 @@ int launch_assemble_halo(const void* umo, const void* vmo, const void* v3d, cons
 
 OTMB_ASSEMBLE_ENTRY(otmb_assemble_f32, float)
 OTMB_ASSEMBLE_ENTRY(otmb_assemble_f64, double)
+
+// fields: edge lengths E, W, N, S; distances E, W, N, S; area; mlotst; zt.
+#define OTMB_ASSEMBLE_PREP_ENTRY(NAME, T)                                                    \
+  OTMB_EXPORT int NAME(const void* const* fields, void* res, void* levels, int nz, int ny,   \
+                       int nx, double kappa_h, double kappa_vml, double kappa_vdeep,         \
+                       void* stream) {                                                       \
+    return otmb::launch_assemble_prep<T>(fields, res, levels, nz, ny, nx, kappa_h,           \
+                                         kappa_vml, kappa_vdeep, stream);                    \
+  }
+
+OTMB_ASSEMBLE_PREP_ENTRY(otmb_assemble_prep_f32, float)
+OTMB_ASSEMBLE_PREP_ENTRY(otmb_assemble_prep_f64, double)
 
 #define OTMB_ASSEMBLE_HALO_ENTRY(NAME, T)                                                    \
   OTMB_EXPORT int NAME(const void* umo, const void* vmo, const void* v3d, const void* rho,   \

@@ -1,12 +1,12 @@
 """K4: fused assembly of the whole operator T from raw transports.
 
 Replaces `otmb_tpu/ops/assemble_pallas.py:assemble_T_pallas` with the CUDA
-kernel `csrc/assemble.cu`: one thread per (j, i) column sweeps k from the
-floor to the surface and writes the seven legs of
-T = Tadv + TkH + TkVML + TkVdeep. The O(nz) and O(ny*nx) preparation
-(per-level kappa/dz rows with an infinite dz at the boundaries, which
-makes kappa/dz exactly 0; finite resident metric fields) is plain torch
-here, as in the JAX package.
+kernels of `csrc/assemble.cu`: the prep entry writes the O(nz) and
+O(ny*nx) preparation in one launch (per-level kappa/dz rows with an
+infinite dz at the boundaries, which makes kappa/dz exactly 0; finite
+resident metric fields; plain version `_levels` and `_residents`, the JAX
+package's `_prep_kpack_residents`), then K4 writes the seven legs of
+T = Tadv + TkH + TkVML + TkVdeep.
 
 A CUDA grid goes to the kernel; a CPU grid takes the plain version,
 `models.transport.assemble_transport(...).T`. The two agree to rounding:
@@ -27,11 +27,16 @@ from ..grid.topology import BIPOLAR, TRIPOLAR
 from ..models.transport import assemble_transport
 from .coeffs import StencilCoeffs
 
-#: Kernel launches made by this module's wrapper.
+#: Kernel launches made by this module's wrappers: K4; the prep entry (for
+#: K4 and for K8's `parallel.assemble_halo._prepare`).
 LAUNCHES = 0
+PREP_LAUNCHES = 0
 
 _ENTRY = {torch.float32: "otmb_assemble_f32", torch.float64: "otmb_assemble_f64"}
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_double, ctypes.c_void_p]
+_PREP_ENTRY = {torch.float32: "otmb_assemble_prep_f32", torch.float64: "otmb_assemble_prep_f64"}
+_PREP_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_double] * 3 + [
+    ctypes.c_void_p]
 
 
 def _levels(zt: torch.Tensor, kappa_vml: float, kappa_vdeep: float) -> torch.Tensor:
@@ -74,6 +79,34 @@ def _residents(gm: GridMetrics, ml: torch.Tensor, kappa_h: float) -> torch.Tenso
     ]).contiguous()
 
 
+def _prep(gm: GridMetrics, ml: torch.Tensor, kappa_h: float, kappa_vml: float,
+          kappa_vdeep: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(`_residents`, `_levels`) of a grid (a whole one or a shard): one
+    launch of the prep entry on a CUDA grid, equal to the plain versions
+    bit for bit; the plain versions on a CPU one."""
+    global PREP_LAUNCHES
+    if not ml.is_cuda:
+        return _residents(gm, ml, kappa_h), _levels(gm.zt, kappa_vml, kappa_vdeep)
+    el, dist = gm.edge_length, gm.distance_to_neighbour
+    sides = ("east", "west", "north", "south")
+    fields = [t.contiguous() for t in (*(el[d] for d in sides), *(dist[d] for d in sides),
+                                       gm.area2d, ml, gm.zt)]
+    for t in fields:
+        if t.dtype != ml.dtype or t.device != ml.device:
+            raise ValueError(f"assemble prep: a grid field is {t.dtype} on {t.device}, "
+                             f"expected {ml.dtype} on {ml.device}")
+    nz = gm.zt.shape[0]
+    ny, nx = ml.shape
+    residents = torch.empty((11, ny, nx), dtype=ml.dtype, device=ml.device)
+    levels = torch.empty((nz, 6), dtype=ml.dtype, device=ml.device)
+    table = (ctypes.c_void_p * len(fields))(*(t.data_ptr() for t in fields))
+    _build.launch(_PREP_ENTRY[ml.dtype], _PREP_ARGTYPES, ml.device,
+                  ctypes.cast(table, ctypes.c_void_p), residents.data_ptr(), levels.data_ptr(),
+                  nz, ny, nx, float(kappa_h), float(kappa_vml), float(kappa_vdeep))
+    PREP_LAUNCHES += 1
+    return residents, levels
+
+
 def assemble_T(umo, vmo, mlotst, gridmetrics: GridMetrics, wet3d=None,
                rho=RHO_DEFAULT, kappa_h=KAPPA_H_DEFAULT, kappa_vml=KAPPA_VML_DEFAULT,
                kappa_vdeep=KAPPA_VDEEP_DEFAULT, upwind: bool = True) -> StencilCoeffs:
@@ -110,7 +143,8 @@ def assemble_T(umo, vmo, mlotst, gridmetrics: GridMetrics, wet3d=None,
     v3dw = v3d if wet3d is None else torch.where(
         torch.as_tensor(wet3d, device=device).to(torch.bool), v3d, float("nan"))
     v3dw = v3dw.contiguous()
-    land = torch.isnan(v3dw)
+    # the land mask: for the plain version, and for the 3D-rho check
+    land = torch.isnan(v3dw) if rho3d is not None or not v3d.is_cuda else None
     if rho3d is not None and bool((torch.isnan(rho3d) & ~land).any()):
         raise FloatingPointError("rho contains NaNs on wet cells (reference matrixbuilding.jl:233)")
 
@@ -121,8 +155,8 @@ def assemble_T(umo, vmo, mlotst, gridmetrics: GridMetrics, wet3d=None,
         ).T
 
     nz, ny, nx = topo.shape3d
-    levels = _levels(gridmetrics.zt, float(kappa_vml), float(kappa_vdeep))
-    residents = _residents(gridmetrics, ml, float(kappa_h))
+    residents, levels = _prep(gridmetrics, ml, float(kappa_h), float(kappa_vml),
+                              float(kappa_vdeep))
     # Land densities are inert (their faces carry zero flux) but must be finite.
     rho_clean = None if rho3d is None else torch.where(torch.isnan(rho3d), 1.0, rho3d)
     out = torch.empty((7, nz, ny, nx), dtype=dtype, device=device)

@@ -30,7 +30,7 @@ from .. import _build
 from ..config import KAPPA_H_DEFAULT, KAPPA_VDEEP_DEFAULT, KAPPA_VML_DEFAULT, RHO_DEFAULT
 from ..grid.geometry import GridMetrics
 from ..grid.topology import BIPOLAR, TRIPOLAR
-from ..ops.assemble import _levels, _residents
+from ..ops.assemble import _prep
 from ..ops.coeffs import StencilCoeffs
 from .halo import _exchange
 from .mesh import ProcessGrid, all_reduce_sum
@@ -281,8 +281,8 @@ def _prepare(umo, vmo, mlotst, gridmetrics: GridMetrics, grid: ProcessGrid, wet3
     if float(all_reduce_sum(torch.tensor([bad], dtype=torch.float64), grid)) > 0:
         raise FloatingPointError("rho contains NaNs on wet cells (reference matrixbuilding.jl:233)")
 
-    levels = _levels(gridmetrics.zt, float(kappa_vml), float(kappa_vdeep))
-    residents = _residents(gridmetrics, ml, float(kappa_h))
+    residents, levels = _prep(gridmetrics, ml, float(kappa_h), float(kappa_vml),
+                              float(kappa_vdeep))
     # Land densities are inert (their faces carry zero flux) but must be finite.
     rho_clean = None if rho3d is None else torch.where(torch.isnan(rho3d), 1.0, rho3d)
     lines = _lines(v3dw, umo, vmo, rho_clean, residents, topo, grid)

@@ -7,8 +7,8 @@ shard (`halo_field`), which the solvers of `models/solvers.py` take
 through their `grid=` argument; the engine then runs unchanged on each
 rank's shard:
 
-  * the matvec is the halo exchange plus K7 (`halo_kernel.stencil_apply_halo`),
-    with the JAX package's `overlap=True` default;
+  * the matvec is the halo exchange plus K7 (`halo_kernel.stencil_apply_halo`'s
+    step: pack, bulk, edge), with the JAX package's `overlap=True` default;
   * the preconditioner is K2 on the shard's own columns: k is never
     sharded, so the Thomas solve needs no communication;
   * the dot is the local `torch.dot` plus one `all_reduce` (SUM), and the
@@ -35,20 +35,31 @@ import torch
 from ..grid.topology import GridTopology
 from ..models.solvers import _dot, _Field, solve_shifted_chunked
 from ..ops.coeffs import StencilCoeffs
-from .halo import _exchange
-from .halo_kernel import stencil_apply_halo
+from .halo import HaloExchange, _exchange
+from .halo_kernel import _run
 from .mesh import ProcessGrid, all_reduce_sum
 
 
 def halo_field(topology: GridTopology, grid: ProcessGrid, overlap: bool = True) -> _Field:
     """The solvers' field operations on this rank's shard: T x by the halo
-    exchange and K7, all-reduced dots and norms, the shard's offset."""
+    exchange and K7 (`halo_kernel.stencil_apply_halo`'s step, through one
+    `HaloExchange` per field dtype, made at its first matvec and reused by
+    the rest of the solve), all-reduced dots and norms, the shard's
+    offset."""
+    plans: dict = {}
+
+    def apply(c: StencilCoeffs, x: torch.Tensor) -> torch.Tensor:
+        key = (x.dtype, tuple(x.shape), x.device)
+        plan = plans.get(key)
+        if plan is None:
+            plan = plans[key] = HaloExchange(x, topology, grid)
+        return _run(c, x, topology, grid, None, 1, overlap, False, plan)
 
     def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return all_reduce_sum(_dot(a, b), grid)
 
     return _Field(
-        apply=lambda c, x: stencil_apply_halo(c, x, topology, grid, overlap=overlap),
+        apply=apply,
         dot=dot,
         norm=lambda v: math.sqrt(float(dot(v, v))),
         offset=grid.offset(topology.ny, topology.nx),

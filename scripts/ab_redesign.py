@@ -1,12 +1,15 @@
-"""Same-card A/B of the K2, K6 and K9 kernels and the 1-degree refined
-ideal age between checkouts of the repository.
+"""Same-card A/B of the port's kernels and the 1-degree refined ideal age
+between checkouts of the repository, with each kernel's device time.
 
-    python3 scripts/ab_redesign.py --roots OLD NEW --order 0,1,1,0 [--out FILE]
+    python3 scripts/ab_redesign.py --roots OLD NEW --order 0,1,1,0 [--sharded] [--out FILE]
 
 Every run is a process of its own that imports `otmb_tpu_torch` from one
 checkout (which builds that checkout's kernels from its `csrc/` at first
-use) and measures on the current CUDA device, with CUDA events over
-back-to-back calls (median of 5):
+use) and measures on the current CUDA device. "ms" is the time per call
+with CUDA events over back-to-back calls (median of 5), wrapper included;
+"device" is what `torch.profiler` records on the card over the same calls:
+the named kernel's duration per call, every kernel's and copy's duration
+per call ("busy"), and the kernels and copies per call.
 
   * K2 as the solvers call it (`tridiag_solve_factored` against a factor
     made once, where the checkout has it, else `tridiag_solve`) at 1 degree
@@ -16,16 +19,23 @@ back-to-back calls (median of 5):
   * K6 at 1 degree on the density path's Redi operator (f32, bf16
     coefficients, a batch of 8) and at 0.25 degrees on random coefficient
     fields, f32; one T + R step (K1 + K6);
-  * K9 on rank 0's 150x180x50 shard of a (2, 2) grid, its halo lines cut
-    from the whole field in one process;
+  * K4 (`assemble_T` on device tensors) at 1 degree in f32 and f64 and at
+    0.25 degrees in f32, per call and on the device;
+  * K7 (one tracer and a batch of 8), K8 and K9 on rank 0's 150x180x50
+    shard of a (2, 2) grid, their halo lines cut from the whole field in
+    one process, per call and on the device;
   * the refined ideal age at 1 degree (f32 T from K4, tol 1e-8): wall
     seconds, median of 3 after one warm-up, with its residual and mean age
     so that the runs can be seen to compute the same bits, and the device's
     busy seconds in one more solve (its kernels' durations under
     torch.profiler);
-  * with --sharded, the refined ideal age and sequestration time at 1
-    degree on a (2, 2) process grid of four ranks that share the card
-    (gloo, halos staged through host memory): rank 0's wall seconds.
+  * with --sharded, on a (2, 2) process grid of four ranks that share the
+    card (gloo, halos staged through host memory): rank 0's trace of 20
+    overlapped sharded matvecs (`stencil_apply_halo(overlap=True)`, the
+    solvers' matvec) and of the first 20 BiCGStab(1) iterations of the
+    refined age's inner solve, each per matvec: kernels, copies, host ms
+    (wall clock without the profiler) and device-busy ms; then the refined
+    ideal age and sequestration time: rank 0's wall seconds.
 
 The order lists the roots by index; "0,1,1,0" runs OLD, NEW, NEW, OLD. Each
 run prints one JSON line; the calling process prints them all and the card, and
@@ -48,6 +58,7 @@ HERE = Path(__file__).resolve().parent.parent
 NX, NY, NZ = 360, 300, 50
 QUARTER = (1440, 1080, 75)
 SEED = 0
+MATVECS = 20  # sharded matvecs (and inner iterations) per traced window
 YEAR_S = 365.25 * 24 * 3600
 
 
@@ -106,6 +117,101 @@ def _k9_rank0(R, x, topo, device):
     return lambda: redi_halo._launch(rs, x_l, h), (ny_l, nx_l)
 
 
+def _device(fn, calls: int, match: str | None = None) -> dict:
+    """`torch.profiler` over `calls` back-to-back calls of `fn` (after one
+    warm-up): per call, the duration of the kernels whose name contains
+    `match` ("kernel_ms"), of everything on the card ("busy_ms"), and the
+    number of kernels and of copies."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    us = lambda es: sum(e.time_range.elapsed_us() for e in es)
+    copies = [e for e in ev if e.name.startswith("Memcpy")]
+    kernels = [e for e in ev if not e.name.startswith(("Memcpy", "Memset"))]
+    out = {"busy_ms": us(ev) / 1e3 / calls, "kernels": len(kernels) / calls,
+           "copies": len(copies) / calls}
+    if match is not None:
+        out["kernel_ms"] = us(e for e in kernels if match in e.name) / 1e3 / calls
+    return out
+
+
+def _timed(out: dict, name: str, fn, calls: int, match: str | None) -> None:
+    """out["ms"][name]: CUDA-event ms per call; out["device"][name]: `_device`."""
+    S = _smoke()
+    out["ms"][name] = S.cuda_ms(fn, calls)
+    out["device"][name] = _device(fn, calls, match)
+
+
+def _shard0(topo, device):
+    """Rank 0 of a (2, 2) grid on `device` and a slicer of its shard."""
+    from otmb_tpu_torch.parallel.mesh import ProcessGrid
+
+    g = ProcessGrid((2, 2), 0, device, "gloo")
+    (j0, i0), (ny_l, nx_l) = g.offset(topo.ny, topo.nx), g.local_shape(topo.ny, topo.nx)
+    return g, (lambda f: f[..., j0:j0 + ny_l, i0:i0 + nx_l].contiguous()), (ny_l, nx_l)
+
+
+def _k7_rank0(T, x, xs, topo, device):
+    """K7's calls (one tracer, a batch) on rank 0 of a (2, 2) grid, their
+    halo lines cut from the whole fields."""
+    from otmb_tpu_torch.ops.coeffs import StencilCoeffs
+    from otmb_tpu_torch.parallel import halo_kernel
+
+    g, sl, _ = _shard0(topo, device)
+    sides = ("east", "west", "north", "south")
+    T_l = StencilCoeffs(*(sl(leg) for leg in T))
+    h = tuple(_cut(x, g, topo, s) for s in sides)
+    hb = tuple(_cut(xs, g, topo, s) for s in sides)
+    x_l, xs_l = sl(x), sl(xs)
+    return (lambda: halo_kernel.local_apply(T_l, x_l, h),
+            lambda: halo_kernel.local_apply(T_l, xs_l, hb))
+
+
+def _k8_rank0(P, ds, gm, topo, device):
+    """K8's call on rank 0 of a (2, 2) grid (f32, scalar rho, upwind), its
+    lines cut from the whole field as `parallel/assemble_halo.py:_lines`
+    exchanges them."""
+    import torch
+    from otmb_tpu_torch.ops.assemble import _levels, _residents
+    from otmb_tpu_torch.parallel import assemble_halo
+
+    g, sl, (ny_l, _) = _shard0(topo, device)
+    dtype = gm.v3d.dtype
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    umo, vmo, ml = t(ds.umo), t(ds.vmo), t(ds.mlotst)
+    res = _residents(gm, ml, P.KAPPA_H_DEFAULT)
+    cut = lambda f, side: _cut(f, g, topo, side)
+    top = ny_l == topo.ny
+    sides = ("east", "west", "north", "south")
+    flux = {"east": umo, "west": umo, "north": vmo, "south": vmo}
+    edge = {"east": res[1], "west": res[0], "north": res[2] if top else res[3],
+            "south": res[2]}
+    level = tuple(torch.stack([cut(gm.v3d, s), cut(flux[s], s)]) for s in sides)
+    static = tuple(torch.stack([cut(res[9], s), cut(edge[s], s)]) for s in sides)
+    a = assemble_halo._Shard(
+        sl(umo), sl(vmo), sl(gm.v3d), None, sl(res),
+        _levels(gm.zt, P.KAPPA_VML_DEFAULT, P.KAPPA_VDEEP_DEFAULT), (level, static), False,
+        not top, topo.is_tripolar, True, 1.0 / P.RHO_DEFAULT)
+    return lambda: assemble_halo._launch(a)
+
+
+def _k4_call(P, ds, gm):
+    """`assemble_T` on device tensors of the grid's dtype (the main path's call)."""
+    import torch
+
+    t = lambda a: torch.as_tensor(a, dtype=gm.v3d.dtype, device=gm.v3d.device)
+    umo, vmo, ml = t(ds.umo), t(ds.vmo), t(ds.mlotst)
+    return lambda: P.assemble_T(umo, vmo, ml, gm)
+
+
 def _random_redi(P, shape, device):
     """A Redi operator of random f32 coefficient fields at `shape` (nx, ny,
     nz), tripolar, 80 % wet: K6's work does not depend on the values."""
@@ -122,12 +228,18 @@ def _random_redi(P, shape, device):
 
 
 def _sharded_rank(grid) -> dict:
-    """One rank of the (2, 2) grid: the sharded refined solves, timed."""
+    """One rank of the (2, 2) grid: rank 0's trace of the sharded matvec
+    and of 20 inner iterations, then the sharded refined solves, timed."""
+    import contextlib
+
     import torch
     import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     import otmb_tpu_torch as P
     from otmb_tpu_torch import parallel as Q
+    from otmb_tpu_torch.parallel import halo_kernel
 
     S = _smoke()
     ds, gm, idx = S.build_case(P, NX, NY, NZ, "tripolar", torch.float32, grid.device)
@@ -135,7 +247,51 @@ def _sharded_rank(grid) -> dict:
     T = P.assemble_T(ds.umo, ds.vmo, ds.mlotst, gm)
     sh = lambda x: Q.shard_pytree(x, grid, topo.shape2d)
     T_l, wet_l = sh(T), sh(idx.wet3d)
+    surf_l = sh(S.surface_mask(idx.wet3d, torch.float32))
+    b_l = wet_l.float()
     out = {}
+
+    def matvecs():
+        y = b_l
+        for _ in range(MATVECS):
+            y = Q.stencil_apply_halo(T_l, b_l, topo, grid, overlap=True)
+        return y
+
+    def inner():
+        st = {}
+        Q.solve_shifted_halo(T_l, b_l, topo, grid, extra_diag=surf_l, tol=1e-30,
+                             maxiter=MATVECS, algorithm="bicgstab", stats=st)
+        return st
+
+    for name, fn in (("matvec", matvecs), ("inner", inner)):
+        fn()  # warm-up
+        dist.barrier()
+        torch.cuda.synchronize()
+        n7 = halo_kernel.LAUNCHES
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        nmv = halo_kernel.LAUNCHES - n7
+        dist.barrier()
+        prof_ctx = (profile(activities=[ProfilerActivity.CUDA]) if grid.rank == 0
+                    else contextlib.nullcontext())
+        with prof_ctx as prof:
+            fn()
+            torch.cuda.synchronize()
+        if grid.rank == 0:
+            ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            kernels = [e for e in ev if not e.name.startswith(("Memcpy", "Memset"))]
+            names = {}
+            for e in kernels:
+                key = e.name.split("(")[0][-60:]
+                names[key] = names.get(key, 0) + 1
+            out[f"trace_{name}"] = {
+                "matvecs": nmv, "host_ms_per_matvec": wall * 1e3 / nmv,
+                "kernels_per_matvec": len(kernels) / nmv,
+                "copies_per_matvec": sum(e.name.startswith("Memcpy") for e in ev) / nmv,
+                "busy_ms_per_matvec": sum(e.time_range.elapsed_us() for e in ev) / 1e3 / nmv,
+                "kernel_names": names}
     for name, solve, kw in (("age", P.ideal_age, {}),
                             ("seq", P.sequestration_time, {"algorithm": "bicgstab2"})):
         dist.barrier()
@@ -158,7 +314,7 @@ def run_one(root: Path, device=None, sharded: bool = False) -> dict:
     S = _smoke()
     device = torch.device("cuda", 0) if device is None else device
     factored = hasattr(P, "tridiag_solve_factored")
-    out = {"root": str(root), "factored": factored, "ms": {}}
+    out = {"root": str(root), "factored": factored, "ms": {}, "device": {}}
     ms = out["ms"]
 
     def k2_call(lower, diag, upper, b):
@@ -197,9 +353,21 @@ def run_one(root: Path, device=None, sharded: bool = False) -> dict:
     ms["T + R step 1deg"] = S.cuda_ms(
         lambda: P.euler_step(T, x, dt, topo) + dt * P.redi_apply_fused(R, x), 50)
     k9, shard = _k9_rank0(R, torch.where(wet, x, torch.nan), topo, device)
-    ms[f"K9 {shard[0]}x{shard[1]}x{NZ}"] = S.cuda_ms(k9, 50)
+    sname = f"{shard[0]}x{shard[1]}x{NZ}"
+    _timed(out, f"K9 {sname}", k9, 50, "redi")
     out["K9 sum"] = float(torch.nan_to_num(k9()).double().sum())
-    del Rb, xs, gm64
+    # K4 at 1 degree, f32 and f64; K7 (one tracer, 8) and K8 on rank 0's shard
+    _timed(out, "K4 1deg f32", _k4_call(P, ds, gm), 20, "assemble_kernel")
+    _timed(out, "K4 1deg f64", _k4_call(P, ds, gm64), 20, "assemble_kernel")
+    out["K4 sum"] = float(sum(leg.double().sum() for leg in _k4_call(P, ds, gm)()))
+    k7, k7m = _k7_rank0(T, x, xs, topo, device)
+    _timed(out, f"K7 {sname}", k7, 50, "stencil")
+    _timed(out, f"K7 multi B=8 {sname}", k7m, 20, "stencil")
+    out["K7 sum"] = float(k7().double().sum())
+    k8 = _k8_rank0(P, ds, gm, topo, device)
+    _timed(out, f"K8 {sname}", k8, 20, "assemble_kernel")
+    out["K8 sum"] = float(sum(leg.double().sum() for leg in k8()))
+    del Rb, xs, gm64, k7, k7m, k8
 
     # the refined ideal age at 1 degree
     v = torch.where(wet, gm.v3d, 0.0).double()
@@ -243,6 +411,11 @@ def run_one(root: Path, device=None, sharded: bool = False) -> dict:
     Rq = _random_redi(P, QUARTER, device)
     ms["K6 quarter f32"] = S.cuda_ms(lambda: P.redi_apply_fused(Rq, bq), 20)
     del Rq, bq
+    torch.cuda.empty_cache()
+    # K4 at 0.25 degrees, f32, on the synthetic grid of the main path
+    qds, qgm, _ = S.build_case(P, nx, ny, nz, "tripolar", torch.float32, device)
+    _timed(out, "K4 quarter f32", _k4_call(P, qds, qgm), 5, "assemble_kernel")
+    del qds, qgm
     torch.cuda.empty_cache()
     if sharded:
         from otmb_tpu_torch.parallel import spawn_grid

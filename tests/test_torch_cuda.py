@@ -19,7 +19,8 @@ from otmb_tpu_torch.ops import krylov, stencil, tridiag
 from otmb_tpu_torch.ops.krylov import fused_krylov_step_plain
 from otmb_tpu_torch.ops.coeffs import StencilCoeffs
 from otmb_tpu_torch.ops.tridiag import tridiag_solve_plain
-from otmb_tpu_torch.parallel import assemble_halo, halo_kernel, redi_halo
+from otmb_tpu_torch.ops import assemble
+from otmb_tpu_torch.parallel import assemble_halo, halo, halo_kernel, redi_halo
 from otmb_tpu_torch.parallel.halo import _local_stencil
 from otmb_tpu_torch.parallel.mesh import ProcessGrid
 from otmb_tpu_torch.utils import profiling
@@ -535,6 +536,95 @@ def test_k7_equals_k1_and_k5_on_each_shard(case, types, shape):
                                        atol=0)
             torch.testing.assert_close(got["multi"], _local_stencil(c_l, sl(xs), hb), rtol=0,
                                        atol=0)
+
+
+@pytest.mark.parametrize("shape", SHARD_SHAPES)
+@pytest.mark.parametrize("types", ["f64,f64", "f32,f64", "f32,f32", "bf16,f32"])
+def test_k7_pack_and_edge_equal_plain_on_each_shard(case, types, shape):
+    """K7's pack and edge entries on each shard, one tracer and a batch of
+    3, apply and Euler step, equal their plain versions bit for bit; the
+    bulk on null halos equals K7 on zero lines, so bulk plus edge is the
+    overlap mode of `_boundary_patch` on the lines the exchange delivers."""
+    _, gm, _, T, chi = case
+    ctype, vtype = ({"f64": torch.float64, "f32": torch.float32, "bf16": torch.bfloat16}[t]
+                    for t in types.split(","))
+    topo = gm.topology
+    dt = 0.25 / float(T.diag.abs().max())
+    x = chi.to(vtype)
+    xs = torch.stack([x, 2 * x, -x])
+    c = T.to(ctype)
+    for g, sl in _shards(shape, chi.device, topo.ny, topo.nx):
+        c_l = StencilCoeffs(*(sl(leg) for leg in c))
+        for whole in (x, xs):
+            x_l = sl(whole)
+            lines = tuple(_cut(whole, g, topo, s) for s in SIDES)
+            plan, plain = halo.HaloExchange(x_l, topo, g), halo.HaloExchange(x_l, topo, g)
+            n_pack, n_edge = halo_kernel.PACK_LAUNCHES, halo_kernel.EDGE_LAUNCHES
+            halo_kernel._pack(plan, x_l, topo)
+            halo._pack_plain(x_l, topo, plain.lines)
+            torch.testing.assert_close(plan.send, plain.send, rtol=0, atol=0)
+            for h, line in zip(plan.halos, lines):  # land the lines, as the messages would
+                if h is not None:
+                    h.copy_(line)
+            for step in (None, dt):
+                bulk = halo_kernel._bulk(c_l, x_l, halo_kernel._NO_HALOS, step)
+                zeros = tuple(torch.zeros_like(line) for line in lines)
+                torch.testing.assert_close(bulk, halo_kernel.local_apply(c_l, x_l, zeros, step),
+                                           rtol=0, atol=0)
+                scale = 1.0 if step is None else -step
+                got = halo_kernel._edge(c_l, bulk.clone(), plan.halos, scale)
+                want = halo._boundary_patch(c_l, bulk.clone(), plan.halos, scale)
+                torch.testing.assert_close(got, want, rtol=0, atol=0)
+                delivered = tuple(z if h is None else h for h, z in zip(plan.halos, zeros))
+                torch.testing.assert_close(got, halo._boundary_patch(c_l, bulk.clone(), delivered,
+                                                                     scale), rtol=0, atol=0)
+            assert (halo_kernel.PACK_LAUNCHES, halo_kernel.EDGE_LAUNCHES) == (n_pack + 1,
+                                                                            n_edge + 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k4_prep_equals_plain(case, dtype):
+    """The prep entry equals `_residents` and `_levels` bit for bit."""
+    ds = case[0]
+    gm = P.makegridmetrics(areacello=ds.areacello, volcello=ds.volcello, lon=ds.lon,
+                           lat=ds.lat, lev=ds.lev, lon_vertices=ds.lon_vertices,
+                           lat_vertices=ds.lat_vertices, dtype=dtype, device=case[1].v3d.device)
+    ml = torch.as_tensor(ds.mlotst, dtype=dtype, device=gm.v3d.device)
+    kappas = (P.KAPPA_H_DEFAULT, P.KAPPA_VML_DEFAULT, P.KAPPA_VDEEP_DEFAULT)
+    n = assemble.PREP_LAUNCHES
+    res, lev = assemble._prep(gm, ml, *kappas)
+    assert assemble.PREP_LAUNCHES == n + 1
+    torch.testing.assert_close(res, assemble._residents(gm, ml, kappas[0]), rtol=0, atol=0,
+                               equal_nan=True)
+    torch.testing.assert_close(lev, assemble._levels(gm.zt, *kappas[1:]), rtol=0, atol=0)
+
+
+def test_overlapped_step_launches_three_kernels(case):
+    """One overlapped `stencil_apply_halo` step is three kernels on the card
+    (pack, bulk, edge; counted by the wrappers and by torch.profiler) and,
+    on one rank, no copies."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _, gm, _, T, chi = case
+    topo = gm.topology
+    grid = ProcessGrid((1, 1), 0, chi.device, "gloo")
+    x = chi.float()
+    c = T.to(torch.float32)
+    want = P.stencil_apply(c, x, topo)
+    halo_kernel.stencil_apply_halo(c, x, topo, grid, overlap=True)  # warm-up
+    torch.cuda.synchronize()
+    counts = (halo_kernel.PACK_LAUNCHES, halo_kernel.LAUNCHES, halo_kernel.EDGE_LAUNCHES)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        y = halo_kernel.stencil_apply_halo(c, x, topo, grid, overlap=True)
+        torch.cuda.synchronize()
+    assert (halo_kernel.PACK_LAUNCHES, halo_kernel.LAUNCHES, halo_kernel.EDGE_LAUNCHES) == \
+        tuple(n + 1 for n in counts)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e.name for e in events if not e.name.startswith(("Memcpy", "Memset"))]
+    assert len(kernels) == 3, kernels
+    assert not [e for e in events if e.name.startswith("Memcpy")]
+    assert _rel(y, want) <= 1e-6
 
 
 def _k8_shard(ds, gm, g, sl, topo, rho, upwind):

@@ -3,8 +3,8 @@ per process-grid shape in a module fixture, run the apply and the
 propagation with overlap on and off, and the edge patch and the order of
 the overlapped step are checked in one process.
 
-Overlap launches the bulk K7 on zero halos before the halo lines are
-staged, then adds the edge terms in place when they land
+Overlap packs the halo lines, launches the bulk K7 on null halos before
+they are staged, then adds the edge terms in place when they land
 (`parallel/halo_kernel.py:_step`, `parallel/halo.py:_boundary_patch`).
 Only the order of the edge cells' sums differs from overlap off, so the
 results agree to the bounds `chip_smoke.py` holds on the card: 1e-12 (f64)
@@ -106,31 +106,45 @@ def test_boundary_patch_is_in_place():
 
 
 def test_overlap_launches_bulk_before_staging(monkeypatch):
-    """The overlapped step cuts its lines (the fold's flip included), then
-    runs the bulk launch on zero halos, then starts the exchange (whose
-    staging waits only on the lines), then patches."""
+    """The overlapped step packs the lines it sends (the fold's flip
+    included), records that they are written, runs the bulk launch on null
+    halos, then stages and exchanges the lines (the staging waits only on
+    the pack), then adds the edge terms."""
     topo, T, chis = _case("tripolar")
     x = chis[0]
     calls = []
-    local_apply, exchange, lines = halo_kernel.local_apply, halo_kernel._exchange, halo_kernel._halo_lines
+    pack, ready, bulk, edge = (halo_kernel._pack, halo_kernel.ready_event, halo_kernel._bulk,
+                               halo_kernel._edge)
+    exchange = halo.HaloExchange.exchange
 
-    def record_lines(chi, topology):
-        calls.append("lines")
-        return lines(chi, topology)
+    def record_pack(plan, chi, topology):
+        calls.append("pack")
+        return pack(plan, chi, topology)
 
-    def record_apply(c, chi, halos, dt=None):
-        calls.append("bulk" if all(not h.any() for h in halos) else "apply")
-        return local_apply(c, chi, halos, dt)
+    def record_ready(chi):
+        calls.append("ready")
+        return ready(chi)
 
-    def record_exchange(grid, *args):
-        calls.append("exchange")
-        return exchange(grid, *args)
+    def record_bulk(c, chi, halos, dt=None):
+        calls.append("bulk" if all(h is None for h in halos) else "apply")
+        return bulk(c, chi, halos, dt)
 
-    monkeypatch.setattr(halo_kernel, "_halo_lines", record_lines)
-    monkeypatch.setattr(halo_kernel, "local_apply", record_apply)
-    monkeypatch.setattr(halo_kernel, "_exchange", record_exchange)
+    def record_exchange(plan, ready_=None):
+        calls.append("stage")
+        return exchange(plan, ready_)
+
+    def record_edge(c, y, halos, scale):
+        calls.append("edge")
+        return edge(c, y, halos, scale)
+
+    monkeypatch.setattr(halo_kernel, "_pack", record_pack)
+    monkeypatch.setattr(halo_kernel, "ready_event", record_ready)
+    monkeypatch.setattr(halo_kernel, "_bulk", record_bulk)
+    monkeypatch.setattr(halo.HaloExchange, "exchange", record_exchange)
+    monkeypatch.setattr(halo_kernel, "_edge", record_edge)
     # one rank: its own lines are its halos (periodic x, its own fold), no messages
     grid = ProcessGrid((1, 1), 0, torch.device("cpu"), "gloo")
-    y = halo_kernel._step(T, x, topo, grid, None, overlap=True)
-    assert calls == ["lines", "bulk", "exchange"]
+    plan = halo.HaloExchange(x, topo, grid)
+    y = halo_kernel._step(T, x, topo, plan, None, overlap=True)
+    assert calls == ["pack", "ready", "bulk", "stage", "edge"]
     torch.testing.assert_close(y, P.apply_stencil(T, x, topo), rtol=1e-12, atol=0)
