@@ -4,7 +4,8 @@ Builds the CUDA kernels K1 (stencil), K2 (Thomas solve), K3 (fused Krylov
 step), K4 (fused assembly), K5 (multi-tracer stencil), K6 (Redi operator,
 one tracer or a batch), K7, K8 and K9 (the stencil, the assembly and Redi
 on one shard of a process grid) and K10 (bandwidth probe) from
-otmb_tpu_torch/csrc, one nvcc per source in parallel, then:
+otmb_tpu_torch/csrc, one nvcc per source in parallel (and, at its first
+use, the coarsening's C++ labelling core with g++), then:
 
   1. prints the card (nvidia-smi name and power limit), the torch and CUDA
      versions and the kernel build time;
@@ -89,7 +90,39 @@ otmb_tpu_torch/csrc, one nvcc per source in parallel, then:
      the pack, edge and prep entries and none of K1, K3-K6. Rank 0 traces
      20 overlapped sharded matvecs under torch.profiler (3 kernels and at
      most one copy each way per matvec, required) and times each kernel on
-     its shard while the others wait at a barrier.
+     its shard while the others wait at a barrier. On (2, 2) every rank
+     also takes one differentiable_solve(grid=) gradient (f64, b and the
+     seven legs, K7 + K2 forward and adjoint, inside the counted window);
+     rank 0 gathers it and holds it to the single-device gradient (rtol
+     1e-3, atol 5e-4 of each array's largest value) and logs the gap;
+ 18. at 1 degree, f64, right after the batched path: one implicit Euler
+     step of dt = 1 year (BiCGStab(1) on K1 + K2, counted), its residual
+     and the tracer mass across it; then the
+     autodiff layer: apply_stencil_ad and a 3-step euler_step_ad chain
+     against torch's autograd through the plain apply (chi and the seven
+     legs, K1 launches counted: one per forward and one per backward),
+     and the kappa_h gradient through assemble_transport and
+     differentiable_solve against a central difference, with the forward
+     and adjoint walls;
+ 19. at 1 degree, after the sequestration time: the refined ideal age and
+     sequestration time with GMRES(30) inner solves (K1 + K2 counted, no
+     K3), held to the BiCGStab results of steps 2 and 8, and two GMRES
+     cycles under torch.profiler, device time by kernel class (the Arnoldi
+     projections are cuBLAS matrix-vector products);
+ 20. the utilities at 1 degree: the f32 T saved and loaded back onto the
+     card bit for bit, validate_operator, and roofline_report of K1's
+     Euler step against K10's rate measured on the card;
+ 21. coarsening (host scipy with the C++ labelling core built by g++):
+     lump_and_spray 2x2x1 at 1 degree; at 90x75x50, the native labels
+     against the Python labeller's, ideal_age_coarsened end to end (wall,
+     peak host memory, and its mean age beside the refined fine age on the
+     card), and a purely vertical operator's coarsened ages against its
+     fine direct solve.
+
+The 0.25-degree comparison of GMRES(30) with BiCGStab(2) as the refined
+age's inner solve is `scripts/gmres_study.py`: GMRES(30) stagnates there
+(relative residual 0.644 from its first cycle on), so it is no check of
+this script.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 device and exits non-zero, printing no result, without one, and whenever
@@ -687,6 +720,8 @@ def phase_quarter(P, device):
         require(counts[name] > 0, f"{name} was not launched on the 0.25-degree path")
     del gamma
     counts["K4 ms"], counts["K4 device ms"] = k4_ms, k4_dev
+    counts["age"] = dict(wall=t_age, passes=stats["refinements"], pairs=inner, res=res,
+                         mean=mean_age)
     return gm, idx, T, counts
 
 
@@ -1434,6 +1469,382 @@ def log_rates(rows: list, gbps: float) -> None:
 
 # (ny_dev, nx_dev): at 1 degree, shards of 150x180 and of 300x90; (1, 4)
 # has the mirror pairs 0-3 and 1-2 and no y neighbours.
+# --- GMRES, the implicit step, autodiff, coarsening and the utilities ---
+
+# The implicit Euler step at 1 degree: f64, dt = 1 year, BiCGStab(1) (the
+# function's default) at tol TOL_IMPLICIT (its default). BiCGStab stops on
+# its recurrence residual, from which the true one drifts in f64 (2.1e-10 to
+# 2.6e-10 at tol 1e-10 on an H100), so the true residual is held to
+# TOL_IMPLICIT_TRUE. (GMRES(30) stagnates on this system: 0.81 after 1200
+# Arnoldi steps; scripts/gmres_study.py.) The upwind T conserves
+# volume-weighted tracer to rounding (v'T ~ 0), so a step keeps the tracer
+# mass to the solve's residual: TOL_IMPLICIT_MASS.
+TOL_IMPLICIT = 1e-10
+TOL_IMPLICIT_TRUE = 1e-9
+TOL_IMPLICIT_MASS = 1e-8
+# The autodiff rules against torch's autograd through the plain apply (f64):
+# the same products, summed in another order.
+TOL_AD = 1e-12
+# The kappa_h gradient against a central difference (tests/test_autodiff.py:206).
+TOL_KAPPA_FD = 2e-3
+# The sharded adjoint against the single-device one, after scaling by each
+# array's largest value (tests/test_autodiff.py:246-255).
+TOL_ADJ_RTOL, TOL_ADJ_ATOL = 1e-3, 5e-4
+TOL_ADJ_SOLVE = 1e-12
+COARSE = (90, 75, 50)  # (nx, ny, nz): the coarsened age's grid (1-degree depth)
+# A purely vertical operator coarsened 2x2x1 reproduces the fine ages
+# (tests/test_coarsen.py:223).
+TOL_COARSE_VERTICAL = 1e-8
+
+
+def _kernel_share(prof, classes: dict) -> tuple[dict, float, list]:
+    """Device ms by class of kernel name (the first class whose words a
+    name contains, case-insensitive; "other" else), the total, and the six
+    longest kernels by name."""
+    from torch.autograd import DeviceType
+
+    by, names = {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        names[e.name] = names.get(e.name, 0.0) + ms
+        low = e.name.lower()
+        cls = next((c for c, words in classes.items() if any(w in low for w in words)), "other")
+        by[cls] = by.get(cls, 0.0) + ms
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:6]
+    return by, sum(by.values()), [(n[:70], round(ms, 4)) for n, ms in top]
+
+
+def phase_gmres(P, card, gm, idx, T, mean_age_b1: float, mean_seq_b2: float) -> dict:
+    """At 1 degree: the refined ideal age and sequestration time with
+    GMRES(30) inner solves (K1 + K2; f64 defects through K1), counts reset
+    before and read after, held to the run's BiCGStab results; then the
+    device time of two GMRES cycles under torch.profiler, by kernel class
+    (the Arnoldi projections are cuBLAS matrix-vector products)."""
+    wet, topo = idx.wet3d, gm.topology
+    out = {}
+    for name, fn, ref, ref_name in (
+            ("ideal_age", P.ideal_age, mean_age_b1, "BiCGStab(1)"),
+            ("sequestration_time", P.sequestration_time, mean_seq_b2, "BiCGStab(2)")):
+        read = reset_launches()
+        stats = {}
+        t0 = time.perf_counter()
+        g, res = fn(T, wet, topo, tol=TOL_AGE, refine=True, algorithm="gmres", stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read()
+        log_passes(f"{name} gmres", stats)
+        steps = sum(p.get("inner_iters") or 0 for p in stats["passes"])
+        ok = bool(torch.isfinite(g[wet]).all()) and bool((g[wet] > 0).all())
+        mean = mean_years(g, gm.v3d, wet) if ok else float("nan")
+        rel = abs(mean - ref) / abs(ref)
+        log(f"[{name} gmres] 1-degree refined, GMRES(30) inner on K1 + K2, tol {TOL_AGE}: "
+            f"relative residual {res:.3e} after {stats['refinements']} passes, {steps} Arnoldi "
+            f"steps (one K1 matvec and one K2 solve each), {wall:.3f} s wall, mean "
+            f"{mean:.9f} yr vs {ref_name} {ref:.9f} yr (rel {rel:.3e}, bound {TOL_MEAN_AGE}); "
+            f"launches {counts} (card {card})")
+        require(ok, f"GMRES {name} not finite and positive")
+        require(res <= TOL_AGE, f"GMRES {name} residual {res:.3e} > {TOL_AGE}")
+        require(rel <= TOL_MEAN_AGE, f"GMRES {name} mean {mean:.9f} vs {ref_name} {ref:.9f}: "
+                f"{rel:.3e} > {TOL_MEAN_AGE}")
+        require(counts["K1"] > 0 and counts["K2"] > 0 and counts["K3"] == 0,
+                f"GMRES {name} launches {counts}: K1 and K2 expected, no K3")
+        out[name] = dict(wall=wall, passes=stats["refinements"], steps=steps, res=res)
+    # two cycles of an f32 inner solve: where the device time goes
+    from torch.profiler import ProfilerActivity, profile
+
+    from otmb_tpu_torch.models.solvers import GMRES_RESTART
+
+    surf, b = surface_mask(wet, torch.float32), wet.to(torch.float32)
+    run = lambda: P.solve_shifted_chunked(T, b, topo, extra_diag=surf, tol=1e-30,
+                                          maxiter=2 * GMRES_RESTART, algorithm="gmres",
+                                          early_stop=False)
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by, total, top = _kernel_share(prof, {
+        "projections (gemv/gemm)": ("gemv", "gemm"), "K1": ("stencil",), "K2": ("tridiag",),
+        "dots and norms": ("dot", "reduce", "norm")})
+    log(f"[gmres profile] two GMRES(30) cycles at {NX}x{NY}x{NZ} f32 (60 Arnoldi steps), "
+        f"torch.profiler: {wall * 1e3:.3f} ms wall, {total:.3f} device ms: "
+        + ", ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f} %)" for k, v in sorted(by.items()))
+        + f"; longest kernels {top} (card {card})")
+    out["profile"] = dict(by=by, total=total, wall=wall)
+    return out
+
+
+def phase_implicit(P, card, gm, idx, T64) -> None:
+    """At 1 degree, f64: one implicit Euler step of dt = 1 year (K1 + K2,
+    counted), its residual and the volume-weighted tracer mass across it."""
+    wet, topo = idx.wet3d, gm.topology
+    v = torch.where(wet, gm.v3d, 0.0).double()
+    rng = np.random.default_rng(SEED + 7)
+    chi = torch.as_tensor(np.where(wet.cpu().numpy(), 1.0 + 0.1 * rng.standard_normal(wet.shape),
+                                   0.0), dtype=torch.float64, device=wet.device)
+    m0 = float((chi * v).sum())
+    read = reset_launches()
+    t0 = time.perf_counter()
+    x, res = P.implicit_euler_step(T64, chi, YEAR_S, topo, tol=TOL_IMPLICIT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read()
+    drift = abs(float((x * v).sum()) - m0) / abs(m0)
+    log(f"[implicit] 1-degree f64 implicit Euler step, dt = 1 yr, BiCGStab(1) at tol "
+        f"{TOL_IMPLICIT}: true relative residual {res:.3e} (bound {TOL_IMPLICIT_TRUE}), "
+        f"tracer-mass drift {drift:.3e} (bound {TOL_IMPLICIT_MASS}), {wall:.3f} s wall; "
+        f"launches K1 {counts['K1']} K2 {counts['K2']} (card {card})")
+    require(bool(torch.isfinite(x).all()) and bool((x[~wet] == 0).all()),
+            "implicit step not finite, or nonzero on land")
+    require(res <= TOL_IMPLICIT_TRUE, f"implicit step residual {res:.3e} > {TOL_IMPLICIT_TRUE}")
+    require(drift <= TOL_IMPLICIT_MASS, f"implicit step mass drift {drift:.3e}")
+    require(counts["K1"] > 0 and counts["K2"] > 0, f"implicit step launches {counts}")
+
+
+def _grads(P, loss, T, chi):
+    """The gradients of loss(coeffs, chi) for chi and the seven legs."""
+    c = P.StencilCoeffs(*(leg.clone().requires_grad_(True) for leg in T))
+    x = chi.clone().requires_grad_(True)
+    loss(c, x).backward()
+    return [x.grad, *(leg.grad for leg in c)]
+
+
+def phase_autodiff(P, card, ds, gm, idx, T64) -> None:
+    """At 1 degree, f64: the gradients of apply_stencil_ad and of a 3-step
+    euler_step_ad chain (K1 forward, K1 on T' backward) against torch's
+    autograd through the plain apply, for chi and all seven legs; then the
+    kappa_h gradient of sum(w * x(kappa_h)) through the plain
+    assemble_transport and differentiable_solve, against a central
+    difference."""
+    wet, topo = idx.wet3d, gm.topology
+    rng = np.random.default_rng(SEED + 21)
+    field = lambda: torch.as_tensor(np.where(wet.cpu().numpy(), rng.standard_normal(wet.shape),
+                                             0.0), dtype=torch.float64, device=wet.device)
+    chi, w = field(), field()
+    dt = 0.25 / float(T64.diag.abs().max())
+
+    def chain(step):
+        def run(c, x):
+            for _ in range(3):
+                x = step(c, x)
+            return x
+        return run
+
+    cases = {
+        "apply_stencil_ad": (lambda c, x: P.apply_stencil_ad(c, x, topo),
+                             lambda c, x: P.apply_stencil(c, x, topo), 2),
+        "euler_step_ad x3": (chain(lambda c, x: P.euler_step_ad(c, x, dt, topo)),
+                             chain(lambda c, x: x - dt * P.apply_stencil(c, x, topo)), 6),
+    }
+    for name, (ad, plain, k1) in cases.items():
+        read = reset_launches()
+        t0 = time.perf_counter()
+        g = _grads(P, lambda c, x: (w * ad(c, x) ** 2).sum(), T64, chi)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read()
+        ref = _grads(P, lambda c, x: (w * plain(c, x) ** 2).sum(), T64, chi)
+        worst = max(rel_err(a, b)[1] for a, b in zip(g, ref))
+        log(f"[autodiff] {name} at {NX}x{NY}x{NZ} f64: chi and 7 leg gradients vs autograd "
+            f"through the plain apply, max rel {worst:.3e} (bound {TOL_AD}); forward + backward "
+            f"{wall * 1e3:.3f} ms, K1 launches {counts['K1']} (card {card})")
+        require(worst <= TOL_AD, f"{name} gradients differ from plain autograd by {worst:.3e}")
+        require(counts["K1"] == k1, f"{name}: {counts['K1']} K1 launches, {k1} expected")
+
+    umo, vmo = (torch.as_tensor(np.nan_to_num(a), dtype=torch.float64, device=wet.device)
+                for a in (ds.umo, ds.vmo))
+    b = wet.double()
+    solve = P.differentiable_solve(topo, tol=1e-12)
+
+    def loss(kappa_h):
+        T = P.assemble_transport(umo, vmo, ds.mlotst, gm, wet, kappa_h=kappa_h).T
+        return (w * solve(T, b, 1e-5, None)).sum()
+
+    k = torch.tensor(500.0, dtype=torch.float64, device=wet.device, requires_grad=True)
+    t0 = time.perf_counter()
+    L = loss(k)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    L.backward()
+    torch.cuda.synchronize()
+    t_adj = time.perf_counter() - t0
+    g = float(k.grad)
+    with torch.no_grad():
+        f64 = lambda v: torch.tensor(v, dtype=torch.float64, device=wet.device)
+        fd = float((loss(f64(505.0)) - loss(f64(495.0))) / 10.0)
+    rel = abs(g - fd) / max(abs(fd), abs(g))
+    log(f"[autodiff] kappa_h gradient at {NX}x{NY}x{NZ} f64 through assemble_transport and "
+        f"differentiable_solve (tol 1e-12): {g:.9e} vs central difference {fd:.9e} (rel "
+        f"{rel:.3e}, bound {TOL_KAPPA_FD}); forward (assembly + solve) {t_fwd:.3f} s, adjoint "
+        f"(one transpose solve + cotangents + assembly backward) {t_adj:.3f} s (card {card})")
+    require(rel <= TOL_KAPPA_FD, f"kappa_h gradient {g:.6e} vs FD {fd:.6e}: {rel:.3e}")
+
+
+# Samples a process's resident size from /proc/<pid>/statm every 5 ms until
+# its stdin closes, then prints the largest in bytes (-1 without statm).
+_RSS_SAMPLER = """
+import os, select, sys
+path, page, peak = f"/proc/{sys.argv[1]}/statm", os.sysconf("SC_PAGE_SIZE"), 0
+while True:
+    try:
+        with open(path) as f:
+            peak = max(peak, int(f.read().split()[1]) * page)
+    except (OSError, ValueError, IndexError):
+        peak = -1
+        break
+    if select.select([sys.stdin], [], [], 0.005)[0]:
+        break
+print(peak)
+"""
+
+
+def _with_peak_rss(fn):
+    """fn() while a sampler process reads this process's resident size every
+    5 ms: returns (fn's result, the peak resident GB sampled, NaN where
+    /proc has no statm)."""
+    import os
+
+    sampler = subprocess.Popen([sys.executable, "-c", _RSS_SAMPLER, str(os.getpid())],
+                               stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+    try:
+        out = fn()
+    finally:
+        peak = int(sampler.communicate("", timeout=60)[0].strip() or -1)
+    return out, (peak / 1e9 if peak >= 0 else float("nan"))
+
+
+def phase_coarsen(P, card, device, gm, idx, T) -> None:
+    """LUMP/SPRAY coarsening, host scipy work with the C++ labelling core:
+    at 1 degree, lump_and_spray 2x2x1 of T; at 90x75x50, the native labels
+    against the Python labeller's, the coarsened ideal age end to end (wall
+    and peak host memory) beside the refined fine age on the card, and the
+    vertical invariant."""
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import spsolve
+
+    from otmb_tpu_torch.grid.indices import wet_vector
+    from otmb_tpu_torch.models.transport import buildTkVdeep, buildTkVML
+    from otmb_tpu_torch.utils import coarsen as C
+
+    topo = gm.topology
+    t0 = time.perf_counter()
+    C.load_native()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mat = P.coeffs_to_scipy(T, idx, topo)
+    t_export = time.perf_counter() - t0
+    wet = idx.wet3d.cpu().numpy()
+    v = wet_vector(np.nan_to_num(gm.v3d.double().cpu().numpy()), idx)
+    t0 = time.perf_counter()
+    lump, spray, vol_c = C.lump_and_spray(wet, v, mat, di=2, dj=2, dk=1)
+    t_lump = time.perf_counter() - t0
+    log(f"[coarsen] 1-degree lump_and_spray 2x2x1 (native core, g++ build {t_build:.3f} s): "
+        f"{idx.nwet} -> {lump.shape[0]} cells, {t_lump:.3f} s host (T exported in "
+        f"{t_export:.3f} s); volume kept to {abs(vol_c.sum() - v.sum()) / v.sum():.1e}")
+    require(0 < lump.shape[0] < idx.nwet and abs(vol_c.sum() - v.sum()) <= 1e-12 * v.sum(),
+            "1-degree LUMP/SPRAY sizes or volumes wrong")
+    del mat, lump, spray
+
+    cnx, cny, cnz = COARSE
+    cds, cgm, cidx = build_case(P, cnx, cny, cnz, "tripolar", torch.float64, device)
+    cT = P.assemble_T(cds.umo, cds.vmo, cds.mlotst, cgm)
+    cwet = cidx.wet3d.cpu().numpy()
+    cv = wet_vector(np.nan_to_num(cgm.v3d.cpu().numpy()), cidx)
+    cmat = P.coeffs_to_scipy(cT, cidx, cgm.topology)
+    t0 = time.perf_counter()
+    l_c, s_c, v_c = C.lump_and_spray(cwet, cv, cmat)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    l_p, s_p, v_p = C.lump_and_spray(cwet, cv, cmat, use_native=False)
+    t_python = time.perf_counter() - t0
+    same = (l_c - l_p).count_nonzero() == 0 and (s_c != s_p).nnz == 0 and np.array_equal(v_c, v_p)
+    log(f"[coarsen] {cnx}x{cny}x{cnz}: native labels equal the Python labeller's: {same} "
+        f"({cidx.nwet} -> {l_c.shape[0]} cells; native {t_native:.3f} s, Python "
+        f"{t_python:.3f} s)")
+    require(same, "native and Python LUMP/SPRAY differ")
+    del l_p, s_p
+
+    def coarsened():
+        t0 = time.perf_counter()
+        out = P.ideal_age_coarsened(cT, cidx, cgm.topology, cgm.v3d)
+        return out, time.perf_counter() - t0
+
+    _, before = _with_peak_rss(lambda: None)
+    ((g3, g_c, _), t_coarse), peak = _with_peak_rss(coarsened)
+    fine, res = P.ideal_age(cT.to(torch.float32), cidx.wet3d, cgm.topology, tol=TOL_AGE,
+                            refine=True)
+    mean_c = float(cv @ g3[cwet]) / cv.sum() / YEAR_S
+    mean_f = mean_years(fine, cgm.v3d, cidx.wet3d)
+    log(f"[coarsen] {cnx}x{cny}x{cnz} ideal_age_coarsened 2x2x1 ({len(g_c)} coarse unknowns, "
+        f"scipy spsolve): {t_coarse:.3f} s host, peak resident size of this process during "
+        f"the call {peak:.3f} GB ({before:.3f} GB before it; sampled every 5 ms); volume-mean "
+        f"age {mean_c:.6f} yr, refined fine "
+        f"age on the card {mean_f:.6f} yr (residual {res:.3e}), ratio {mean_c / mean_f:.6f}")
+    require(np.isfinite(g3[cwet]).all() and (g3[cwet] > 0).all() and np.isnan(g3[~cwet]).all(),
+            "coarsened age not finite and positive on wet cells")
+    require(res <= TOL_AGE, f"{cnx}x{cny}x{cnz} refined age residual {res:.3e}")
+
+    tv = P.add_coeffs(buildTkVdeep(gridmetrics=cgm, indices=cidx),
+                      buildTkVML(mlotst=cds.mlotst, gridmetrics=cgm, indices=cidx))
+    mat_v = P.coeffs_to_scipy(tv, cidx, cgm.topology)
+    issrf = cwet.copy()
+    issrf[1:] = False
+    m = sp.diags(wet_vector(issrf.astype(float), cidx))
+    t0 = time.perf_counter()
+    gv_fine = spsolve((mat_v + m).tocsc(), np.ones(mat_v.shape[0]))
+    gv_c, _, _ = P.ideal_age_coarsened(tv, cidx, cgm.topology, cgm.v3d)
+    t_v = time.perf_counter() - t0
+    gap = float(np.abs(gv_c[cwet] - gv_fine).max() / np.abs(gv_fine).max())
+    log(f"[coarsen] vertical invariant at {cnx}x{cny}x{cnz}: the vertical operator coarsened "
+        f"2x2x1 vs its fine direct solve, max rel {gap:.3e} (bound {TOL_COARSE_VERTICAL}), "
+        f"{t_v:.3f} s host")
+    require(gap <= TOL_COARSE_VERTICAL, f"vertical invariant broken: {gap:.3e}")
+
+
+def phase_utilities(P, card, gm, idx, T) -> None:
+    """At 1 degree, f32: the checkpoint round trip of T back onto the card,
+    the operator validator, and a roofline report of K1's Euler step
+    against K10's rate measured on this card."""
+    import tempfile
+
+    from otmb_tpu_torch.utils import profiling
+
+    topo, wet = gm.topology, idx.wet3d
+    with tempfile.TemporaryDirectory(prefix="otmb_ckpt_") as tmp:
+        path = Path(tmp) / "T.npz"
+        t0 = time.perf_counter()
+        P.save_operator(path, T, topo)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, topo2, _ = P.load_operator(path, device=T.diag.device)
+        t_load = time.perf_counter() - t0
+        size = path.stat().st_size / 1e6
+    same = topo2 == topo and all(a.dtype == b.dtype and torch.equal(a, b)
+                                 for a, b in zip(back, T))
+    log(f"[checkpoint] 1-degree f32 T saved ({size:.1f} MB npz, {t_save:.3f} s) and loaded "
+        f"back onto {back.diag.device} ({t_load:.3f} s): bit for bit {same}")
+    require(same, "checkpoint round trip changed T")
+    val = P.validate_operator(T, gm.v3d, wet, topo)
+    myr = 1e6 * YEAR_S
+    log(f"[validate] 1-degree T: {val}; tau_div {val.tau_div_s / myr:.3e} Myr, tau_vol "
+        f"{val.tau_vol_s / myr:.3e} Myr")
+    require(val.ok_upwind, f"validate_operator: {val}")
+    dt = 0.25 / float(T.diag.abs().max())
+    chi = wet.to(torch.float32)
+    rep = P.roofline_report(lambda c: P.euler_step(T, c, dt, topo), chi,
+                            profiling.stencil_bytes(topo.shape3d, 4), nsteps=100)
+    log(f"[roofline] K1 Euler step at {NX}x{NY}x{NZ} f32 (roofline_report, peak = K10 "
+        f"measured now): {rep}; {rep.achieved_gbps:.1f} of {rep.peak_gbps:.1f} GB/s "
+        f"(card {card})")
+    require(rep.fraction_of_peak is not None and 0 < rep.fraction_of_peak,
+            f"roofline report without a K10 rate: {rep}")
+
+
 SHARD_GRIDS = ((2, 2), (1, 4))
 SHARD_STEPS = 200
 # K7, K8 and K9 read the values K1/K5, K4 and K6 read at the same cells and
@@ -1493,6 +1904,15 @@ def _halo_vector(chi: torch.Tensor, halos) -> torch.Tensor:
     return v.T.contiguous() if lead else v
 
 
+def _adjoint(P, solve, T, b, w) -> list:
+    """d sum(w * x) / d(b, the seven legs) for (1e-5 I + T) x = b through
+    `solve` (a `differentiable_solve`)."""
+    c = P.StencilCoeffs(*(leg.clone().requires_grad_(True) for leg in T))
+    b = b.clone().requires_grad_(True)
+    (w * solve(c, b, 1e-5, None)).sum().backward()
+    return [b.grad, *(leg.grad for leg in c)]
+
+
 def _shard_rank(grid, with_solves: bool) -> dict:
     """One rank of the sharded phase at 1 degree: whole-field references
     through the single-device kernels, then the sharded path with the
@@ -1529,6 +1949,8 @@ def _shard_rank(grid, with_solves: bool) -> dict:
                            dtype=torch.float32, device=device)
     chis0 = torch.as_tensor(np.where(wet_np[None], 1.0 + 0.1 * rng.standard_normal(
         (BATCH,) + wet.shape), 0.0), dtype=torch.float32, device=device)
+    w_adj = torch.as_tensor(np.where(wet_np, rng.standard_normal(wet.shape), 0.0),
+                            dtype=torch.float64, device=device)
     # whole-field references: the single-device kernels, on this rank
     T32 = P.assemble_T(ds.umo, ds.vmo, ds.mlotst, gm32)
     Tr64 = P.assemble_T(ds.umo, ds.vmo, ds.mlotst, gm64, rho=rho, upwind=False)
@@ -1586,6 +2008,13 @@ def _shard_rank(grid, with_solves: bool) -> dict:
                                                 extra_diag=sh(surf), tol=TOL_SHARD_B2,
                                                 maxiter=600, algorithm="bicgstab2", stats=st2)
         out["b2_iters"], out["b2_stop"] = st2["iters"], st2["stop"]
+        # the sharded adjoint: one differentiable_solve(grid=) gradient for b
+        # and the legs, in f64 on K8's legs widened
+        t_adj = time.perf_counter()
+        adj_l = _adjoint(P, P.differentiable_solve(topo, tol=TOL_ADJ_SOLVE, grid=grid),
+                         T_l.to(torch.float64), sh(wet.double()), sh(w_adj))
+        torch.cuda.synchronize()
+        out["adj_s"] = time.perf_counter() - t_adj
         age, seq = Q.gather_field(age_l, grid), Q.gather_field(seq_l, grid)
         for name, field in (("age", age), ("seq", seq)):
             g = field[wet]
@@ -1595,6 +2024,25 @@ def _shard_rank(grid, with_solves: bool) -> dict:
     torch.cuda.synchronize()
     out["path_s"] = time.perf_counter() - t0
     out["launches"] = read()
+    if with_solves:
+        # rank 0 holds the gathered sharded gradients to the single-device
+        # ones (K1, outside the counted window)
+        adj = [Q.gather_field(g, grid) for g in adj_l]
+        if grid.rank == 0:
+            t_ref = time.perf_counter()
+            ref_adj = _adjoint(P, P.differentiable_solve(topo, tol=TOL_ADJ_SOLVE),
+                               T32.to(torch.float64), wet.double(), w_adj)
+            torch.cuda.synchronize()
+            out["adj_ref_s"] = time.perf_counter() - t_ref
+            gaps, ok = [], True
+            for got, want in zip(adj, ref_adj):
+                scale = max(float(want.abs().max()), 1e-30)
+                diff = (got - want).abs() / scale
+                ok = ok and bool((diff <= TOL_ADJ_ATOL + TOL_ADJ_RTOL * want.abs() / scale).all())
+                gaps.append(float(diff.max()))
+            out["adj_gap"], out["adj_ok"] = max(gaps), ok
+        del adj, adj_l
+        dist.barrier()
 
     # checks, outside the counted window (the plain versions exchange too)
     every = (T_l, Tr_l, y_off, y_on, y64_on, p_off, p_on, pm_off, pm_on, r32, r64)
@@ -1800,6 +2248,14 @@ def phase_sharded(card, mean_age: float, mean_seq: float) -> dict:
                 f"mean {r0['mean_seq']:.9f} yr vs {mean_seq:.9f} (rel {rel_s:.3e}); "
                 f"solve_shifted_halo BiCGStab(2) f32: residual {r0['b2_res']:.3e} after "
                 f"{r0['b2_iters']} pairs ({r0['b2_stop']})")
+        if "adj_gap" in r0:
+            require(r0["adj_ok"], f"sharded adjoint vs single-device gradients: max scaled gap "
+                    f"{r0['adj_gap']:.3e} beyond rtol {TOL_ADJ_RTOL}, atol {TOL_ADJ_ATOL}")
+            log(f"[sharded {shape[0]}x{shape[1]}] adjoint: differentiable_solve(grid=) "
+                f"gradients of b and the 7 legs (f64, tol {TOL_ADJ_SOLVE}) vs the single-device "
+                f"ones, max gap {r0['adj_gap']:.3e} of each array's largest value (bounds rtol "
+                f"{TOL_ADJ_RTOL}, atol {TOL_ADJ_ATOL}); forward + adjoint {r0['adj_s']:.3f} s on "
+                f"the grid, {r0['adj_ref_s']:.3f} s on one device (card {card})")
         for name, (k_ms, p_ms) in r0["times"].items():
             log(f"[time] {name} on rank 0's {ny_l}x{nx_l}x{NZ} shard f32 (the other ranks at a "
                 f"barrier): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms per call (CUDA events over "
@@ -1859,6 +2315,8 @@ def main() -> int:
         ("bipolar", redi_of(P, bgm64, bidx.wet3d), bgm64, bidx.wet3d)])
     phase_golden(P, device)
     batched = phase_batched(P, device, gm32, idx, T32, T64)
+    phase_implicit(P, card, gm64, idx, T64)
+    phase_autodiff(P, card, ds, gm64, idx, T64)
     del gm64, bgm64, bgm32, T64, bT64, R64, dT32
     torch.cuda.empty_cache()
 
@@ -1868,6 +2326,9 @@ def main() -> int:
     k6_times = phase_k6_times(P, card, dR32, idx.wet3d)
     library = phase_library(P, card, T32, idx, gm32.topology)
     mean_seq = phase_sequestration(P, gm32, idx, T32, mean_age)
+    phase_gmres(P, card, gm32, idx, T32, mean_age, mean_seq)
+    phase_utilities(P, card, gm32, idx, T32)
+    phase_coarsen(P, card, device, gm32, idx, T32)
     del ds, gm32, idx, T32, dR32
     torch.cuda.empty_cache()
 

@@ -39,6 +39,15 @@ built from `csrc/` at first use:
     `solve_shifted`, `solve_shifted_chunked`, `solve_shifted_ir`,
     `ideal_age`, `sequestration_time`; `solve_shifted_halo`).
 
+The Krylov engine runs BiCGStab(1), BiCGStab(2) or GMRES(30)
+(`algorithm=`) on those kernels, and `implicit_euler_step` on it. The
+autodiff layer (`apply_stencil_ad`, `euler_step_ad`,
+`differentiable_solve`) gives the kernels and the solves their backward
+passes: K1 on T' and one transpose solve. Host tools: LUMP/SPRAY
+coarsening (`lump_and_spray`, `ideal_age_coarsened`, with a C++ labelling
+core built by g++), checkpoints, operator validation, CMIP ingestion
+(`utils.io`), profiling (`utils.profiling`) and plots (`utils.plotting`).
+
 A CUDA tensor always goes to the kernel; a CPU tensor takes the kernel's
 plain PyTorch version. Entry points that make tensors from host data
 (`makegridmetrics`, `dma_peak_probe`, the `utils.convert` helpers) make
@@ -59,7 +68,12 @@ from .config import (
     SLOPE_TAPER_SD,
     TransportConfig,
 )
-from .grid.geometry import GridMetrics, PerDirection, makegridmetrics
+from .grid.geometry import (
+    GridMetrics,
+    PerDirection,
+    cell_thickness_from_lev_bnds,
+    makegridmetrics,
+)
 from .grid.indices import Indices, as2d, as3d, makeindices, wet_vector
 from .grid.topology import GridTopology, detect_topology
 from .models.redi import (
@@ -82,6 +96,7 @@ from .models.solvers import (
     explicit_euler_propagate,
     explicit_euler_step,
     ideal_age,
+    implicit_euler_step,
     sequestration_time,
     solve_shifted,
     solve_shifted_chunked,
@@ -98,6 +113,7 @@ from .ops.apply import (
     transpose_coeffs,
 )
 from .ops.assemble import assemble_T
+from .ops.autodiff import apply_stencil_ad, differentiable_solve, euler_step_ad
 from .ops.coeffs import StencilCoeffs, add_coeffs
 from .ops.fluxes import FaceFluxes, facefluxes, facefluxesfrommasstransport
 from .ops.krylov import fused_krylov_step
@@ -119,7 +135,10 @@ from .ops.velocities import (
     velocity2fluxes,
 )
 from .physics.eos import linear_eos, rho_teos10, sigma0_teos10
-from .utils.profiling import dma_peak_probe
+from .utils.checkpoint import load_operator, load_state, save_operator, save_state
+from .utils.coarsen import ideal_age_coarsened, lump_and_spray
+from .utils.debugging import OperatorValidation, enable_nan_debugging, validate_operator
+from .utils.profiling import dma_peak_probe, roofline_report
 from .utils.sparse_export import coeffs_to_scipy
 from .utils.convert import redi_operator_from_numpy
 from .utils.synthetic import synthetic_dataset
@@ -136,6 +155,7 @@ __all__ = [
     "KAPPA_VDEEP_DEFAULT",
     "KAPPA_VML_DEFAULT",
     "MAXSLOPE_DEFAULT",
+    "OperatorValidation",
     "PerDirection",
     "RHO_DEFAULT",
     "RediOperator",
@@ -147,6 +167,7 @@ __all__ = [
     "add_bolus_transports",
     "add_coeffs",
     "apply_stencil",
+    "apply_stencil_ad",
     "apply_stencil_transpose",
     "as2d",
     "as3d",
@@ -154,13 +175,17 @@ __all__ = [
     "assemble_transport",
     "bolus_gm_velocity",
     "build_redi_operator",
+    "cell_thickness_from_lev_bnds",
     "coeffs_to_scipy",
     "density_slopes",
     "detect_topology",
+    "differentiable_solve",
     "dma_peak_probe",
+    "enable_nan_debugging",
     "euler_propagate",
     "euler_propagate_multi",
     "euler_step",
+    "euler_step_ad",
     "euler_step_multi",
     "explicit_euler_propagate",
     "explicit_euler_step",
@@ -171,8 +196,13 @@ __all__ = [
     "fused_krylov_step",
     "getarakawagrid",
     "ideal_age",
+    "ideal_age_coarsened",
+    "implicit_euler_step",
     "interpolateontodefaultCgrid",
     "linear_eos",
+    "load_operator",
+    "load_state",
+    "lump_and_spray",
     "makegridmetrics",
     "makeindices",
     "operator_diagnostics",
@@ -185,6 +215,9 @@ __all__ = [
     "redi_operator_from_numpy",
     "redi_operator_to_bf16",
     "rho_teos10",
+    "roofline_report",
+    "save_operator",
+    "save_state",
     "sequestration_time",
     "sigma0_teos10",
     "slope_taper",
@@ -201,6 +234,7 @@ __all__ = [
     "tridiag_factor",
     "tridiag_solve",
     "tridiag_solve_factored",
+    "validate_operator",
     "velocity2fluxes",
     "water_mass_fractions",
     "wet_vector",

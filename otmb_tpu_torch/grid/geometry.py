@@ -31,6 +31,24 @@ EDGE_VERTICES = {
 }
 
 
+def cell_thickness_from_lev_bnds(lev_bnds, ny: int, nx: int, device=None) -> torch.Tensor:
+    """Cell thickness from level bounds (2, nz) or (nz, 2), broadcast to
+    (nz, ny, nx): the reference's `cellthickness(lev_bnds::Matrix, ...)`
+    (gridcellgeometry.jl:236), for datasets without a volcello-derived
+    thickness. A tensor stays on its device and dtype; host data becomes an
+    f64 tensor on `device` (None: the current CUDA device, raising without
+    one)."""
+    if not isinstance(lev_bnds, torch.Tensor):
+        lev_bnds = torch.as_tensor(np.asarray(lev_bnds, dtype=np.float64),
+                                   device=default_device(device))
+    if lev_bnds.ndim != 2 or 2 not in lev_bnds.shape:
+        raise ValueError(f"lev_bnds must be (2, nz) or (nz, 2), got {tuple(lev_bnds.shape)}")
+    if lev_bnds.shape[0] != 2:
+        lev_bnds = lev_bnds.T
+    thick = torch.abs(lev_bnds[1] - lev_bnds[0])  # (nz,)
+    return thick[:, None, None].expand(thick.shape[0], ny, nx)
+
+
 def haversine(lon1, lat1, lon2, lat2, radius: float = EARTH_RADIUS):
     """Great-circle distance (m) between (lon, lat) points in degrees, as
     Distances.jl's `haversine`. NaN inputs give NaN."""

@@ -2,14 +2,16 @@
 
 Counterpart of the main-path subset of `otmb_tpu.models.solvers`: explicit
 Euler through the K1 kernel; one host-driven Krylov engine that runs
-right-preconditioned BiCGStab(1) or BiCGStab(2) with the Jacobi or the
-vertical-line Thomas preconditioner (K2), and BiCGStab(2) on the fused
-Krylov-step kernel K3; mixed-precision iterative refinement; and the ideal
-age and sequestration time workloads.
+right-preconditioned BiCGStab(1), BiCGStab(2) or restarted GMRES(30)
+with the Jacobi or the vertical-line Thomas preconditioner (K2), and
+BiCGStab(2) on the fused Krylov-step kernel K3; the implicit Euler step;
+mixed-precision iterative refinement; and the ideal age and sequestration
+time workloads.
 
 The engine keeps its scalars on the device and reads the residual back to
 the host once per chunk of `chunk` matvec pairs (`CHUNK` by default, for
-every solve). Between reads it decides nothing; at each read it keeps the
+every solve; GMRES once per restart cycle). Between reads it decides
+nothing; at each read it keeps the
 best iterate, and stops on convergence, on a stall (three chunks without
 a 2 % gain), on divergence or on a non-finite recurrence. The first chunk
 is also read after 1, 2, 4, ... iterations, for convergence only, so a
@@ -39,6 +41,7 @@ import time
 import warnings
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from ..grid.topology import GridTopology
@@ -47,12 +50,17 @@ from ..ops.coeffs import StencilCoeffs
 from ..ops.krylov import fused_krylov_step, krylov_scratch
 from ..ops.stencil import euler_propagate, euler_step, stencil_apply, stencil_apply_multi
 from ..ops.tridiag import tridiag_factor, tridiag_solve_factored
+from ..utils import debugging
 
 #: Matvec pairs (BiCGStab(1) iterations, half BiCGStab(2) cycles) between
 #: host reads of the residual: the one cadence of every Krylov solve.
 CHUNK = 50
 
-ALGORITHMS = ("bicgstab", "bicgstab2")
+ALGORITHMS = ("bicgstab", "bicgstab2", "gmres")
+#: The batched engine's algorithms: the JAX package has no batched GMRES.
+MULTI_ALGORITHMS = ("bicgstab", "bicgstab2")
+#: Arnoldi steps per GMRES cycle (the JAX package's `restart=30`).
+GMRES_RESTART = 30
 
 
 def explicit_euler_step(coeffs: StencilCoeffs, chi: torch.Tensor, dt: float,
@@ -102,7 +110,11 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     nx) the (B,) members' dots, one `torch.dot` each, so each equals the
     unbatched dot. On an H100 this beats the one-launch forms: `bmm` is
     ~60x slower and `linalg.vecdot` materialises a B-field product and
-    takes twice as long."""
+    takes twice as long. A stack (j, nz, ny, nx) against one field b gives
+    the (j,) projections <a[i], b> in one matrix-vector product (GMRES's
+    Arnoldi step)."""
+    if a.ndim == 4 and b.ndim == 3:
+        return torch.mv(a.reshape(a.shape[0], -1), b.reshape(-1))
     if a.ndim == 4:
         return torch.stack([torch.dot(u.reshape(-1), v.reshape(-1)) for u, v in zip(a, b)])
     return torch.dot(a.reshape(-1), b.reshape(-1))
@@ -411,19 +423,156 @@ def _restart_members(sys_: _System, algorithm: str, step, state, x: torch.Tensor
                          for old, new in zip(state, fresh)))
 
 
+def _arnoldi(sys_: _System, v0: torch.Tensor, m: int):
+    """`m` Arnoldi steps on K = A o M from the unit vector `v0`, by classical
+    Gram-Schmidt with one re-orthogonalisation (the JAX package's
+    "batched" GMRES). Returns the basis V (m + 1, nz, ny, nx) and the
+    Hessenberg matrix H (m + 1, m), both on the device: the loop reads
+    nothing. Each projection is one matrix-vector product over the basis
+    through `sys_.dot` (on a shard, one all-reduce of the (j,) partial
+    dots). A zero norm (the Krylov space holds the solution) gives a zero
+    basis vector, and zero columns from there on."""
+    V = torch.empty((m + 1, *v0.shape), dtype=v0.dtype, device=v0.device)
+    H = torch.zeros((m + 1, m), dtype=v0.dtype, device=v0.device)
+    V[0] = v0
+    for j in range(m):
+        basis = V[:j + 1]
+        flat = basis.reshape(j + 1, -1)
+        w = sys_.apply(sys_.M(V[j]))
+        h = sys_.dot(basis, w)
+        w = w - (h @ flat).view_as(w)
+        h2 = sys_.dot(basis, w)
+        w = w - (h2 @ flat).view_as(w)
+        hn = torch.sqrt(sys_.dot(w, w))
+        H[:j + 1, j] = h + h2
+        H[j + 1, j] = hn
+        V[j + 1] = w / torch.where(hn == 0, 1.0, hn)
+    return V, H
+
+
+def _read(values, what: str) -> list[float]:
+    """Values the engine reads to the host, as floats; with NaN debugging
+    on (`utils.debugging.enable_nan_debugging`), a non-finite one raises
+    FloatingPointError."""
+    out = values.reshape(-1).tolist() if isinstance(values, torch.Tensor) else list(values)
+    if debugging.NAN_DEBUG and not all(math.isfinite(v) for v in out):
+        raise FloatingPointError(f"non-finite {what} read by the Krylov engine: {out}")
+    return out
+
+
+def _gmres(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, early_stop: bool,
+           stats: dict | None, verbose: bool):
+    """Restarted GMRES(`GMRES_RESTART`) on a field, right-preconditioned:
+    each cycle builds the Arnoldi basis V of K = A o M from the residual r
+    of x, solves min ||beta e1 - H y|| on the host in f64 (beta = ||r||),
+    and sets x <- x + M (V y). So the residual it minimises is the true
+    b - A x, and the engine's contract holds: it stops once ||b - A x|| <=
+    tol ||b||. The JAX package's GMRES is left-preconditioned and stops on
+    ||M (b - A x)|| <= tol ||M b|| (jax/_src/scipy/sparse/linalg.py, the
+    "batched" method): the two stop at different iterates, and their
+    iteration counts differ.
+
+    One read per cycle brings back H and ||r||^2 of the cycle's starting
+    iterate. When the least-squares residual says a cycle converged, the
+    true residual of the new x is read before the next cycle, which runs
+    only if it did not. `maxiter` bounds the Arnoldi steps (one matvec
+    each); a cycle is cut short to stay inside it. With `early_stop`, three
+    cycles without 2 % of gain in the true residual stop the solve with a
+    warning. A non-finite H stops it ("diverged") with the best iterate.
+    Restarts and jitter do not apply: every cycle restarts from x."""
+    bnorm2 = _read(sys_.dot(b, b), "||b||^2")[0]
+    atol2 = tol ** 2 * bnorm2
+    x, r = torch.zeros_like(b), b
+    rn2 = bnorm2  # ||b - A x||^2 of the current x, when read
+    best_x, best_rn2 = x, bnorm2
+    window_rn2 = math.inf
+    iters = cycles = 0
+    stop = "maxiter"
+    chunk_s = []
+    say = (lambda msg: print(f"#   gmres step {iters}: {msg}", file=sys.stderr)
+           ) if verbose else (lambda msg: None)
+    while True:
+        if rn2 is not None:
+            if rn2 < best_rn2:
+                best_x, best_rn2 = x, rn2
+            if rn2 <= atol2:
+                stop = "converged"
+                break
+        if iters >= maxiter or stop != "maxiter":
+            break
+        t_cycle = time.perf_counter()
+        m = min(GMRES_RESTART, maxiter - iters)
+        beta2 = sys_.dot(r, r)
+        V, H = _arnoldi(sys_, r / torch.sqrt(torch.where(beta2 == 0, 1.0, beta2)), m)
+        host = _read(torch.cat([beta2.reshape(1), H.reshape(-1)]).double(), "GMRES cycle")
+        iters += m
+        cycles += 1
+        start_rn2, Hh = host[0], np.array(host[1:]).reshape(m + 1, m)
+        if start_rn2 < best_rn2:  # the true residual of the cycle's starting x
+            best_x, best_rn2 = x, start_rn2
+        if not np.isfinite(Hh).all() or not math.isfinite(start_rn2):
+            stop = "diverged"
+            break
+        e1 = np.zeros(m + 1)
+        e1[0] = math.sqrt(start_rn2)
+        y = np.linalg.lstsq(Hh, e1, rcond=None)[0]
+        est2 = float(np.sum((e1 - Hh @ y) ** 2))
+        y_dev = torch.as_tensor(y, dtype=b.dtype, device=b.device)
+        x = x + sys_.M((y_dev @ V[:m].reshape(m, -1)).view_as(b))
+        del V
+        r = b - sys_.apply(x)
+        rn2 = None
+        say(f"cycle {cycles}: rel residual at its start {math.sqrt(start_rn2 / bnorm2):.3e}, "
+            f"least-squares estimate after {math.sqrt(est2 / bnorm2):.3e}")
+        if early_stop and cycles % 3 == 0:
+            if not start_rn2 < 0.98 ** 2 * window_rn2:
+                warnings.warn(
+                    f"solve_shifted_chunked: GMRES relative residual "
+                    f"{math.sqrt(start_rn2 / bnorm2):.3e} after {iters} Arnoldi steps improved "
+                    f"<2% over the last 3 cycles — likely the rounding floor of {b.dtype}; "
+                    f"wrap in solve_shifted_ir for tighter residuals, or pass early_stop=False "
+                    f"to keep iterating.", stacklevel=4)
+                stop = "stall"
+            window_rn2 = start_rn2
+        if est2 <= atol2 or iters >= maxiter or stop != "maxiter":
+            rn2 = _read(sys_.dot(r, r), "residual")[0]  # confirm with the true residual
+        chunk_s.append(round(time.perf_counter() - t_cycle, 4))
+    return _finish(sys_, b, best_x, [best_rn2], [bnorm2], stats,
+                   dict(iters=iters, restarts=0, stop=stop, diverge_restarts=0, cycles=cycles,
+                        chunk_s=chunk_s))
+
+
+def _finish(sys_: _System, b: torch.Tensor, x: torch.Tensor, best_rn2: list, bnorm2: list,
+            stats: dict | None, fields: dict):
+    """The engine's end: `stats` gets `fields`, start_rel and end_rel (the
+    best recurrence residual per member, the worst of them); returns (x,
+    the relative residuals ||A x - b|| / ||b|| recomputed from x, one float
+    per member)."""
+    if stats is not None:
+        stats.update(fields, start_rel=1.0,
+                     end_rel=max(math.sqrt(v) / (math.sqrt(w) if w > 0 else 1.0)
+                                 for v, w in zip(best_rn2, bnorm2)))
+    r = sys_.apply(x) - b
+    rnorm = (torch.linalg.vector_norm(r.reshape(len(bnorm2), -1), dim=1).tolist()
+             if b.ndim == 4 else [sys_.field.norm(r)])
+    return x, [v / (math.sqrt(w) if w > 0 else 1.0) for v, w in zip(rnorm, bnorm2)]
+
+
 def _engine(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, chunk: int,
             algorithm: str, fused: bool, early_stop: bool, max_restarts: int,
             max_diverge_restarts: int, stats: dict | None, verbose: bool = False):
     """The one Krylov loop, for a field b (nz, ny, nx) or in lockstep for a
     batch (B, nz, ny, nx) (`solve_shifted_chunked` and
     `solve_shifted_chunked_multi` document its rules). A field is one
-    member whose state stays a field with 0-d scalars. Returns (x, relative
-    residuals ||A x - b|| / ||b|| recomputed from x, a list of one float per
-    member)."""
+    member whose state stays a field with 0-d scalars; GMRES takes fields
+    only (`_gmres`). Returns (x, relative residuals ||A x - b|| / ||b||
+    recomputed from x, a list of one float per member)."""
+    if algorithm == "gmres":
+        return _gmres(sys_, b, tol, maxiter, early_stop, stats, verbose)
     step = (_fused_step(sys_, krylov_scratch(*sys_.m_legs, factor=sys_.factor)) if fused
             else _unfused_step(sys_))
     batch = b.ndim == 4
-    bnorm2 = sys_.dot(b, b).reshape(-1).tolist()
+    bnorm2 = _read(sys_.dot(b, b), "||b||^2")
     members = range(len(bnorm2))
     atol2 = [tol ** 2 * v for v in bnorm2]
     state = _initial_state(sys_, algorithm, b)
@@ -458,7 +607,7 @@ def _engine(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, chunk: int
 
     def read():
         nonlocal rn2, best_x
-        rn2 = sys_.dot(state.r, state.r).reshape(-1).tolist()
+        rn2 = _read(sys_.dot(state.r, state.r), "recurrence residual")
         better = [v < w for v, w in zip(rn2, best_rn2)]  # False for NaN
         # No copies: the loop never writes a tensor in place.
         if all(better):
@@ -563,18 +712,11 @@ def _engine(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, chunk: int
                     break
             window_rn2 = list(rn2)
 
-    if stats is not None:
-        stats.update(iters=iters, restarts=restarts, stop=stop, diverge_restarts=div_restarts,
-                     start_rel=1.0,
-                     end_rel=max(math.sqrt(v) / (math.sqrt(w) if w > 0 else 1.0)
-                                 for v, w in zip(best_rn2, bnorm2)),
-                     chunk_s=chunk_s)
     del state
     x = sys_.M(best_x) if algorithm == "bicgstab2" else best_x  # y-space for BiCGStab(2)
-    r = sys_.apply(x) - b
-    rnorm = (torch.linalg.vector_norm(r.reshape(len(members), -1), dim=1).tolist() if batch
-             else [sys_.field.norm(r)])
-    return x, [v / (math.sqrt(w) if w > 0 else 1.0) for v, w in zip(rnorm, bnorm2)]
+    return _finish(sys_, b, x, best_rn2, bnorm2, stats,
+                   dict(iters=iters, restarts=restarts, stop=stop,
+                        diverge_restarts=div_restarts, chunk_s=chunk_s))
 
 
 def solve_shifted_chunked(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopology,
@@ -589,12 +731,16 @@ def solve_shifted_chunked(coeffs: StencilCoeffs, b: torch.Tensor, topology: Grid
     host-driven Krylov engine. Returns (x, relative residual ||Ax - b|| /
     ||b||, recomputed from x in b's dtype).
 
-    - `algorithm`: "bicgstab" (right-preconditioned BiCGStab(1)) or
+    - `algorithm`: "bicgstab" (right-preconditioned BiCGStab(1)),
       "bicgstab2" (BiCGStab(l=2), Sleijpen & Fokkema 1993: two BiCG steps
       and a 2D minimal-residual polish per cycle, which handles the
       complex-conjugate eigenvalue pairs of advective operators that stall
-      BiCGStab(1); it runs in y-space, K = A o M, x = M y). `maxiter` and
-      `chunk` count matvec pairs under both.
+      BiCGStab(1); it runs in y-space, K = A o M, x = M y), or "gmres"
+      (right-preconditioned restarted GMRES(30), `_gmres`: the residual is
+      read once per cycle, and `maxiter` counts Arnoldi steps, one matvec
+      each; `chunk`, the restarts and the divergence rule do not apply;
+      the stall rule is three cycles without 2 % of gain). `maxiter` and
+      `chunk` count matvec pairs under BiCGStab(1) and (2).
     - `chunk`: matvec pairs between host reads of the residual; the first
       chunk is also read after 1, 2, 4, ... iterations (cycles for
       BiCGStab(2)), for the convergence test and the best iterate only.
@@ -628,6 +774,8 @@ def solve_shifted_chunked(coeffs: StencilCoeffs, b: torch.Tensor, topology: Grid
       residual."""
     if algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}")
+    if algorithm == "gmres" and b.ndim != 3:
+        raise ValueError("gmres takes one field (nz, ny, nx); the batched solves have no GMRES")
     narrow = _narrow(coeffs, b.dtype)
     if fused is None:
         fused = (algorithm == "bicgstab2" and preconditioner == "tridiag" and grid is None
@@ -649,11 +797,14 @@ def solve_shifted_chunked(coeffs: StencilCoeffs, b: torch.Tensor, topology: Grid
 def solve_shifted(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopology,
                   shift: float = 0.0, extra_diag: torch.Tensor | None = None,
                   tol: float = 1e-10, maxiter: int = 2000, transpose: bool = False,
-                  preconditioner: str = "tridiag", stats: dict | None = None, grid=None):
+                  preconditioner: str = "tridiag", stats: dict | None = None, grid=None,
+                  algorithm: str = "bicgstab"):
     """Solve (shift * I + D_extra + T) x = b matrix-free with BiCGStab
     (T' instead of T when `transpose`). Returns (x, relative residual
     ||Ax - b|| / ||b||, recomputed from x in b's dtype). `grid` as in
-    `solve_shifted_chunked`.
+    `solve_shifted_chunked`. `algorithm` (the JAX package's `method`):
+    "bicgstab", "bicgstab2" or "gmres" (GMRES(30), `maxiter` Arnoldi
+    steps; `solve_shifted_chunked` documents each).
 
     The operator runs in b's dtype. The solve runs until ||r|| <= tol *
     ||b|| (read every `CHUNK` iterations), maxiter, or a recurrence that
@@ -664,8 +815,20 @@ def solve_shifted(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopology
     return solve_shifted_chunked(coeffs, b, topology, shift=shift, extra_diag=extra_diag,
                                  tol=tol, maxiter=maxiter, transpose=transpose,
                                  preconditioner=preconditioner, early_stop=False,
-                                 max_restarts=0, algorithm="bicgstab", stats=stats,
+                                 max_restarts=0, algorithm=algorithm, stats=stats,
                                  max_diverge_restarts=0, grid=grid)
+
+
+def implicit_euler_step(coeffs: StencilCoeffs, chi: torch.Tensor, dt: float,
+                        topology: GridTopology, tol: float = 1e-10,
+                        algorithm: str = "bicgstab"):
+    """One implicit Euler step of d(chi)/dt = -T chi: solve
+    (I/dt + T) chi_next = chi/dt, unconditionally stable (the JAX package's
+    `implicit_euler_step`, whose `method` is `algorithm` here). Returns
+    (chi_next, relative residual), through `solve_shifted` (K1 matvecs and
+    K2 preconditioning on the card)."""
+    return solve_shifted(coeffs, chi / dt, topology, shift=1.0 / dt, tol=tol,
+                         algorithm=algorithm)
 
 
 def _ir_defect(field: _Field, c_narrow: StencilCoeffs, x: torch.Tensor,
@@ -706,7 +869,11 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
     `inner_algorithm`: "bicgstab" runs each pass through `solve_shifted`;
     "bicgstab2" through `solve_shifted_chunked(algorithm="bicgstab2",
     max_restarts=0)` (the outer loop is the restart), with a pass budget of
-    min(maxiter, 600) matvec pairs unless `inner_maxiter` says otherwise.
+    min(maxiter, 600) matvec pairs unless `inner_maxiter` says otherwise;
+    "gmres" through `solve_shifted_chunked(algorithm="gmres")` (GMRES(30)
+    with its stall stop), with a budget of min(maxiter, 1200) Arnoldi
+    steps, the matvecs of 600 BiCGStab(2) pairs. In the bf16-narrow mode
+    every algorithm keeps f32 vectors.
 
     The best iterate is kept (narrow) and restored after a pass that made
     the defect 4x worse (or not finite); that reverted pass gets one retry.
@@ -731,7 +898,8 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
     narrow_vec = torch.float32 if narrow == torch.bfloat16 else narrow
     c_defect = coeffs.to(narrow_vec)
     if inner_maxiter is None:
-        inner_maxiter = min(maxiter, 600) if inner_algorithm == "bicgstab2" else maxiter
+        inner_maxiter = {"bicgstab2": min(maxiter, 600),
+                         "gmres": min(maxiter, 1200)}.get(inner_algorithm, maxiter)
     else:
         inner_maxiter = min(maxiter, inner_maxiter)
 
@@ -786,9 +954,9 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
         del r_hat
         kw = dict(shift=shift, extra_diag=extra_diag, tol=pass_tol, maxiter=inner_maxiter,
                   preconditioner=preconditioner, stats=inner, grid=grid)
-        if inner_algorithm == "bicgstab2":
+        if inner_algorithm != "bicgstab":
             d, _ = solve_shifted_chunked(coeffs, rhs, topology, max_restarts=0,
-                                         algorithm="bicgstab2", **kw)
+                                         algorithm=inner_algorithm, **kw)
         else:
             d, _ = solve_shifted(coeffs, rhs, topology, **kw)
         del rhs
@@ -842,8 +1010,9 @@ def ideal_age(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: GridTopology
     land, relative residual). `refine=True` runs `solve_shifted_ir`
     (inner solves in the coefficients' f32 or f64, f32 for bf16
     coefficients; f64 defects) and returns gamma in f64.
-    `algorithm` ("bicgstab" or "bicgstab2") is the refinement's inner
-    algorithm, or the engine's algorithm without refinement.
+    `algorithm` ("bicgstab", "bicgstab2" or "gmres"; the JAX package's
+    `method`) is the refinement's inner algorithm, or the engine's
+    algorithm without refinement.
 
     `grid` (a `parallel.mesh.ProcessGrid`; the JAX package's `mesh=`) runs
     it on a process grid: `coeffs` and `wet3d` are the rank's shards,
@@ -904,7 +1073,7 @@ def solve_shifted_chunked_multi(coeffs: StencilCoeffs, bs: torch.Tensor,
       every member still running has stalled.
     - `stats` as in `solve_shifted_chunked`, but ``restarts`` counts the
       stall restarts only; ``end_rel`` is the worst member's."""
-    if algorithm not in ALGORITHMS:
+    if algorithm not in MULTI_ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}")
     if bs.ndim != 4 or bs.shape[0] < 1:
         raise ValueError(f"bs must be (B, nz, ny, nx) with B >= 1; got {tuple(bs.shape)}")
@@ -959,7 +1128,7 @@ def water_mass_fractions(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: G
     package's `water_mass_fractions` shares this: on a 72x60x12 grid its
     fractions, like these, miss the converged dye by ~1 at tol 1e-8
     (`tests/test_torch_multi.py`)."""
-    if algorithm not in ALGORITHMS:
+    if algorithm not in MULTI_ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}")
     wet = wet3d.to(torch.bool)
     dtype = coeffs.diag.dtype

@@ -716,3 +716,115 @@ def test_k9_equals_k6_on_each_shard(case, types, shape):
         assert redi_halo.LAUNCHES == n9 + 1
         torch.testing.assert_close(got, sl(whole), rtol=0, atol=0)
         torch.testing.assert_close(got, redi_halo._redi_plain(rs, sl(x), h), rtol=0, atol=0)
+
+
+# --- the autodiff layer, GMRES and the native labeller on the card ------------------
+
+
+def _ad_grads(loss, T, chi):
+    c = P.StencilCoeffs(*(leg.clone().requires_grad_(True) for leg in T))
+    x = chi.clone().requires_grad_(True)
+    loss(c, x).backward()
+    return [leg.grad for leg in c], x.grad
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("op", ["apply", "euler chain"])
+def test_autodiff_functions_equal_plain_autograd(case, dtype, tol, op):
+    """apply_stencil_ad and a 3-step euler_step_ad chain (K1 forward and
+    backward) against torch's autograd through the plain apply, for chi and
+    all seven legs, within tol of each gradient's largest value."""
+    _, gm, idx, T, chi = case
+    topo, T, chi = gm.topology, T.to(dtype), chi.to(dtype)
+    w = torch.where(idx.wet3d, torch.cos(chi), 0.0)
+    dt = 0.25 / float(T.diag.abs().max())
+    if op == "apply":
+        ad = lambda c, x: P.apply_stencil_ad(c, x, topo)
+        plain = lambda c, x: P.apply_stencil(c, x, topo)
+    else:
+        def chain(step):
+            def run(c, x):
+                for _ in range(3):
+                    x = step(c, x)
+                return x
+            return run
+        ad = chain(lambda c, x: P.euler_step_ad(c, x, dt, topo))
+        plain = chain(lambda c, x: x - dt * P.apply_stencil(c, x, topo))
+    gc, gx = _ad_grads(lambda c, x: (w * ad(c, x) ** 2).sum(), T, chi)
+    rc, rx = _ad_grads(lambda c, x: (w * plain(c, x) ** 2).sum(), T, chi)
+    assert _rel(gx, rx) <= tol
+    for leg, a, b in zip(T._fields, gc, rc):
+        assert a.dtype == dtype and _rel(a, b) <= tol, leg
+
+
+@pytest.mark.parametrize("op", ["apply", "euler"])
+def test_autodiff_backward_runs_k1_on_the_transposed_legs(case, monkeypatch, op):
+    """One K1 launch per forward and one per backward (the chi cotangent on
+    T'), and no plain stencil anywhere."""
+    _, gm, _, T, chi = case
+    topo = gm.topology
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain stencil ran on the card")
+
+    monkeypatch.setattr(stencil, "_plain", no_plain)
+    monkeypatch.setattr(stencil, "apply_stencil", no_plain)
+    x = chi.clone().requires_grad_(True)
+    n0 = stencil.LAUNCHES
+    y = (P.apply_stencil_ad(T, x, topo) if op == "apply"
+         else P.euler_step_ad(T, x, 100.0, topo))
+    assert stencil.LAUNCHES == n0 + 1
+    y.sum().backward()
+    assert stencil.LAUNCHES == n0 + 2
+    tc = P.transpose_coeffs(T, topo)
+    ones = torch.ones_like(chi)
+    want = (P.stencil_apply(tc, ones, topo) if op == "apply"
+            else P.euler_step(tc, ones, 100.0, topo))
+    torch.testing.assert_close(x.grad, want, rtol=0, atol=0)
+
+
+@pytest.fixture(scope="module")
+def box(device):
+    """The 1-degree grid's depth (50 levels) at a quarter of its width:
+    90x75x50, tripolar, f64 T from the fused assembly (K4)."""
+    ds = P.synthetic_dataset(nx=90, ny=75, nz=50, topology="tripolar", seed=0)
+    gm = P.makegridmetrics(areacello=ds.areacello, volcello=ds.volcello, lon=ds.lon,
+                           lat=ds.lat, lev=ds.lev, lon_vertices=ds.lon_vertices,
+                           lat_vertices=ds.lat_vertices, device=device)
+    idx = P.makeindices(gm.v3d)
+    return gm, idx, P.assemble_T(ds.umo, ds.vmo, ds.mlotst, gm)
+
+
+@pytest.mark.parametrize("workload", ["ideal_age", "sequestration_time"])
+def test_gmres_runs_on_k1_and_k2_and_matches_bicgstab(box, workload):
+    gm, idx, T = box
+    wet = idx.wet3d
+    ref, res_b = getattr(P, workload)(T, wet, gm.topology, tol=1e-10)
+    n1, n2 = stencil.LAUNCHES, tridiag.LAUNCHES
+    stats = {}
+    out, res = getattr(P, workload)(T, wet, gm.topology, tol=1e-10, algorithm="gmres",
+                                    stats=stats)
+    assert res <= 1e-10 and res_b <= 1e-10 and stats["stop"] == "converged"
+    assert stencil.LAUNCHES - n1 >= stats["iters"] and tridiag.LAUNCHES - n2 >= stats["iters"]
+    assert bool(torch.isfinite(out[wet]).all()) and bool((out[wet] > 0).all())
+    assert _rel(out[wet], ref[wet]) <= 1e-6
+
+
+def test_refined_gmres_age_on_the_card(box):
+    """The f32 refined age with GMRES inner solves (K1 + K2, f64 defects)
+    reaches 1e-9, near the BiCGStab(2) one (K3)."""
+    gm, idx, T = box
+    wet, T32 = idx.wet3d, T.to(torch.float32)
+    ref, _ = P.ideal_age(T32, wet, gm.topology, tol=1e-9, refine=True, algorithm="bicgstab2")
+    out, res = P.ideal_age(T32, wet, gm.topology, tol=1e-9, refine=True, algorithm="gmres")
+    assert res <= 1e-9
+    assert _rel(out[wet], ref[wet]) <= 1e-6
+
+
+def test_native_labeller_builds_into_the_build_dir(device):
+    from otmb_tpu_torch import _build
+    from otmb_tpu_torch.utils import coarsen
+
+    coarsen.load_native()
+    path = coarsen.native_library_path()
+    assert path.parent == _build.BUILD_DIR and path.exists()

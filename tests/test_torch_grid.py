@@ -159,6 +159,9 @@ def test_import_does_not_load_jax():
         "import otmb_tpu_torch.ops.derivatives, otmb_tpu_torch.ops.velocities\n"
         "import otmb_tpu_torch.models.redigm, otmb_tpu_torch.models.redi\n"
         "import otmb_tpu_torch.models.redi_kernel, otmb_tpu_torch.parallel\n"
+        "import otmb_tpu_torch.ops.autodiff, otmb_tpu_torch.utils.coarsen\n"
+        "import otmb_tpu_torch.utils.checkpoint, otmb_tpu_torch.utils.debugging\n"
+        "import otmb_tpu_torch.utils.io, otmb_tpu_torch.utils.plotting\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'otmb_tpu'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n" % repo
