@@ -94,7 +94,13 @@ use, the coarsening's C++ labelling core with g++), then:
      also takes one differentiable_solve(grid=) gradient (f64, b and the
      seven legs, K7 + K2 forward and adjoint, inside the counted window);
      rank 0 gathers it and holds it to the single-device gradient (rtol
-     1e-3, atol 5e-4 of each array's largest value) and logs the gap;
+     1e-3, atol 5e-4 of each array's largest value) and logs the gap. On
+     (2, 2) every rank also solves the water-mass fractions of the 4
+     latitude bands on K8's f32 T with grid= at tol 1e-6 (the batched
+     sharded solve: K7 multi + batched K2, its own launches counted and
+     required, no K1, K5 or K7), each band's residual held to the tol and
+     the gathered fractions to the single-device batched ones (rtol 1e-2,
+     atol 1e-4 of each member's largest value, the JAX package's bound);
  18. at 1 degree, f64, right after the batched path: one implicit Euler
      step of dt = 1 year (BiCGStab(1) on K1 + K2, counted), its residual
      and the tracer mass across it; then the
@@ -117,7 +123,19 @@ use, the coarsening's C++ labelling core with g++), then:
      against the Python labeller's, ideal_age_coarsened end to end (wall,
      peak host memory, and its mean age beside the refined fine age on the
      card), and a purely vertical operator's coarsened ages against its
-     fine direct solve.
+     fine direct solve;
+ 22. the CLI at 1 degree through otmb_tpu_torch.__main__.main on the card:
+     the synthetic fields (seed 0) written to an npz, then build, diagnose,
+     idealage --refine, idealage --refine --adjoint and fractions --bands 4
+     (f64, tol 1e-12), each required to exit 0, the solves' launches
+     counted (K1 + K2; K5 + K2); the mean age and sequestration time held
+     to the API's (steps 2 and 8) within TOL_MEAN_AGE, the band fractions
+     to step 6's converged f64 fractions within FRACTION_SLACK;
+ 23. after step 22, `python -m otmb_tpu_torch demo` and the four examples
+     (`python -m otmb_tpu_torch.examples.<name>`: end_to_end,
+     water_masses, density_pipeline, calibrate_kappa) as processes on the
+     card, all at once, each required to exit 0; their printed lines are
+     logged.
 
 The 0.25-degree comparison of GMRES(30) with BiCGStab(2) as the refined
 age's inner solve is `scripts/gmres_study.py`: GMRES(30) stagnates there
@@ -887,7 +905,8 @@ def phase_batched(P, device, gm, idx, T32, T64):
     """At 1 degree, the batched-tracer path through the public API: the
     batched propagation (K5) and the water-mass fractions on the f32 and
     f64 operators (K5 + batched K2), each with the launch counts reset
-    just before and read just after. Returns the K5 and K2 launches."""
+    just before and read just after. Returns the K5 and K2 launches, and
+    the converged f64 fractions on the host under "fractions"."""
     topo, wet = gm.topology, idx.wet3d
     v = torch.where(wet, gm.v3d, 0.0).double()
     rng = np.random.default_rng(SEED + 5)
@@ -966,6 +985,7 @@ def phase_batched(P, device, gm, idx, T32, T64):
         require(lin <= bound, f"{tag}: ||A (sum f_r - x)|| / ||b|| = {lin:.3e} > {bound:.3e}")
         off = float((total_fr - dye)[wet].abs().max())
         if converged:
+            total["fractions"] = fr.cpu()
             require(lo >= -FRACTION_SLACK and hi <= 1.0 + FRACTION_SLACK,
                     f"{tag}: fractions in [{lo:.3e}, {hi:.6f}], outside [-{FRACTION_SLACK}, "
                     f"1 + {FRACTION_SLACK}]")
@@ -1845,6 +1865,115 @@ def phase_utilities(P, card, gm, idx, T) -> None:
             f"roofline report without a K10 rate: {rep}")
 
 
+EXAMPLES = ("end_to_end", "water_masses", "density_pipeline", "calibrate_kappa")
+EXAMPLE_TIMEOUT_S = 300
+
+
+def start_examples() -> dict:
+    """Start `python -m otmb_tpu_torch demo` and the four examples
+    (`python -m otmb_tpu_torch.examples.<name>`) as processes on the
+    current CUDA device, all together; `finish_examples` collects them."""
+    root = Path(__file__).resolve().parent
+    cmds = {"demo": [sys.executable, "-m", "otmb_tpu_torch", "demo"]}
+    cmds.update({name: [sys.executable, "-m", f"otmb_tpu_torch.examples.{name}"]
+                 for name in EXAMPLES})
+    return {name: (time.perf_counter(), subprocess.Popen(
+        cmd, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for name, cmd in cmds.items()}
+
+
+def finish_examples(procs: dict, card: str) -> None:
+    """Wait for the processes of `start_examples`, each within
+    EXAMPLE_TIMEOUT_S (killed past it); require exit 0 from each and log
+    the lines it printed."""
+    failed = []
+    for name, (t0, proc) in procs.items():
+        try:
+            out, err = proc.communicate(timeout=max(1.0, t0 + EXAMPLE_TIMEOUT_S
+                                                    - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        wall = time.perf_counter() - t0
+        what = "python -m otmb_tpu_torch demo" if name == "demo" else (
+            f"python -m otmb_tpu_torch.examples.{name}")
+        log(f"[examples] {what}: exit {proc.returncode}, {wall:.3f} s wall from its start "
+            f"(all five run at once on the card; card {card})")
+        for line in out.strip().splitlines():
+            log(f"[examples]   {name} | {line}")
+        if proc.returncode != 0:
+            failed.append(f"{name} (exit {proc.returncode}): {err.strip()[-2000:]}")
+    require(not failed, "examples failed: " + " | ".join(failed))
+
+
+def phase_cli(P, card, ds, mean_age: float, mean_seq: float, fractions: torch.Tensor) -> None:
+    """The CLI at 1 degree through `otmb_tpu_torch.__main__.main`, on the
+    current CUDA device: the synthetic fields (seed 0) to an npz, then
+    build, diagnose, idealage --refine (and --adjoint) and fractions
+    --bands 4, each required to exit 0. The mean age and sequestration
+    time are held to the API's (the main path's and the refined
+    sequestration's) within TOL_MEAN_AGE, the band fractions to the
+    converged f64 fractions of the batched phase within FRACTION_SLACK;
+    the solves' launches are counted."""
+    import tempfile
+
+    from otmb_tpu_torch.__main__ import main as cli
+
+    def run(*argv) -> tuple[float, dict]:
+        read = reset_launches()
+        t0 = time.perf_counter()
+        rc = cli([str(a) for a in argv])
+        torch.cuda.synchronize()
+        wall, counts = time.perf_counter() - t0, {k: v for k, v in read().items() if v}
+        log(f"[cli] python -m otmb_tpu_torch {' '.join(str(a) for a in argv)}: exit {rc}, "
+            f"{wall:.3f} s; launches {counts}")
+        require(rc == 0, f"the CLI's {argv[0]} exited {rc}")
+        return wall, counts
+
+    with tempfile.TemporaryDirectory(prefix="otmb_cli_") as tmp:
+        tmp = Path(tmp)
+        fields, op = tmp / "in.npz", tmp / "op.npz"
+        t0 = time.perf_counter()
+        np.savez(fields, areacello=ds.areacello, volcello=ds.volcello, lon=ds.lon, lat=ds.lat,
+                 lev=ds.lev, lon_vertices=ds.lon_vertices, lat_vertices=ds.lat_vertices,
+                 umo=np.nan_to_num(ds.umo), vmo=np.nan_to_num(ds.vmo), mlotst=ds.mlotst)
+        log(f"[cli] 1-degree synthetic fields (seed {SEED}) written to an npz "
+            f"({fields.stat().st_size / 1e6:.1f} MB) in {time.perf_counter() - t0:.3f} s")
+        run("build", fields, op)
+        log(f"[cli] operator file {op.stat().st_size / 1e6:.1f} MB")
+        run("diagnose", op)
+        _, extras = P.load_operator(op, device="cpu")[1:]
+        wet = torch.as_tensor(extras["wet3d"].astype(bool))
+        v3d = torch.as_tensor(extras["v3d"])
+        for argv, want, what in ((("--refine",), mean_age, "ideal age"),
+                                 (("--refine", "--adjoint"), mean_seq, "sequestration time")):
+            out = tmp / "age.npz"
+            _, counts = run("idealage", op, out, *argv)
+            require(counts.get("K1", 0) > 0 and counts.get("K2", 0) > 0,
+                    f"the CLI's {what} launched {counts}: expected K1 and K2")
+            gamma = torch.as_tensor(P.load_state(out)["ideal_age_seconds"])
+            got = mean_years(gamma, v3d, wet)
+            rel = abs(got - want) / abs(want)
+            log(f"[cli] {what} (f64 operator of `build`, refined): mean {got:.9f} yr vs the "
+                f"API's {want:.9f} yr on the f32 K4 operator (rel {rel:.3e}, bound "
+                f"{TOL_MEAN_AGE})")
+            require(rel <= TOL_MEAN_AGE, f"the CLI's {what} {got:.9f} yr vs the API's "
+                    f"{want:.9f}: {rel:.3e} > {TOL_MEAN_AGE}")
+        out = tmp / "fr.npz"
+        _, counts = run("fractions", op, out, "--bands", REGIONS)
+        require(counts.get("K5", 0) > 0 and counts.get("K2", 0) > 0 and not counts.get("K1"),
+                f"the CLI's fractions launched {counts}: expected K5 and K2, and no K1")
+        state = P.load_state(out)
+        fr = torch.as_tensor(state["fractions"])
+        require(list(state["band_edges"]) == [r * NY // REGIONS for r in range(REGIONS + 1)],
+                f"the CLI's band edges {state['band_edges']}")
+        gap = float((fr[:, wet] - fractions[:, wet]).abs().max())
+        log(f"[cli] fractions (f64, tol 1e-12) vs the batched phase's converged f64 fractions: "
+            f"max abs {gap:.3e} (bound {FRACTION_SLACK}; card {card})")
+        require(gap <= FRACTION_SLACK, f"the CLI's fractions vs the converged ones: {gap:.3e} > "
+                f"{FRACTION_SLACK}")
+
+
 SHARD_GRIDS = ((2, 2), (1, 4))
 SHARD_STEPS = 200
 # K7, K8 and K9 read the values K1/K5, K4 and K6 read at the same cells and
@@ -1862,6 +1991,12 @@ TOL_PROP_OVERLAP = 1e-4
 # floor of a residual recomputed in f32 (FLOOR).
 TOL_SHARD_B2 = 1e-4
 SHARD_TIMEOUT_S = 600
+# The batched sharded solve: the JAX package's own sharded batched check
+# (__graft_entry__.py:292-327) solves its dyes at tol 1e-6 on the f32
+# operator and holds the sharded fractions to the single-device ones at
+# rtol 1e-2 and atol 1e-4 of each member's largest value.
+TOL_SHARD_FRACTIONS = 1e-6
+RTOL_SHARD_FRACTIONS, ATOL_SHARD_FRACTIONS = 1e-2, 1e-4
 
 
 def _shard_csr(c, ny_l: int, nx_l: int):
@@ -1964,6 +2099,10 @@ def _shard_rank(grid, with_solves: bool) -> dict:
     sh = lambda x: Q.shard_pytree(x, grid, topo.shape2d)
     gm32_l, gm64_l, rho_l = sh(gm32), sh(gm64), sh(rho)
     chi_l, chis_l = sh(chi0), sh(chis0)
+    masks = latitude_bands(NY, NX, REGIONS)
+    if with_solves:  # the single-device batched solve (K5 + batched K2)
+        ref["fractions"] = P.water_mass_fractions(T32, wet, topo, masks,
+                                                  tol=TOL_SHARD_FRACTIONS)[0]
     torch.cuda.synchronize()
     t_set = time.perf_counter() - t_set
 
@@ -2015,6 +2154,16 @@ def _shard_rank(grid, with_solves: bool) -> dict:
                          T_l.to(torch.float64), sh(wet.double()), sh(w_adj))
         torch.cuda.synchronize()
         out["adj_s"] = time.perf_counter() - t_adj
+        # the batched sharded solve: the 4 band dyes on K8's f32 T, the
+        # global masks sliced on each rank (K7 multi + batched K2)
+        before, st_fr = read(), {}
+        t_fr = time.perf_counter()
+        fr_l, res_fr = P.water_mass_fractions(T_l, sh(wet), topo, masks, tol=TOL_SHARD_FRACTIONS,
+                                              stats=st_fr, grid=grid)
+        torch.cuda.synchronize()
+        after = read()
+        out["fr"] = dict(s=time.perf_counter() - t_fr, iters=st_fr["iters"], stop=st_fr["stop"],
+                         res=res_fr.tolist(), launches={k: after[k] - before[k] for k in after})
         age, seq = Q.gather_field(age_l, grid), Q.gather_field(seq_l, grid)
         for name, field in (("age", age), ("seq", seq)):
             g = field[wet]
@@ -2025,6 +2174,30 @@ def _shard_rank(grid, with_solves: bool) -> dict:
     out["path_s"] = time.perf_counter() - t0
     out["launches"] = read()
     if with_solves:
+        # every rank holds the gathered sharded fractions to its single-device
+        # ones (on wet cells, each member at its largest value) and the
+        # batched solve's launches
+        fr = Q.gather_field(fr_l, grid)
+        gaps, ok = [], True
+        for got, want in zip(fr, ref["fractions"]):
+            got, want = got[wet].double(), want[wet].double()
+            scale = float(want.abs().max())
+            diff = (got - want).abs()
+            ok = ok and bool((diff <= ATOL_SHARD_FRACTIONS * scale
+                              + RTOL_SHARD_FRACTIONS * want.abs()).all())
+            gaps.append(float(diff.max()) / scale)
+        out["fr"]["gap"] = max(gaps)
+        n = out["fr"]["launches"]
+        require(max(out["fr"]["res"]) <= TOL_SHARD_FRACTIONS,
+                f"rank {grid.rank}: sharded fractions' residuals {out['fr']['res']} > "
+                f"{TOL_SHARD_FRACTIONS}")
+        require(ok, f"rank {grid.rank}: sharded fractions vs single-device: max gap "
+                f"{max(gaps):.3e} of a member's largest value, beyond rtol "
+                f"{RTOL_SHARD_FRACTIONS} and atol {ATOL_SHARD_FRACTIONS}")
+        require(n["K7 multi"] > 0 and n["K2"] > 0 and n["K1"] == n["K5"] == n["K7"] == 0,
+                f"rank {grid.rank}: the batched sharded solve launched {n}: expected K7 multi "
+                f"and K2, and no K1, K5 or K7")
+        del fr, fr_l
         # rank 0 holds the gathered sharded gradients to the single-device
         # ones (K1, outside the counted window)
         adj = [Q.gather_field(g, grid) for g in adj_l]
@@ -2248,6 +2421,19 @@ def phase_sharded(card, mean_age: float, mean_seq: float) -> dict:
                 f"mean {r0['mean_seq']:.9f} yr vs {mean_seq:.9f} (rel {rel_s:.3e}); "
                 f"solve_shifted_halo BiCGStab(2) f32: residual {r0['b2_res']:.3e} after "
                 f"{r0['b2_iters']} pairs ({r0['b2_stop']})")
+        if "fr" in r0:
+            fr0 = r0["fr"]
+            walls = ", ".join(f"{r['fr']['s']:.3f}" for r in ranks)
+            solve_launches = {name: sum(r["fr"]["launches"][name] for r in ranks)
+                              for name in ("K7 multi", "K2", "K7 pack", "K7 edge")}
+            log(f"[sharded {shape[0]}x{shape[1]}] batched solve: water_mass_fractions(grid=) of "
+                f"{REGIONS} latitude bands on K8's f32 T, tol {TOL_SHARD_FRACTIONS}: walls "
+                f"{walls} s on ranks 0-{len(ranks) - 1}, {fr0['iters']} iterations (stop "
+                f"{fr0['stop']}), residuals {' '.join(f'{x:.3e}' for x in fr0['res'])}; max gap "
+                f"to the single-device batched fractions over the ranks "
+                f"{max(r['fr']['gap'] for r in ranks):.3e} of a member's largest value (bounds "
+                f"rtol {RTOL_SHARD_FRACTIONS}, atol {ATOL_SHARD_FRACTIONS}); launches in the "
+                f"solve, all ranks: {solve_launches} (card {card})")
         if "adj_gap" in r0:
             require(r0["adj_ok"], f"sharded adjoint vs single-device gradients: max scaled gap "
                     f"{r0['adj_gap']:.3e} beyond rtol {TOL_ADJ_RTOL}, atol {TOL_ADJ_ATOL}")
@@ -2274,6 +2460,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs only on an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     import otmb_tpu_torch as P
     from otmb_tpu_torch import _build
 
@@ -2329,6 +2516,10 @@ def main() -> int:
     phase_gmres(P, card, gm32, idx, T32, mean_age, mean_seq)
     phase_utilities(P, card, gm32, idx, T32)
     phase_coarsen(P, card, device, gm32, idx, T32)
+    phase_cli(P, card, ds, mean_age, mean_seq, batched.pop("fractions"))
+    # the demo and the four examples as processes, after the CLI phase so
+    # that its walls are taken with the card to itself
+    finish_examples(start_examples(), card)
     del ds, gm32, idx, T32, dR32
     torch.cuda.empty_cache()
 
@@ -2475,6 +2666,8 @@ def main() -> int:
               s_launches("K9"), s_worst("K9"), *s_times["K9"], s_bytes["K9"],
               REDI_FLOPS * s_cells, None),
     ]
+    log(f"[total] {time.perf_counter() - t_start:.1f} s from the start of main, the kernels' "
+        f"build included (card {card})")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

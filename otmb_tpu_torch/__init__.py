@@ -37,7 +37,9 @@ built from `csrc/` at first use:
     (csrc/assemble.cu); K9 `redi_apply_halo` — K6 on a shard
     (csrc/redi.cu); the Krylov solves on shards (`grid=` on
     `solve_shifted`, `solve_shifted_chunked`, `solve_shifted_ir`,
-    `ideal_age`, `sequestration_time`; `solve_shifted_halo`).
+    `ideal_age`, `sequestration_time`, and the batched
+    `solve_shifted_multi`, `solve_shifted_chunked_multi` and
+    `water_mass_fractions` on K7 multi; `solve_shifted_halo`).
 
 The Krylov engine runs BiCGStab(1), BiCGStab(2) or GMRES(30)
 (`algorithm=`) on those kernels, and `implicit_euler_step` on it. The
@@ -47,6 +49,9 @@ passes: K1 on T' and one transpose solve. Host tools: LUMP/SPRAY
 coarsening (`lump_and_spray`, `ideal_age_coarsened`, with a C++ labelling
 core built by g++), checkpoints, operator validation, CMIP ingestion
 (`utils.io`), profiling (`utils.profiling`) and plots (`utils.plotting`).
+The command line is `python -m otmb_tpu_torch {demo,build,diagnose,
+idealage,fractions} [--device ...]`, and `otmb_tpu_torch.examples` holds
+the JAX package's four examples on this API.
 
 A CUDA tensor always goes to the kernel; a CPU tensor takes the kernel's
 plain PyTorch version. Entry points that make tensors from host data

@@ -26,7 +26,9 @@ through the same engine (`solve_shifted_chunked_multi`): the same algebra
 in lockstep, with per-member scalars as (B,) device tensors, the matvec
 through K5 (one launch for all members) and M through one batched K2
 launch. The host loop keeps its rules per member; a field is one member.
-`water_mass_fractions` is built on it.
+`water_mass_fractions` is built on it. On a process grid (`grid=`) a
+field or a batch runs the same engine on the rank's shard
+(`parallel.solve_halo`).
 
 Where the JAX package picks its solver by grid size (a workaround for the
 TPU runtime), this module routes by argument: `algorithm` picks the
@@ -547,14 +549,15 @@ def _finish(sys_: _System, b: torch.Tensor, x: torch.Tensor, best_rn2: list, bno
     """The engine's end: `stats` gets `fields`, start_rel and end_rel (the
     best recurrence residual per member, the worst of them); returns (x,
     the relative residuals ||A x - b|| / ||b|| recomputed from x, one float
-    per member)."""
+    per member). The norms are the square roots of the field's dot, so a
+    batch of one gives a field's residual bit for bit, and on a process
+    grid they are the whole field's: one all-reduce of the (B,) sums."""
     if stats is not None:
         stats.update(fields, start_rel=1.0,
                      end_rel=max(math.sqrt(v) / (math.sqrt(w) if w > 0 else 1.0)
                                  for v, w in zip(best_rn2, bnorm2)))
     r = sys_.apply(x) - b
-    rnorm = (torch.linalg.vector_norm(r.reshape(len(bnorm2), -1), dim=1).tolist()
-             if b.ndim == 4 else [sys_.field.norm(r)])
+    rnorm = [math.sqrt(v) for v in sys_.dot(r, r).reshape(-1).tolist()]
     return x, [v / (math.sqrt(w) if w > 0 else 1.0) for v, w in zip(rnorm, bnorm2)]
 
 
@@ -729,7 +732,9 @@ def solve_shifted_chunked(coeffs: StencilCoeffs, b: torch.Tensor, topology: Grid
                           max_diverge_restarts: int = 2, grid=None, overlap: bool = True):
     """Solve (shift * I + D_extra + T) x = b (T' when `transpose`) with the
     host-driven Krylov engine. Returns (x, relative residual ||Ax - b|| /
-    ||b||, recomputed from x in b's dtype).
+    ||b||, recomputed from x in b's dtype); for a batch b (B, nz, ny, nx),
+    `solve_shifted_chunked_multi`'s lockstep solve, the (B,) residuals as
+    a float64 host tensor.
 
     - `algorithm`: "bicgstab" (right-preconditioned BiCGStab(1)),
       "bicgstab2" (BiCGStab(l=2), Sleijpen & Fokkema 1993: two BiCG steps
@@ -765,13 +770,15 @@ def solve_shifted_chunked(coeffs: StencilCoeffs, b: torch.Tensor, topology: Grid
       (recurrence residuals) and ``chunk_s`` (wall seconds per chunk, host
       read included).
     - `grid` (a `parallel.mesh.ProcessGrid`; the JAX package's `mesh=`)
-      runs the solve on a process grid: `coeffs`, `b` (one field) and
-      `extra_diag` are the rank's shards, `topology` the global one, and
-      every rank calls it. The matvec is the halo exchange plus K7
-      (`overlap` as in `parallel.halo_kernel.stencil_apply_halo`), the
-      dots are all-reduced, and the solve runs unfused (K3 has no halo
-      mode). Returns the rank's shard of x and the whole field's
-      residual."""
+      runs the solve on a process grid: `coeffs`, `b` (one field, or a
+      batch (B, nz, ny_l, nx_l)) and `extra_diag` are the rank's shards,
+      `topology` the global one, and every rank calls it. The matvec is
+      the halo exchange plus K7 (K7 multi for a batch: one exchange of the
+      batch's lines and one launch; `overlap` as in
+      `parallel.halo_kernel.stencil_apply_halo`), the dots are all-reduced
+      (one all-reduce of the (B,) sums for a batch), and the solve runs
+      unfused (K3 has no halo mode). Returns the rank's shard of x and the
+      whole field's residual."""
     if algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}")
     if algorithm == "gmres" and b.ndim != 3:
@@ -784,14 +791,13 @@ def solve_shifted_chunked(coeffs: StencilCoeffs, b: torch.Tensor, topology: Grid
         raise ValueError("fused=True needs the tridiag preconditioner (K3 is its Thomas solve)")
     if fused and narrow:
         raise ValueError("fused=True needs coefficients of b's dtype (K3 has no bf16 entry)")
-    if grid is not None and (fused or b.ndim != 3):
-        raise ValueError("on a process grid the solve takes one field (nz, ny_l, nx_l) and "
-                         "runs unfused")
+    if grid is not None and fused:
+        raise ValueError("on a process grid the solve runs unfused (K3 has no halo mode)")
     sys_ = _system(coeffs, b.dtype, topology, shift, extra_diag, transpose, preconditioner,
                    grid, overlap)
     x, res = _engine(sys_, b, tol, maxiter, chunk, algorithm, fused and algorithm == "bicgstab2",
                      early_stop, max_restarts, max_diverge_restarts, stats, verbose)
-    return x, res[0]
+    return x, (res[0] if b.ndim == 3 else torch.tensor(res, dtype=torch.float64))
 
 
 def solve_shifted(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopology,
@@ -1041,7 +1047,8 @@ def solve_shifted_chunked_multi(coeffs: StencilCoeffs, bs: torch.Tensor,
                                 transpose: bool = False, preconditioner: str = "tridiag",
                                 verbose: bool = False, early_stop: bool = True,
                                 max_restarts: int = 2, algorithm: str = "bicgstab",
-                                stats: dict | None = None, max_diverge_restarts: int = 2):
+                                stats: dict | None = None, max_diverge_restarts: int = 2,
+                                grid=None):
     """Solve (shift * I + D_extra + T) x_b = b_b (T' when `transpose`) for a
     batch of right-hand sides `bs` (B, nz, ny, nx) in one lockstep Krylov
     loop. Returns (xs, residuals): xs (B, nz, ny, nx) and the (B,) relative
@@ -1072,36 +1079,48 @@ def solve_shifted_chunked_multi(coeffs: StencilCoeffs, bs: torch.Tensor,
       as in the JAX package); then the solve stops with a warning once
       every member still running has stalled.
     - `stats` as in `solve_shifted_chunked`, but ``restarts`` counts the
-      stall restarts only; ``end_rel`` is the worst member's."""
+      stall restarts only; ``end_rel`` is the worst member's.
+    - `grid` (a `parallel.mesh.ProcessGrid`) runs the batch on a process
+      grid, where the JAX package runs it by GSPMD: `coeffs`, `bs` (B, nz,
+      ny_l, nx_l) and `extra_diag` are the rank's shards, `topology` the
+      global one, and every rank calls it. A matvec is one exchange of the
+      batch's halo lines and one K7 multi launch (overlapped as in
+      `parallel.halo_kernel.euler_propagate_halo_multi`), M the batched K2
+      on the shard's own columns, and each reduction one all-reduce of
+      the (B,) partial sums. Returns the rank's shard of xs and the whole
+      field's residuals, the same on every rank."""
     if algorithm not in MULTI_ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}")
     if bs.ndim != 4 or bs.shape[0] < 1:
         raise ValueError(f"bs must be (B, nz, ny, nx) with B >= 1; got {tuple(bs.shape)}")
-    sys_ = _system(coeffs, bs.dtype, topology, shift, extra_diag, transpose, preconditioner)
-    xs, res = _engine(sys_, bs, tol, maxiter, chunk, algorithm, False, early_stop, max_restarts,
-                      max_diverge_restarts, stats, verbose)
-    return xs, torch.tensor(res, dtype=torch.float64)
+    return solve_shifted_chunked(coeffs, bs, topology, shift=shift, extra_diag=extra_diag,
+                                 tol=tol, maxiter=maxiter, chunk=chunk, transpose=transpose,
+                                 preconditioner=preconditioner, verbose=verbose,
+                                 early_stop=early_stop, max_restarts=max_restarts,
+                                 algorithm=algorithm, stats=stats, fused=False,
+                                 max_diverge_restarts=max_diverge_restarts, grid=grid)
 
 
 def solve_shifted_multi(coeffs: StencilCoeffs, bs: torch.Tensor, topology: GridTopology,
                         shift: float = 0.0, extra_diag: torch.Tensor | None = None,
                         tol: float = 1e-10, maxiter: int = 2000, transpose: bool = False,
-                        preconditioner: str = "tridiag", stats: dict | None = None):
+                        preconditioner: str = "tridiag", stats: dict | None = None,
+                        grid=None):
     """`solve_shifted` for a batch `bs` (B, nz, ny, nx): one lockstep
     BiCGStab over all members, the engine without stall stops or
-    restarts (`solve_shifted_chunked_multi` documents it). Returns (xs,
-    (B,) relative residuals)."""
+    restarts (`solve_shifted_chunked_multi` documents it, `grid`
+    included). Returns (xs, (B,) relative residuals)."""
     return solve_shifted_chunked_multi(coeffs, bs, topology, shift=shift,
                                        extra_diag=extra_diag, tol=tol, maxiter=maxiter,
                                        transpose=transpose, preconditioner=preconditioner,
                                        early_stop=False, max_restarts=0, algorithm="bicgstab",
-                                       stats=stats, max_diverge_restarts=0)
+                                       stats=stats, max_diverge_restarts=0, grid=grid)
 
 
 def water_mass_fractions(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: GridTopology,
                          region_masks, surface_rate: float = 1.0, tol: float = 1e-8,
                          preconditioner: str = "tridiag", algorithm: str = "bicgstab",
-                         stats: dict | None = None):
+                         stats: dict | None = None, grid=None):
     """Steady-state surface-origin water-mass fractions, one batched solve
     for all regions. For a partition of the surface into R regions,
     fraction r satisfies the dye steady state
@@ -1127,17 +1146,31 @@ def water_mass_fractions(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: G
     [0.9998, 1.0002]; an f64 solve converges from tol 1e-12. The JAX
     package's `water_mass_fractions` shares this: on a 72x60x12 grid its
     fractions, like these, miss the converged dye by ~1 at tol 1e-8
-    (`tests/test_torch_multi.py`)."""
+    (`tests/test_torch_multi.py`).
+
+    `grid` (a `parallel.mesh.ProcessGrid`; the JAX package runs the batch
+    by GSPMD on a sharded one) runs it on a process grid: `coeffs` and
+    `wet3d` are the rank's shards, as in `ideal_age(grid=)`, while
+    `region_masks` stays the GLOBAL (R, ny, nx) partition, as the JAX
+    function takes it; each rank slices it to its shard by
+    `grid.offset`. Every rank calls it and gets its shard of the fractions
+    and the whole field's residuals (`solve_shifted_chunked_multi`)."""
     if algorithm not in MULTI_ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}")
     wet = wet3d.to(torch.bool)
     dtype = coeffs.diag.dtype
     masks = torch.as_tensor(region_masks, dtype=torch.bool, device=wet.device)
+    if grid is not None:
+        if tuple(masks.shape[-2:]) != (topology.ny, topology.nx):
+            raise ValueError(f"region_masks must be the global (R, {topology.ny}, "
+                             f"{topology.nx}) partition; got {tuple(masks.shape)}")
+        (ny_l, nx_l), (j0, i0) = wet.shape[-2:], grid.offset(topology.ny, topology.nx)
+        masks = masks[:, j0:j0 + ny_l, i0:i0 + nx_l]
     surf = torch.zeros(wet.shape, dtype=dtype, device=wet.device)
     surf[0] = surface_rate
     surf = torch.where(wet, surf, 0.0)
     bs = torch.where(wet[None] & masks[:, None], surf[None], 0.0)
-    kw = dict(extra_diag=surf, tol=tol, preconditioner=preconditioner, stats=stats)
+    kw = dict(extra_diag=surf, tol=tol, preconditioner=preconditioner, stats=stats, grid=grid)
     if algorithm == "bicgstab":
         fr, res = solve_shifted_multi(coeffs, bs, topology, **kw)
     else:

@@ -4,9 +4,11 @@ field on a (ny_dev, nx_dev) process grid (`mesh`), a one-cell halo
 exchange with the tripolar fold (`halo`), and the shard-local kernels K7
 (stencil, `halo_kernel`), K8 (assembly, `assemble_halo`) and K9 (Redi,
 `redi_halo`); the Krylov solves run the port's one engine on the shards
-(`solve_halo`), and `ideal_age`, `sequestration_time` and
-`solve_shifted_ir` take `grid=`. Every function that takes a grid is
-collective: all its ranks call it together.
+(`solve_halo`), and `ideal_age`, `sequestration_time`,
+`solve_shifted_ir` and the batched solves (`solve_shifted_multi`,
+`solve_shifted_chunked_multi`, `water_mass_fractions`) take `grid=`.
+Every function that takes a grid is collective: all its ranks call it
+together.
 """
 
 from .assemble_halo import assemble_T_halo

@@ -22,8 +22,12 @@ rank's shard:
 BiCGStab(1) and BiCGStab(2) both run unfused on K7 + K2, as
 `solve_halo_chunked.py` does: K3 has no halo mode. T' for the adjoint solves
 is formed once per solve by `transpose_coeffs_halo`, which needs one line
-of each horizontal leg from the neighbours. The batched sharded solve is
-not ported (the JAX package's is GSPMD over the jnp matvec).
+of each horizontal leg from the neighbours. A batch of right-hand sides
+(`solve_shifted_chunked_multi`, `solve_shifted_multi`,
+`water_mass_fractions` with `grid=`; the JAX package runs them by GSPMD
+over the jnp matvec) runs the same engine in lockstep: its matvec is one
+exchange of the batch's halo lines and one K7 multi launch, its M the
+batched K2, and each reduction one all-reduce of the (B,) partial dots.
 """
 
 from __future__ import annotations
@@ -43,8 +47,10 @@ from .mesh import ProcessGrid, all_reduce_sum
 def halo_field(topology: GridTopology, grid: ProcessGrid, overlap: bool = True) -> _Field:
     """The solvers' field operations on this rank's shard: T x by the halo
     exchange and K7 (`halo_kernel.stencil_apply_halo`'s step, through one
-    `HaloExchange` per field dtype, made at its first matvec and reused by
-    the rest of the solve), all-reduced dots and norms, the shard's
+    `HaloExchange` per field dtype and shape, made at its first matvec and
+    reused by the rest of the solve; a batch (B, nz, ny_l, nx_l) is one
+    exchange of its lines and one K7 multi launch), all-reduced dots and
+    norms (a batch's (B,) partial dots in one all-reduce), the shard's
     offset."""
     plans: dict = {}
 
@@ -53,7 +59,7 @@ def halo_field(topology: GridTopology, grid: ProcessGrid, overlap: bool = True) 
         plan = plans.get(key)
         if plan is None:
             plan = plans[key] = HaloExchange(x, topology, grid)
-        return _run(c, x, topology, grid, None, 1, overlap, False, plan)
+        return _run(c, x, topology, grid, None, 1, overlap, x.ndim == 4, plan)
 
     def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return all_reduce_sum(_dot(a, b), grid)

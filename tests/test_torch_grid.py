@@ -162,6 +162,9 @@ def test_import_does_not_load_jax():
         "import otmb_tpu_torch.ops.autodiff, otmb_tpu_torch.utils.coarsen\n"
         "import otmb_tpu_torch.utils.checkpoint, otmb_tpu_torch.utils.debugging\n"
         "import otmb_tpu_torch.utils.io, otmb_tpu_torch.utils.plotting\n"
+        "import otmb_tpu_torch.__main__, otmb_tpu_torch.examples.end_to_end\n"
+        "import otmb_tpu_torch.examples.water_masses, otmb_tpu_torch.examples.density_pipeline\n"
+        "import otmb_tpu_torch.examples.calibrate_kappa\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'otmb_tpu'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n" % repo
