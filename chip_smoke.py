@@ -42,7 +42,8 @@ use, the coarsening's C++ labelling core with g++), then:
  10. holds K3 against the composition of the K2 and K1 kernels and its
      plain version at 0.25 degrees (tripolar) and 720x540x75 (bipolar),
      in f32 and f64, on T and T', for each use the engine makes of it,
-     and K5 at B = 8 against K1 member by member on both grids;
+     and K5 at B = 1, 5 and 8 (f32 and bf16 legs) against K1 member by
+     member on both grids;
  11. at 0.25 degrees, a fixed-work batched BiCGStab(2) solve of 4
      latitude-band dyes (150 matvec pairs; K5 + batched K2, counted)
      beside the same work as 4 single-RHS solves, unfused and fused (K3),
@@ -2531,10 +2532,13 @@ def main() -> int:
     del hds
     k3_worst = phase_k3(P, device, [("tripolar", qT, qgm.topology, qidx.wet3d),
                                     ("bipolar", hT, hgm.topology, hidx.wet3d)])
+    # K5 where its walk's staging works hardest (the planes overflow the
+    # L2): one member (the walk with a group of 1), a group of 8 holding 5,
+    # and 8, with f32 and bf16 legs
     k5_worst = max(k5_worst, phase_k5_checks(
         P, device, [("tripolar", qT, qgm.topology, qidx.wet3d),
-                    ("bipolar", hT, hgm.topology, hidx.wet3d)], (("f32", "f32"),), (BATCH,),
-        plain=False))
+                    ("bipolar", hT, hgm.topology, hidx.wet3d)], (("f32", "f32"), ("bf16", "f32")),
+        (1, 5, BATCH), plain=False))
     qk6_times = phase_k6_quarter(P, card, [("tripolar", qgm, qidx.wet3d),
                                            ("bipolar", hgm, hidx.wet3d)])
     del hgm, hidx, hT

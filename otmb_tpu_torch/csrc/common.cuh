@@ -54,4 +54,24 @@ inline cudaError_t allow_shared(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// Opt a k-marching kernel (K5, K6: a block walks its columns' levels down)
+// in to `bytes` of shared memory a block of `threads`, and count the blocks
+// the card holds at once (`slots`). Its walk may be split into chunks of
+// kMinChunk levels or more where the tiles are few.
+constexpr int kMinChunk = 4;
+
+template <typename Kernel>
+inline cudaError_t block_slots(Kernel kernel, int threads, size_t bytes, long long* slots) {
+  cudaError_t err = allow_shared(kernel, bytes);
+  int device = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes);
+  *slots = static_cast<long long>(sms) * per_sm;
+  if (err == cudaSuccess && *slots < 1) err = cudaErrorInvalidConfiguration;
+  return err;
+}
+
 }  // namespace otmb

@@ -56,7 +56,6 @@ constexpr int kTI = 32, kTJ = 8;        // owned columns along i and j
 constexpr int kPI = kTI + 2;            // positions along i, with the ring
 constexpr int kPos = kPI * (kTJ + 2);   // positions of the tile and its ring
 constexpr int kThreads = kTI * kTJ, kPosPerThread = (kPos + kThreads - 1) / kThreads;
-constexpr int kMinChunk = 4;            // fewest levels of a chunk of the walk
 
 // Where a position reads: offset h in a level of the field (side 0), in a
 // shard's line (sides 1..4: east, west, north, south), or nothing (side -1).
@@ -296,17 +295,13 @@ int launch_redi(const void* const* fields, const void* wet, const void* chi, voi
   group = group < nmembers ? group : nmembers;
   const size_t bytes = group * per_member;
   auto kernel = redi_kernel<C, V, kShard>;
-  cudaError_t err = allow_shared(kernel, bytes);
+  const dim3 grid((nx + kTI - 1) / kTI, (ny + kTJ - 1) / kTJ, (nmembers + group - 1) / group);
+  long long slots = 0;
+  const cudaError_t err = block_slots(kernel, kThreads, bytes, &slots);
   if (err != cudaSuccess) return static_cast<int>(err);
   // as many chunks of the levels as the SMs hold tiles beyond one each
-  int device = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((nx + kTI - 1) / kTI, (ny + kTJ - 1) / kTJ, (nmembers + group - 1) / group);
-  int nchunks = static_cast<int>(sms * per_sm / (grid.x * grid.y * grid.z));
-  nchunks = std::max(1, std::min(nchunks, nz / kMinChunk));
+  const long long fill = slots / (grid.x * grid.y * grid.z);
+  const int nchunks = static_cast<int>(std::max(1LL, std::min<long long>(fill, nz / kMinChunk)));
   kernel<<<dim3(grid.x, grid.y, grid.z * nchunks), kThreads, bytes,
            static_cast<cudaStream_t>(stream)>>>(
       R, static_cast<V*>(out), nmembers, group, nchunks);

@@ -23,6 +23,8 @@
 // order of the plain version (diag, east, west, north, south, top,
 // bottom) in the value type V, and the library is built without FMA
 // contraction, so the kernel rounds where the plain version does.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace otmb {
@@ -107,98 +109,260 @@ int launch_stencil(const void* diag, const void* east, const void* west, const v
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5: K1 for a batch of B tracers (B, nz, ny, nx) that share one operator.
+// K5: K1 for a batch of B tracers (B, nz, ny, nx) that share one operator;
+// with kHalo, K7 multi: the same on one shard, its edge neighbours from the
+// halo lines.
 //
 // Replaces the Pallas kernels of otmb_tpu/ops/stencil_pallas.py
 // (_stencil_kernel_multi, _stencil_kernel_blocked_multi and the batched
-// propagation loop): one kernel here, where the TPU needed two VMEM fits
-// and a scan of the single-tracer kernel as a third.
+// propagation loop) and otmb_tpu/parallel/halo_pallas.py
+// (_stencil_kernel_local_multi): one kernel here, where the TPU needed two
+// VMEM fits, a scan of the single-tracer kernel and a shard kernel.
 //
-// Bound on the H100: device-memory bandwidth. Per cell it reads the 7
-// coefficients once and each member's chi and writes each member's y:
-// 7 + 2B streams instead of the 9B of B launches of K1. Design: K1's thread
-// layout (one thread per (k, j, i), i fastest); the thread holds its 7 legs
-// in registers and loops over the B members at a stride of nz*ny*nx, with
-// K1's neighbour reads for each member. Offsets are 64-bit: B*nz*ny*nx
-// passes 2^31 at 0.25 degrees from B = 19.
+// Bound on the H100: device-memory bandwidth. Per cell it must read the 7
+// coefficients once and each member's chi once and write each member's y:
+// 7 + 2B streams instead of the 9B of B launches of K1. A thread per cell
+// looping over the members (the design before this one) read each level of
+// chi again as the top and bottom neighbour after 7 + 2B planes had passed
+// through the 50 MB L2, which at 0.25 degrees (6.2 MB a plane) they no
+// longer fit: 39 streams at B = 8, 46 % of the byte bound.
 //
-// Semantics and rounding are K1's (above): the same reads, the same sum
-// order in V, no FMA contraction, so member b of the result equals K1
-// applied to member b, bit for bit.
-template <typename C, typename V, bool kHalo>
-__global__ void stencil_multi_kernel(const C* __restrict__ diag, const C* __restrict__ east,
-                                     const C* __restrict__ west, const C* __restrict__ north,
-                                     const C* __restrict__ south, const C* __restrict__ top,
-                                     const C* __restrict__ bottom, const V* __restrict__ chi,
-                                     V* __restrict__ out, int nmembers, int nz, int ny, int nx,
-                                     int tripolar, int euler, V dt, Halo<V> h) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y;
-  const int k = blockIdx.z;
-  if (i >= nx) return;
+// Design: k-marching tiles, as K6 (redi.cu). A block of 256 threads owns
+// kMJ x kMI = 8 x 32 columns of a group of G members (G = 1, 2, 4 or 8 at
+// compile time; the last group may hold fewer) and walks its levels down.
+// Three level buffers of the tile and its one-cell ring per member live in
+// shared memory: while level k is computed from levels k and k + 1, level
+// k + 2 is staged by cp.async into level k - 1's buffer, every member's
+// copies issued together. The horizontal and bottom neighbours come from
+// shared memory and the top one is the centre carried in a register from
+// the step above, so each member's chi leaves device memory once; the ring
+// is read again by the neighbouring tiles, from L2. A thread loads its
+// column's 7 legs once a step for all members, one step ahead, and widens
+// them where they are used so the loads stay in flight. Where the tiles are
+// few or leave a short last wave (1 degree, a shard), the walk is split
+// into chunks of levels (pick_chunks), each starting with one direct read
+// of the centre above it. Offsets are 64-bit: B*nz*ny*nx passes 2^31 at
+// 0.25 degrees from B = 19.
+//
+// Measured (device time, f32, B = 8, on an H100 80GB HBM3 at 700 W;
+// scripts/ab_redesign.py and scripts/k5_probe.py, PERF.md): 4.20-4.31 ms
+// at 0.25 degrees (74-76 % of the 3.20 ms byte bound; the thread per cell
+// took 6.63-6.93 ms) and 0.194-0.198 ms at 1 degree (75-76 % of 0.148 ms;
+// 0.234-0.239 ms). At 1 degree a cap of three blocks an SM (80 registers,
+// spilling) took 0.208 ms, tiles of 64 x 4 0.206 ms and of 128 x 2 0.225 ms.
+//
+template <typename V>
+struct Src {  // a staged position: member 0's value at level 0 (null: 0)
+  const V* p;
+  long long level, member;  // strides to the next level and member
+};
+
+template <typename V, bool kHalo>
+__device__ Src<V> locate_multi(const V* chi, const Halo<V>& h, int gj, int gi, int nz, int ny,
+                               int nx, int tripolar) {
   const long long plane = static_cast<long long>(ny) * nx;
-  const long long member = plane * nz;
-  const long long row = k * plane + static_cast<long long>(j) * nx;
-  const long long c = row + i;
-  // K7 (kHalo): an open box whose edge neighbours come from the lines
-  const bool in_e = !kHalo || i + 1 < nx;
-  const bool in_w = !kHalo || i > 0;
-  const bool in_n = !kHalo || j + 1 < ny;
-  const bool in_s = !kHalo || j > 0;
-  const long long hcol = static_cast<long long>(k) * ny + j;
-  const long long hrow = static_cast<long long>(k) * nx + i;
-  const long long col_member = static_cast<long long>(nz) * ny;
+  const long long member = plane * nz, col_member = static_cast<long long>(nz) * ny;
   const long long row_member = static_cast<long long>(nz) * nx;
-  const long long ce = kHalo ? c + 1 : row + (i + 1 == nx ? 0 : i + 1);
-  const long long cw = kHalo ? c - 1 : row + (i == 0 ? nx - 1 : i - 1);
-  const bool has_n = kHalo || j + 1 < ny || tripolar;
-  const long long cn = j + 1 < ny ? c + nx : row + (nx - 1 - i);
-  const bool has_s = kHalo || j > 0;
-  const bool has_t = k > 0;
-  const bool has_b = k + 1 < nz;
+  const bool in_i = gi >= 0 && gi < nx, in_j = gj >= 0 && gj < ny;
+  if constexpr (kHalo) {
+    if (in_i && in_j) return {chi + static_cast<long long>(gj) * nx + gi, plane, member};
+    if (in_j && gi == nx && h.east) return {h.east + gj, ny, col_member};
+    if (in_j && gi == -1 && h.west) return {h.west + gj, ny, col_member};
+    if (in_i && gj == ny && h.north) return {h.north + gi, nx, row_member};
+    if (in_i && gj == -1 && h.south) return {h.south + gi, nx, row_member};
+  } else {
+    const int i = gi < 0 ? gi + nx : gi % nx;
+    if (in_j) return {chi + static_cast<long long>(gj) * nx + i, plane, member};
+    if (gj == ny && tripolar) {
+      return {chi + static_cast<long long>(ny - 1) * nx + (nx - 1 - i), plane, member};
+    }
+  }
+  return {nullptr, 0, 0};
+}
 
-  const V cd = static_cast<V>(widen(diag[c]));
-  const V ceast = static_cast<V>(widen(east[c]));
-  const V cwest = static_cast<V>(widen(west[c]));
-  const V cnorth = static_cast<V>(widen(north[c]));
-  const V csouth = static_cast<V>(widen(south[c]));
-  const V ctop = static_cast<V>(widen(top[c]));
-  const V cbottom = static_cast<V>(widen(bottom[c]));
+constexpr int kMI = 32, kMJ = 8;  // owned columns along i and j
+constexpr int kMPI = kMI + 2;     // positions along i, with the ring
+constexpr int kMPos = kMPI * (kMJ + 2), kMThreads = kMI * kMJ;
+constexpr int kMPosPerThread = (kMPos + kMThreads - 1) / kMThreads;
+constexpr int kLevels = 3;        // level buffers per member
 
-  for (int m = 0; m < nmembers; ++m) {
-    const V* __restrict__ x = chi + m * member;
-    const V xc = x[c];
-    const V xe = in_e ? x[ce] : h.east ? h.east[m * col_member + hcol] : V(0);
-    const V xw = in_w ? x[cw] : h.west ? h.west[m * col_member + hcol] : V(0);
-    const V xn = !has_n ? V(0) : in_n ? x[cn] : h.north ? h.north[m * row_member + hrow] : V(0);
-    const V xs = !has_s ? V(0) : in_s ? x[c - nx] : h.south ? h.south[m * row_member + hrow] : V(0);
-    const V xt = has_t ? x[c - plane] : V(0);
-    const V xb = has_b ? x[c + plane] : V(0);
+template <typename C>
+struct Legs {  // one column's coefficients at one level, as stored
+  C d, e, w, n, s, t, b;
+};
 
-    V acc = cd * xc;
-    acc = acc + ceast * xe;
-    acc = acc + cwest * xw;
-    acc = acc + cnorth * xn;
-    acc = acc + csouth * xs;
-    acc = acc + ctop * xt;
-    acc = acc + cbottom * xb;
-    out[m * member + c] = euler ? xc - dt * acc : acc;
+template <typename C, typename V, bool kHalo, int G>
+__global__ void __launch_bounds__(kMThreads)
+stencil_multi_kernel(const C* __restrict__ diag, const C* __restrict__ east,
+                     const C* __restrict__ west, const C* __restrict__ north,
+                     const C* __restrict__ south, const C* __restrict__ top,
+                     const C* __restrict__ bottom, const V* __restrict__ chi,
+                     V* __restrict__ out, int nmembers, int nz, int ny, int nx, int tripolar,
+                     int euler, V dt, Halo<V> h, int nchunks) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  V* const xs = reinterpret_cast<V*>(smem_raw);  // [kLevels][G][kMPos]
+  const int t = threadIdx.x, tx = t % kMI, ty = t / kMI;
+  const int i0 = blockIdx.x * kMI, j0 = blockIdx.y * kMJ, m0 = blockIdx.z / nchunks * G;
+  const int nm = nmembers - m0 < G ? nmembers - m0 : G;
+  const int span = (nz + nchunks - 1) / nchunks, k_lo = blockIdx.z % nchunks * span;
+  const int k_hi = k_lo + span < nz ? k_lo + span : nz;
+  if (k_lo >= nz) return;
+  const long long plane = static_cast<long long>(ny) * nx, member = plane * nz;
+
+  // this thread's staging positions; those with no source read 0 at every
+  // level, so their slots are zeroed once, by the thread that owns them
+  int pos[kMPosPerThread];
+  Src<V> src[kMPosPerThread];
+#pragma unroll
+  for (int q = 0; q < kMPosPerThread; ++q) {
+    pos[q] = t + q * kMThreads < kMPos ? t + q * kMThreads : -1;
+    src[q] = pos[q] < 0 ? Src<V>{nullptr, 0, 0}
+                        : locate_multi<V, kHalo>(chi, h, j0 - 1 + pos[q] / kMPI,
+                                                 i0 - 1 + pos[q] % kMPI, nz, ny, nx, tripolar);
+    if (pos[q] >= 0 && src[q].p == nullptr) {
+      for (int b = 0; b < kLevels * G; ++b) xs[b * kMPos + pos[q]] = V(0);
+    }
+  }
+  auto stage = [&](int k) {  // level k of the group's members, if the walk reads it
+    if (k <= k_hi && k < nz) {
+      V* const dst = xs + (k % kLevels) * G * kMPos;
+#pragma unroll
+      for (int q = 0; q < kMPosPerThread; ++q) {
+        if (src[q].p == nullptr) continue;
+        const V* const s = src[q].p + k * src[q].level + m0 * src[q].member;
+#pragma unroll
+        for (int m = 0; m < G; ++m) {
+          if (m < nm) cp_async(dst + m * kMPos + pos[q], s + m * src[q].member);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int i = i0 + tx, j = j0 + ty, pc = (ty + 1) * kMPI + tx + 1;
+  const bool live = i < nx && j < ny;
+  const long long col = static_cast<long long>(j) * nx + i;
+  auto legs_at = [&](int k) {  // widened at their use, so the loads stay in flight
+    Legs<C> l{};
+    if (live && k < k_hi) {
+      const long long c = k * plane + col;
+      l = {diag[c], east[c], west[c], north[c], south[c], top[c], bottom[c]};
+    }
+    return l;
+  };
+  auto wide = [](C a) { return static_cast<V>(widen(a)); };
+  const V* const x0 = chi + m0 * member + col;
+  V* const y0 = out + m0 * member + col;
+  V xt[G];  // each member's centre one level up: 0 above the surface
+#pragma unroll
+  for (int m = 0; m < G; ++m) {
+    xt[m] = live && k_lo > 0 && m < nm ? x0[m * member + (k_lo - 1) * plane] : V(0);
+  }
+  stage(k_lo);
+  stage(k_lo + 1);
+  Legs<C> next = legs_at(k_lo);
+  for (int k = k_lo; k < k_hi; ++k) {
+    const Legs<C> l = next;
+    next = legs_at(k + 1);  // in flight across this step
+    cp_async_wait<0>();     // levels k and k + 1, this thread's copies
+    __syncthreads();        // everyone's; level k - 1's buffer is read no more
+    stage(k + 2);           // into level k - 1's buffer
+    const V* const xk = xs + (k % kLevels) * G * kMPos;
+    const V* const xb1 = xs + ((k + 1) % kLevels) * G * kMPos;
+    const bool has_b = k + 1 < nz;
+    const V cd = wide(l.d), ce = wide(l.e), cw = wide(l.w), cn = wide(l.n), cs = wide(l.s);
+    const V ct = wide(l.t), cb = wide(l.b);
+#pragma unroll
+    for (int m = 0; m < G; ++m) {
+      if (!live || m >= nm) continue;
+      const V* const x = xk + m * kMPos;
+      const V xc = x[pc];
+      const V xb = has_b ? xb1[m * kMPos + pc] : V(0);
+      V acc = cd * xc;
+      acc = acc + ce * x[pc + 1];
+      acc = acc + cw * x[pc - 1];
+      acc = acc + cn * x[pc + kMPI];
+      acc = acc + cs * x[pc - kMPI];
+      acc = acc + ct * xt[m];
+      acc = acc + cb * xb;
+      y0[m * member + k * plane] = euler ? xc - dt * acc : acc;
+      xt[m] = xc;
+    }
   }
 }
 
+// The chunks of levels K5's `blocks` tiles split their walk of nz levels
+// into, `slots` blocks running at once: the count that ends soonest, each
+// wave of blocks costing its chunk's levels plus kFill steps to fill the
+// pipeline. One chunk can leave a last wave of few blocks that walks all
+// the levels alone (1 degree: 456 tiles, 396 slots at G = 4).
+constexpr int kFill = 2;
+
+inline int pick_chunks(long long blocks, long long slots, int nz) {
+  int best = 1;
+  long long best_cost = -1;
+  for (int n = 1; n <= nz / kMinChunk; ++n) {
+    const int span = (nz + n - 1) / n, used = (nz + span - 1) / span;
+    const long long cost = (blocks * used + slots - 1) / slots * (span + kFill);
+    if (best_cost < 0 || cost < best_cost) best = n, best_cost = cost;
+  }
+  return best;
+}
+
+template <typename C, typename V, bool kHalo, int G>
+int launch_multi_group(const void* diag, const void* east, const void* west, const void* north,
+                       const void* south, const void* top, const void* bottom, const void* chi,
+                       void* out, int nmembers, int nz, int ny, int nx, int tripolar, int euler,
+                       double dt, Halo<V> h, void* stream) {
+  auto kernel = stencil_multi_kernel<C, V, kHalo, G>;
+  const size_t bytes = kLevels * G * kMPos * sizeof(V);
+  const dim3 grid((nx + kMI - 1) / kMI, (ny + kMJ - 1) / kMJ, (nmembers + G - 1) / G);
+  long long slots = 0;
+  const cudaError_t err = block_slots(kernel, kMThreads, bytes, &slots);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nchunks = pick_chunks(static_cast<long long>(grid.x) * grid.y * grid.z, slots, nz);
+  kernel<<<dim3(grid.x, grid.y, grid.z * nchunks), kMThreads, bytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const C*>(diag), static_cast<const C*>(east), static_cast<const C*>(west),
+      static_cast<const C*>(north), static_cast<const C*>(south), static_cast<const C*>(top),
+      static_cast<const C*>(bottom), static_cast<const V*>(chi), static_cast<V*>(out), nmembers,
+      nz, ny, nx, tripolar, euler, static_cast<V>(dt), h, nchunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The group size: the whole batch in one group up to 8 members (rounded up
+// to a power of two), groups of 8 beyond. One member goes to K1's (K7's)
+// kernel where the planes it streams between reading a level as a centre
+// and again as a neighbour fit in half the L2: the walk's pipeline fill
+// then costs more than the vertical reuse saves (1 degree, f32: 0.0682 ms
+// of device time for the walk, 0.0645 for K1's kernel), and where they do
+// not, the walk wins (0.25 degrees: 1.416 against 1.643 ms; both on an
+// H100 80GB HBM3 at 700 W, scripts/k5_probe.py).
 template <typename C, typename V, bool kHalo>
 int launch_stencil_multi(const void* diag, const void* east, const void* west, const void* north,
                          const void* south, const void* top, const void* bottom, const void* chi,
                          void* out, int nmembers, int nz, int ny, int nx, int tripolar, int euler,
                          double dt, Halo<V> h, void* stream) {
-  const dim3 block(kBlock);
-  const dim3 grid((nx + kBlock - 1) / kBlock, ny, nz);
-  stencil_multi_kernel<C, V, kHalo><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const C*>(diag), static_cast<const C*>(east), static_cast<const C*>(west),
-      static_cast<const C*>(north), static_cast<const C*>(south), static_cast<const C*>(top),
-      static_cast<const C*>(bottom), static_cast<const V*>(chi), static_cast<V*>(out), nmembers,
-      nz, ny, nx, tripolar, euler, static_cast<V>(dt), h);
-  return static_cast<int>(cudaGetLastError());
+  if (nmembers == 1) {
+    int device = 0, l2 = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long reuse = static_cast<long long>(ny) * nx * (7 * sizeof(C) + 2 * sizeof(V));
+    if (2 * reuse <= l2) {
+      return launch_stencil<C, V, kHalo>(diag, east, west, north, south, top, bottom, chi, out,
+                                         nz, ny, nx, tripolar, euler, dt, h, stream);
+    }
+  }
+  auto go = [&](auto group) {
+    return launch_multi_group<C, V, kHalo, decltype(group)::value>(
+        diag, east, west, north, south, top, bottom, chi, out, nmembers, nz, ny, nx, tripolar,
+        euler, dt, h, stream);
+  };
+  if (nmembers > 4) return go(std::integral_constant<int, 8>{});
+  if (nmembers > 2) return go(std::integral_constant<int, 4>{});
+  if (nmembers > 1) return go(std::integral_constant<int, 2>{});
+  return go(std::integral_constant<int, 1>{});
 }
 
 // K7: K1 (nmembers == 0) or K5 (nmembers >= 1) on one shard of a process
@@ -211,10 +375,13 @@ int launch_stencil_multi(const void* diag, const void* east, const void* west, c
 // add 4 * (ny + nx) values per level and member. Every read of a value that
 // K1 or K5 would read at the same cell of the whole field returns that value,
 // and the sum runs in their order, so on each shard K7 equals K1 (K5 per
-// member) on the whole field bit for bit. On a 150x180x50 shard the bulk
-// kernel runs at 82 % of its byte bound (PERF.md); what a sharded step lost
-// was its launch path, about twenty eager launches and a copy per line
-// around it, which the pack and edge entries below replace. A null line
+// member) on the whole field bit for bit. On a 150x180x50 shard (PERF.md)
+// the single-tracer kernel takes 0.018 ms of device time against its
+// 0.0145 ms byte bound, and the batched one at B = 8 0.052 ms against
+// 0.037 ms (the thread per cell looping over members: 0.075 ms), its walk
+// split into chunks of levels to fill the SMs. What a sharded step lost was
+// its launch path, about twenty eager launches and a copy per line around
+// the kernel, which the pack and edge entries below replace. A null line
 // reads as zeros, so the overlapped step's bulk needs no zero lines.
 template <typename C, typename V>
 int launch_stencil_halo(const void* diag, const void* east, const void* west, const void* north,

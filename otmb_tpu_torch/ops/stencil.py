@@ -6,9 +6,10 @@ K1 replaces `otmb_tpu/ops/stencil_pallas.py` (`apply_stencil_pallas`,
 replaces its batched family (`apply_stencil_pallas_multi`,
 `euler_step_pallas_multi`, `euler_propagate_pallas_multi`) with another;
 both are in `csrc/stencil.cu`. A batch is (B, nz, ny, nx), batch-major as
-in the JAX package, and K5 reads the coefficients once for all B members:
-7 + 2B streams instead of 9B. Member b of K5's result equals K1 on member
-b, bit for bit.
+in the JAX package, and K5 reads the coefficients once for all B members
+and each member's chi once (tiles of columns walk the levels down, each
+member's levels staged on chip): 7 + 2B streams instead of 9B. Member b of
+K5's result equals K1 on member b, bit for bit.
 
 Coefficient and value types (C, V) are one of (f32, f32), (bf16, f32),
 (f32, f64), (f64, f64); the sum runs in V. (f32, f64) evaluates an f64

@@ -21,7 +21,12 @@ per call ("busy"), and the kernels and copies per call.
     fields, f32; one T + R step (K1 + K6);
   * K4 (`assemble_T` on device tensors) at 1 degree in f32 and f64 and at
     0.25 degrees in f32, per call and on the device;
-  * K7 (one tracer and a batch of 8), K8 and K9 on rank 0's 150x180x50
+  * K5 (`stencil_apply_multi`) at 1 degree on T at B = 1, 2, 4, 8 with f32
+    and bf16 legs, and at 0.25 degrees on random f32 legs at B = 1, 4 and 8,
+    per call and on the device, with K1 on one tracer at both sizes as the
+    control; the batched propagation at 1 degree (8 tracers x 200 Euler
+    steps, one K5 launch a step): wall seconds, median of 3 after a warm-up;
+  * K7 (one tracer and batches of 8 and 4), K8 and K9 on rank 0's 150x180x50
     shard of a (2, 2) grid, their halo lines cut from the whole field in
     one process, per call and on the device;
   * the refined ideal age at 1 degree (f32 T from K4, tol 1e-8): wall
@@ -338,6 +343,28 @@ def run_one(root: Path, device=None, sharded: bool = False) -> dict:
     ms["K2 1deg f64"] = S.cuda_ms(k2_call(*legs64, b.double()), 50)
     del bs, legs64
 
+    # K5 at 1 degree beside K1, and the batched propagation
+    _timed(out, "K1 1deg f32", lambda: P.stencil_apply(T, b, topo), 50, "stencil_kernel")
+    Tb = T.to(torch.bfloat16)
+    for nb in (1, 2, 4, 8):
+        xk = torch.where(wet, torch.randn((nb,) + tuple(wet.shape), generator=gen,
+                                          device=device), 0.0)
+        for name, c in (("f32", T), ("bf16", Tb)):
+            _timed(out, f"K5 1deg {name} B={nb}",
+                   lambda c=c, xk=xk: P.stencil_apply_multi(c, xk, topo), 50, "stencil")
+        out[f"K5 sum B={nb}"] = float(P.stencil_apply_multi(T, xk, topo).double().sum())
+    dt = 0.25 / float(T.diag.abs().max())
+    walls = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prop = P.euler_propagate_multi(T, xk, dt, 200, topo)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    out["K5 propagation 8x200 1deg s"] = statistics.median(walls[1:])
+    out["K5 propagation sum"] = float(prop.double().sum())
+    del Tb, xk, prop
+
     gm64 = P.makegridmetrics(
         areacello=ds.areacello, volcello=ds.volcello, lon=ds.lon, lat=ds.lat, lev=ds.lev,
         lon_vertices=ds.lon_vertices, lat_vertices=ds.lat_vertices, device=device)
@@ -363,6 +390,8 @@ def run_one(root: Path, device=None, sharded: bool = False) -> dict:
     k7, k7m = _k7_rank0(T, x, xs, topo, device)
     _timed(out, f"K7 {sname}", k7, 50, "stencil")
     _timed(out, f"K7 multi B=8 {sname}", k7m, 20, "stencil")
+    _timed(out, f"K7 multi B=4 {sname}", _k7_rank0(T, x, xs[:4].contiguous(), topo, device)[1],
+           20, "stencil")
     out["K7 sum"] = float(k7().double().sum())
     k8 = _k8_rank0(P, ds, gm, topo, device)
     _timed(out, f"K8 {sname}", k8, 20, "assemble_kernel")
@@ -411,6 +440,24 @@ def run_one(root: Path, device=None, sharded: bool = False) -> dict:
     Rq = _random_redi(P, QUARTER, device)
     ms["K6 quarter f32"] = S.cuda_ms(lambda: P.redi_apply_fused(Rq, bq), 20)
     del Rq, bq
+    torch.cuda.empty_cache()
+    # K5 at 0.25 degrees beside K1, on random f32 legs (its work does not
+    # depend on the values)
+    from otmb_tpu_torch.grid.topology import GridTopology
+    from otmb_tpu_torch.ops.coeffs import StencilCoeffs
+
+    qtopo = GridTopology(kind="tripolar", nx=nx, ny=ny, nz=nz)
+    qlegs = StencilCoeffs(*(torch.randn((nz, ny, nx), generator=gen, device=device)
+                            for _ in StencilCoeffs._fields))
+    xq = torch.randn((nz, ny, nx), generator=gen, device=device)
+    _timed(out, "K1 quarter f32", lambda: P.stencil_apply(qlegs, xq, qtopo), 20, "stencil_kernel")
+    for nb in (1, 4, 8):
+        xk = torch.randn((nb, nz, ny, nx), generator=gen, device=device)
+        _timed(out, f"K5 quarter f32 B={nb}", lambda xk=xk: P.stencil_apply_multi(qlegs, xk, qtopo),
+               10, "stencil")
+        out[f"K5 quarter sum B={nb}"] = float(P.stencil_apply_multi(qlegs, xk, qtopo).double().sum())
+        del xk
+    del qlegs, xq
     torch.cuda.empty_cache()
     # K4 at 0.25 degrees, f32, on the synthetic grid of the main path
     qds, qgm, _ = S.build_case(P, nx, ny, nz, "tripolar", torch.float32, device)

@@ -358,6 +358,45 @@ def test_k5_wrapper_raises_on_card(case):
         P.stencil_apply(T, xs, topo)
 
 
+TYPES = {"f64,f64": (torch.float64, torch.float64), "f32,f64": (torch.float32, torch.float64),
+         "f32,f32": (torch.float32, torch.float32), "bf16,f32": (torch.bfloat16, torch.float32)}
+
+
+@pytest.mark.parametrize("kind", ["tripolar", "bipolar"])
+@pytest.mark.parametrize("types", list(TYPES))
+@pytest.mark.parametrize("dims", [(1, 13, 37), (3, 13, 180), (13, 9, 45), (50, 16, 64),
+                                  (2, 1080, 1440)])
+def test_k5_cut_shapes_equal_k1_per_member(device, kind, types, dims):
+    """K5's k-marching 32 x 8 tiles on shapes that cut them on every side:
+    nx of 37, 45 and 180, ny of 13 and 9 (a tile straddles the tripolar
+    fold or the bipolar north edge), fewer levels than a chunk (nz = 1, 3)
+    and walks split into uneven chunks (13, 50), at B = 1, 3, 5, 8 and 9
+    (groups of 1, 4, 8, and 8 with a remainder of 1; one member takes K1's
+    kernel where its planes fit in the L2, and the walk on the 0.25-degree
+    plane). Apply and Euler step on T and T', random legs: each member
+    equals K1 bit for bit."""
+    from otmb_tpu_torch.grid.topology import GridTopology
+
+    ctype, vtype = TYPES[types]
+    nz, ny, nx = dims
+    topo = GridTopology(kind=kind, nx=nx, ny=ny, nz=nz)
+    rng = np.random.default_rng(nz + ny + nx)
+    legs = StencilCoeffs(*(torch.as_tensor(rng.standard_normal((nz, ny, nx)), device=device)
+                           for _ in StencilCoeffs._fields))
+    dt = 0.125
+    for nb in (1, 3, 5, 8, 9):
+        xs = torch.as_tensor(rng.standard_normal((nb, nz, ny, nx)), device=device).to(vtype)
+        for c in (legs.to(ctype), P.transpose_coeffs(legs, topo).to(ctype)):
+            n5 = stencil.MULTI_LAUNCHES
+            got = P.stencil_apply_multi(c, xs, topo)
+            step = P.euler_step_multi(c, xs, dt, topo)
+            assert stencil.MULTI_LAUNCHES == n5 + 2
+            for m in range(nb):
+                torch.testing.assert_close(got[m], P.stencil_apply(c, xs[m], topo), rtol=0,
+                                           atol=0, msg=f"apply, B = {nb}, member {m}")
+                torch.testing.assert_close(step[m], P.euler_step(c, xs[m], dt, topo), rtol=0,
+                                           atol=0, msg=f"step, B = {nb}, member {m}")
+
 def _redi(case):
     """The Redi operator of a TEOS-10 density on the case's grid, as the
     density path builds it (f64)."""
@@ -581,6 +620,44 @@ def test_k7_pack_and_edge_equal_plain_on_each_shard(case, types, shape):
             assert (halo_kernel.PACK_LAUNCHES, halo_kernel.EDGE_LAUNCHES) == (n_pack + 1,
                                                                             n_edge + 2)
 
+
+@pytest.mark.parametrize("nmembers", [3, 8])
+@pytest.mark.parametrize("shape", SHARD_SHAPES)
+@pytest.mark.parametrize("types", list(TYPES))
+def test_k7_multi_equals_k5_on_each_shard(case, types, shape, nmembers):
+    """K7 multi on each shard (shards of 14 to 36 columns and 9 to 28 rows:
+    one or two ragged tiles each way), apply and Euler step on T and T',
+    B = 3 and 8. With the lines the exchange delivers it equals K5 on the
+    whole field bit for bit. On null lines (the overlapped step's bulk) it
+    equals the plain version on zero lines, and the edge entry then adds the
+    halo terms as the plain `_boundary_patch` does, leaving the cells with
+    no halo term equal to K5."""
+    _, gm, _, T, chi = case
+    ctype, vtype = TYPES[types]
+    topo = gm.topology
+    dt = 0.25 / float(T.diag.abs().max())
+    rng = np.random.default_rng(nmembers)
+    xs = torch.as_tensor(rng.standard_normal((nmembers,) + gm.shape), device=chi.device).to(vtype)
+    inner = (slice(None), slice(None), slice(1, -1), slice(1, -1))
+    for c in (T.to(ctype), P.transpose_coeffs(T, topo).to(ctype)):
+        whole = {None: P.stencil_apply_multi(c, xs, topo), dt: P.euler_step_multi(c, xs, dt, topo)}
+        for g, sl in _shards(shape, chi.device, topo.ny, topo.nx):
+            c_l, x_l = StencilCoeffs(*(sl(leg) for leg in c)), sl(xs)
+            lines = tuple(_cut(xs, g, topo, s) for s in SIDES)
+            for step, want in whole.items():
+                n7m = halo_kernel.MULTI_LAUNCHES
+                got = halo_kernel.local_apply(c_l, x_l, lines, step)
+                torch.testing.assert_close(got, sl(want), rtol=0, atol=0)
+                bulk = halo_kernel._bulk(c_l, x_l, halo_kernel._NO_HALOS, step)
+                assert halo_kernel.MULTI_LAUNCHES == n7m + 2
+                y = _local_stencil(c_l, x_l, halo_kernel._NO_HALOS)
+                torch.testing.assert_close(bulk, y if step is None else x_l - step * y, rtol=0,
+                                           atol=0)
+                scale = 1.0 if step is None else -step
+                patched = halo_kernel._edge(c_l, bulk.clone(), lines, scale)
+                torch.testing.assert_close(
+                    patched, halo._boundary_patch(c_l, bulk.clone(), lines, scale), rtol=0, atol=0)
+                torch.testing.assert_close(patched[inner], sl(want)[inner], rtol=0, atol=0)
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_k4_prep_equals_plain(case, dtype):
