@@ -3,7 +3,8 @@
 Builds the CUDA kernels K1 (stencil), K2 (Thomas solve), K3 (fused Krylov
 step), K4 (fused assembly), K5 (multi-tracer stencil), K6 (Redi operator,
 one tracer or a batch), K7, K8 and K9 (the stencil, the assembly and Redi
-on one shard of a process grid) and K10 (bandwidth probe) from
+on one shard of a process grid), K10 (bandwidth probe) and K11/K12 (the
+BiCGStab(2) cycle's polish sums and polish update) from
 otmb_tpu_torch/csrc, one nvcc per source in parallel (and, at its first
 use, the coarsening's C++ labelling core with g++), then:
 
@@ -22,7 +23,10 @@ use, the coarsening's C++ labelling core with g++), then:
      K2 on a batch of 3 against one launch per member, and K5 in every
      type pair at B = 4 and 8 against K1 per member and plain;
   5. holds the card's slice at the 18x14x6 test size against the golden
-     operator and ages in tests/data/golden_tile.npz;
+     operator and ages in tests/data/golden_tile.npz; then makes the 1-degree
+     case on the card with synthetic_device_case (seed 0) and holds it to
+     the host path's grid: topology and wet mask equal, v3d and z3d within
+     f32 rounding;
   6. at 1 degree, the batched-tracer path through the public API, counts
      reset before and read after each run: 200 batched Euler steps of 8
      tracers (K5; each member equal to K1's propagation bit for bit), and
@@ -37,17 +41,23 @@ use, the coarsening's C++ labelling core with g++), then:
   9. drives the 0.25-degree main path (1440x1080x75, tripolar, seed 0,
      f32): grid metrics -> assemble_T (K4 and its prep entry; that call
      timed with CUDA events and its kernels under torch.profiler) -> the
-     refined ideal age with BiCGStab(2) inner solves on K3 and f64 defects
-     through K1, counts reset before and read after;
+     refined ideal age with BiCGStab(2) inner solves on K3, each cycle
+     ending in K11 and K12, and f64 defects through K1, counts reset before
+     and read after (K11 and K12 required);
  10. holds K3 against the composition of the K2 and K1 kernels and its
      plain version at 0.25 degrees (tripolar) and 720x540x75 (bipolar),
      in f32 and f64, on T and T', for each use the engine makes of it,
      and K5 at B = 1, 5 and 8 (f32 and bf16 legs) against K1 member by
-     member on both grids;
+     member on both grids; K11 and K12 on a field and a batch of 4 in f32
+     and f64 against their plain versions (updates exact, sums within
+     1e-12 of the f64 plain sums), and in f32 their times beside the plain
+     versions' and the eager addcmul/torch.dot sequence they replace;
  11. at 0.25 degrees, a fixed-work batched BiCGStab(2) solve of 4
-     latitude-band dyes (150 matvec pairs; K5 + batched K2, counted)
-     beside the same work as 4 single-RHS solves, unfused and fused (K3),
-     and the K5 and batched K2 timings;
+     latitude-band dyes (150 matvec pairs; K5 + batched K2, its cycles
+     ending in K11 and K12, counted) beside the same work as 4 single-RHS
+     solves, unfused and fused (K3), and the K5 and batched K2 timings;
+     then the 0.25-degree set-up on synthetic_device_case (the case, the
+     indices and assemble_T, K4 counted) beside the host path's;
  12. runs the K10 probe (its launches read around the bandwidth
      measurement), holds it against its plain version, and reports the
      measured bandwidth and the fractions of it that K1, K2, K3 and K5
@@ -604,7 +614,7 @@ def time_pair(kernel, plain, calls_k: int, calls_p: int) -> tuple[float, float]:
 def reset_launches():
     """Set every kernel's launch count to 0; returns a reader of the counts."""
     from otmb_tpu_torch.models import redi_kernel
-    from otmb_tpu_torch.ops import assemble, krylov, stencil, tridiag
+    from otmb_tpu_torch.ops import assemble, krylov, krylov_algebra, stencil, tridiag
     from otmb_tpu_torch.utils import profiling
 
     from otmb_tpu_torch.parallel import assemble_halo, halo_kernel, redi_halo
@@ -616,7 +626,9 @@ def reset_launches():
                 "K7": (halo_kernel, "LAUNCHES"), "K7 multi": (halo_kernel, "MULTI_LAUNCHES"),
                 "K8": (assemble_halo, "LAUNCHES"), "K9": (redi_halo, "LAUNCHES"),
                 "K4 prep": (assemble, "PREP_LAUNCHES"), "K7 pack": (halo_kernel, "PACK_LAUNCHES"),
-                "K7 edge": (halo_kernel, "EDGE_LAUNCHES")}
+                "K7 edge": (halo_kernel, "EDGE_LAUNCHES"),
+                "K11": (krylov_algebra, "SUMS_LAUNCHES"),
+                "K12": (krylov_algebra, "UPDATE_LAUNCHES")}
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
     return lambda: {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
@@ -735,12 +747,13 @@ def phase_quarter(P, device):
         f"{t_age:.3f} s wall, volume-weighted mean age {mean_age:.6f} yr; launches {counts}")
     require(g_ok, "0.25-degree ideal age not finite and positive")
     require(res <= TOL_QUARTER, f"0.25-degree ideal age residual {res:.3e} > {TOL_QUARTER}")
-    for name in ("K1", "K2", "K3", "K4", "K4 prep"):
+    for name in ("K1", "K2", "K3", "K4", "K4 prep", "K11", "K12"):
         require(counts[name] > 0, f"{name} was not launched on the 0.25-degree path")
     del gamma
     counts["K4 ms"], counts["K4 device ms"] = k4_ms, k4_dev
     counts["age"] = dict(wall=t_age, passes=stats["refinements"], pairs=inner, res=res,
                          mean=mean_age)
+    counts["setup s"] = t_setup
     return gm, idx, T, counts
 
 
@@ -891,6 +904,191 @@ def phase_times_quarter(P, card, T, gm, idx):
         f"algebra) {times['cycle'][1]:.4f} ms (CUDA events over back-to-back cycles, median "
         f"of 5; card {card})")
     return times
+
+
+# K11 and K12 (the BiCGStab(2) cycle's algebra, csrc/krylov_algebra.cu) run
+# the plain version's products and sums in its order without FMA: their
+# updates are exact. Their sums add the f64 products in a fixed tree, the
+# plain version by f64 torch.dot: before rounding to the field's type they
+# may differ by TOL_ALGEBRA_SUM * sum |a * b|; f32 sums equal the rounding of
+# the plain f64 sum unless that lies so close to a rounding tie.
+TOL_ALGEBRA = 0.0
+TOL_ALGEBRA_SUM = 1e-12
+ALGEBRA_BATCH = 4
+
+
+def algebra_sum_err(got: torch.Tensor, pairs, dtype) -> float:
+    """One member's sums `got` (k,) over `pairs` against the plain f64 sums,
+    relative to sum |a * b|: in f64 their difference; in f32, where a sum
+    is not the rounding of the plain one, how far the plain one lies from
+    the tie between the two (0 where it is)."""
+    from otmb_tpu_torch.ops.krylov_algebra import dot64
+
+    want = torch.stack([dot64(a, b) for a, b in pairs])
+    mag = torch.stack([dot64(a.abs(), b.abs()) for a, b in pairs])
+    g = got.double()
+    if dtype == torch.float64:
+        return float(((g - want).abs() / mag).max())
+    rounded = want.float().double()
+    off = torch.where(g == rounded, 0.0, ((g + rounded) / 2 - want).abs() / mag)
+    return float(off.max())
+
+
+def phase_algebra_quarter(card, wet):
+    """K11 and K12 at 0.25 degrees on a field and on a batch of
+    ALGEBRA_BATCH, in f32 and f64, against their plain versions (a batch
+    member by member): the updates exact, the sums within TOL_ALGEBRA_SUM;
+    in f32, the kernels, the plain versions and the eager addcmul/torch.dot
+    sequence they replace timed with CUDA events. Returns each kernel's
+    worst update error and sum error, and the f32 times {(members, name):
+    (kernel, plain, eager) ms}."""
+    from otmb_tpu_torch.models import solvers as S
+    from otmb_tpu_torch.ops import krylov_algebra as A
+
+    nx, ny, nz = QUARTER
+    gen = torch.Generator(device=wet.device).manual_seed(SEED + 11)
+    worst = {"K11": 0.0, "K12": 0.0, "sums": 0.0}
+    times = {}
+    for dtype in (torch.float32, torch.float64):
+        for members in (None, ALGEBRA_BATCH):
+            lead = () if members is None else (members,)
+            field = lambda: torch.where(wet, torch.randn(lead + tuple(wet.shape), generator=gen,
+                                                         device=wet.device, dtype=dtype), 0.0)
+            scalar = lambda: torch.rand(lead, generator=gen, device=wet.device, dtype=dtype) - 0.5
+            y, u0, r0, r1, r2, u1, u2, rhat = (field() for _ in range(8))
+            alpha, w1, w2 = scalar(), scalar(), scalar()
+            members_of = [None] if members is None else range(members)
+            pick = lambda t, m: t if m is None else t[m]
+            got_r0, sums = A.polish_sums(r0, u1, r1, r2, alpha)
+            for m in members_of:
+                want_r0, _ = A.polish_sums_plain(*(pick(t, m) for t in (r0, u1, r1, r2, alpha)))
+                worst["K11"] = max(worst["K11"], exact_err(pick(got_r0, m), want_r0))
+                worst["sums"] = max(worst["sums"], algebra_sum_err(
+                    pick(sums, m), ((pick(r1, m), pick(r1, m)), (pick(r1, m), pick(r2, m)),
+                                    (pick(r2, m), pick(r2, m)), (want_r0, pick(r1, m)),
+                                    (want_r0, pick(r2, m))), dtype))
+                del want_r0
+            # K12 with the next dot, then without it (one result set at a time)
+            for with_dot in (True, False):
+                args = (y, u0, got_r0, r1, r2, u1, u2, alpha, w1, w2, rhat if with_dot else None)
+                got = A.polish_update(*args)
+                for m in members_of:
+                    want = A.polish_update_plain(*(None if t is None else pick(t, m)
+                                                   for t in args))
+                    for g, w in zip(got[:3], want[:3]):
+                        worst["K12"] = max(worst["K12"], exact_err(pick(g, m), w))
+                    if with_dot:
+                        worst["sums"] = max(worst["sums"], algebra_sum_err(
+                            pick(got[3], m).reshape(1), ((pick(rhat, m), want[1]),), dtype))
+                    else:
+                        require(got[3] is None, "K12 without rhat returned a dot")
+                    del want
+                del got
+            require(worst["K11"] <= TOL_ALGEBRA and worst["K12"] <= TOL_ALGEBRA,
+                    f"K11/K12 at {nx}x{ny}x{nz}, {dtype}, members {members}: updates "
+                    f"differ from plain by {worst['K11']:.3e} / {worst['K12']:.3e}")
+            require(worst["sums"] <= TOL_ALGEBRA_SUM,
+                    f"K11/K12 sums: {worst['sums']:.3e} > {TOL_ALGEBRA_SUM} of sum |a b|")
+            tag = f"{nx}x{ny}x{nz} {str(dtype).replace('torch.', '')}" + (
+                "" if members is None else f", B = {members}")
+            log(f"[K11/K12] {tag}: r0, y, u0 (with and without the next dot) exact vs plain; "
+                f"sums within {worst['sums']:.3e} of sum |a b| of the f64 plain sums (bound "
+                f"{TOL_ALGEBRA_SUM})")
+            del got_r0, sums
+            if dtype == torch.float32:
+                pairs = lambda r: ((r1, r1), (r1, r2), (r2, r2), (r, r1), (r, r2))
+
+                def eager_sums():
+                    r = S._axpy(r0, -alpha, u1)
+                    return r, [S._dot(a, b) for a, b in pairs(r)]
+
+                def eager_update():
+                    yy = S._axpy(y, alpha, u0)
+                    yy = S._axpy(S._axpy(yy, w1, r0), w2, r1)
+                    rr = S._axpy(S._axpy(r0, -w1, r1), -w2, r2)
+                    uu = S._axpy(S._axpy(u0, -w1, u1), -w2, u2)
+                    return yy, rr, uu, S._dot(rhat, rr)
+
+                upd = (y, u0, r0, r1, r2, u1, u2, alpha, w1, w2, rhat)
+                for name, fns in (
+                        ("K11", {"kernel": lambda: A.polish_sums(r0, u1, r1, r2, alpha),
+                                 "plain": lambda: A.polish_sums_plain(r0, u1, r1, r2, alpha),
+                                 "eager": eager_sums}),
+                        ("K12", {"kernel": lambda: A.polish_update(*upd),
+                                 "plain": lambda: A.polish_update_plain(*upd),
+                                 "eager": eager_update})):
+                    t = time_set(fns, {"kernel": 20, "plain": 3, "eager": 10})
+                    times[members, name] = (t["kernel"], t["plain"], t["eager"])
+                    log(f"[time] {name} at {tag}: kernel {t['kernel']:.4f} ms, plain "
+                        f"{t['plain']:.4f} ms, the eager addcmul/torch.dot sequence it "
+                        f"replaces {t['eager']:.4f} ms per call (CUDA events over back-to-back "
+                        f"calls, median of 5; card {card})")
+            del y, u0, r0, r1, r2, u1, u2, rhat
+            torch.cuda.empty_cache()
+    return worst, times
+
+
+# The device case at 1 degree against the host path's makegridmetrics (f32
+# of f64 fields): v3d is area x thickness rounded from f32 factors (three
+# roundings); z3d a cumulative f32 sum down NZ levels.
+TOL_CASE_V3D = 4 * 2.0 ** -24
+TOL_CASE_Z3D = NZ * 2.0 ** -24
+
+
+def phase_device_case(P, device, gm, idx):
+    """`synthetic_device_case` at 1 degree (seed 0) on the card against the
+    host path's grid (`synthetic_dataset` + `makegridmetrics`, f32): the
+    topology and wet mask equal, v3d and z3d within f32 rounding, NaN on the
+    same cells."""
+    t0 = time.perf_counter()
+    dgm, dwet, umo, vmo, ml = P.synthetic_device_case(NX, NY, NZ, device=device)
+    torch.cuda.synchronize()
+    t_case = time.perf_counter() - t0
+    require(dgm.topology == gm.topology, f"device case topology {dgm.topology}")
+    require(torch.equal(dwet, idx.wet3d), "device case wet mask differs from the host path's")
+    errs = {}
+    for name, tol in (("v3d", TOL_CASE_V3D), ("z3d", TOL_CASE_Z3D)):
+        got, want = getattr(dgm, name), getattr(gm, name)
+        require(torch.equal(torch.isnan(got), torch.isnan(want)), f"device case {name}: NaN "
+                f"on other cells than the host path's")
+        errs[name] = float(((got.double() - want.double()).abs()
+                            / want.double().abs())[dwet].max())
+        require(errs[name] <= tol, f"device case {name}: relative {errs[name]:.3e} > {tol:.3e}")
+    for name, t in (("umo", umo), ("vmo", vmo), ("mlotst", ml)):
+        wet = dwet if t.ndim == 3 else dwet[0]
+        require(bool(torch.isfinite(t[wet]).all()) and bool(torch.isnan(t[~wet]).all()),
+                f"device case {name}: not finite on wet cells and NaN on land")
+    log(f"[device case] {NX}x{NY}x{NZ} tripolar seed {SEED} on the card in {t_case:.3f} s: "
+        f"topology and wet mask equal to the host path's; v3d within {errs['v3d']:.3e} "
+        f"(bound {TOL_CASE_V3D:.3e}), z3d within {errs['z3d']:.3e} (bound {TOL_CASE_Z3D:.3e}) "
+        f"relative")
+
+
+def phase_device_case_quarter(P, card, device, host_setup_s: float):
+    """The 0.25-degree set-up on the device case, launches counted: the
+    case, the indices and assemble_T (K4), beside the host path's set-up."""
+    nx, ny, nz = QUARTER
+    read = reset_launches()
+    t0 = time.perf_counter()
+    gm, wet, umo, vmo, ml = P.synthetic_device_case(nx, ny, nz, device=device)
+    idx = P.makeindices(gm.v3d)
+    torch.cuda.synchronize()
+    t_case = time.perf_counter() - t0
+    T = P.assemble_T(umo, vmo, ml, gm)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    counts = read()
+    require(counts["K4"] > 0 and counts["K4 prep"] > 0,
+            f"assemble_T on the device case launched {counts}")
+    require(torch.equal(idx.wet3d, wet), "0.25-degree device case: indices' wet mask differs")
+    finite = all(bool(torch.isfinite(leg[wet]).all()) for leg in T)
+    require(finite and bool((T.diag[wet] > 0).all()),
+            "0.25-degree device case: T not finite, or its diagonal not positive, on wet cells")
+    log(f"[device case] {nx}x{ny}x{nz} tripolar seed {SEED}: {idx.nwet} wet cells; case + "
+        f"indices {t_case:.3f} s, + assemble_T {t_setup:.3f} s (the host path's set-up "
+        f"{host_setup_s:.3f} s); T finite on wet cells, diagonal positive; launches "
+        f"{ {k: v for k, v in counts.items() if v} } (card {card})")
+    return t_setup
 
 
 def latitude_bands(ny: int, nx: int, nbands: int) -> np.ndarray:
@@ -1073,6 +1271,8 @@ def phase_batched_quarter(P, card, gm, idx, T):
     peak = torch.cuda.max_memory_allocated() / 1e9
     require(counts["K5"] > 0 and counts["K2"] > 0 and counts["K1"] == 0 and counts["K3"] == 0,
             f"0.25-degree batched solve launches {counts}: expected K5 and K2 only")
+    require(counts["K11"] > 0 and counts["K12"] > 0,
+            f"0.25-degree batched solve launches {counts}: its cycles end in K11 and K12")
     require(bool(torch.isfinite(xs).all()) and bool(torch.isfinite(res).all()),
             "0.25-degree batched solve not finite")
     del xs
@@ -1098,7 +1298,8 @@ def phase_batched_quarter(P, card, gm, idx, T):
             f"{'fused (K3)' if fused else 'unfused (K2 + K1)'}: {wall:.3f} s wall for "
             f"{pairs:.0f} pairs, {per_single[fused] * 1e3:.3f} ms per member-pair (card {card})")
     del bs, surf
-    return {"K5": counts["K5"], "K2": counts["K2"]}, per_multi, per_single
+    return ({name: counts[name] for name in ("K5", "K2", "K11", "K12")}, per_multi,
+            per_single)
 
 
 def time_set(fns: dict, calls: dict) -> dict:
@@ -2502,6 +2703,7 @@ def main() -> int:
         ("tripolar", R64, gm64, idx.wet3d),
         ("bipolar", redi_of(P, bgm64, bidx.wet3d), bgm64, bidx.wet3d)])
     phase_golden(P, device)
+    phase_device_case(P, device, gm32, idx)
     batched = phase_batched(P, device, gm32, idx, T32, T64)
     phase_implicit(P, card, gm64, idx, T64)
     phase_autodiff(P, card, ds, gm64, idx, T64)
@@ -2526,6 +2728,7 @@ def main() -> int:
 
     qgm, qidx, qT, qlaunches = phase_quarter(P, device)
     qtimes = phase_times_quarter(P, card, qT, qgm, qidx)
+    algebra_worst, algebra_times = phase_algebra_quarter(card, qidx.wet3d)
     hnx, hny, hnz = HALF
     hds, hgm, hidx = build_case(P, hnx, hny, hnz, "bipolar", torch.float32, device)
     hT = P.assemble_T(hds.umo, hds.vmo, hds.mlotst, hgm)
@@ -2551,6 +2754,8 @@ def main() -> int:
         f"K2) {per_multi * 1e3:.3f} ms, single-RHS unfused {per_single[False] * 1e3:.3f} ms, "
         f"fused (K3) {per_single[True] * 1e3:.3f} ms (card {card})")
     del qgm, qidx, qT
+    torch.cuda.empty_cache()
+    phase_device_case_quarter(P, card, device, qlaunches["setup s"])
     torch.cuda.empty_cache()
     k10_launches, k10_err, k10_times, gbps, k10_bytes = phase_probe(P, device, card, qtimes)
     log_k5_fractions(k5_times, NX * NY * NZ, gbps, f"{NX}x{NY}x{NZ}")
@@ -2669,7 +2874,29 @@ def main() -> int:
         entry("K9 redi_apply_halo", "redi.cu", "otmb_tpu/parallel/redi_halo.py:129",
               s_launches("K9"), s_worst("K9"), *s_times["K9"], s_bytes["K9"],
               REDI_FLOPS * s_cells, None),
+        # the BiCGStab(2) cycle's algebra, which the reference leaves to XLA's
+        # fusion of its jitted cycle (no pallas_call): launches on the
+        # 0.25-degree age and batched solve; ms on a 0.25-degree f32 field;
+        # library: the eager addcmul/torch.dot sequence it replaces. K11 reads
+        # 4 fields and writes 1 (12 operations a cell), K12 reads 8 and
+        # writes 3 (16)
+        entry("K11 polish_sums", "krylov_algebra.cu", "otmb_tpu/models/solvers.py:1268",
+              qlaunches["K11"] + qbatched["K11"], max(algebra_worst["K11"],
+                                                      algebra_worst["sums"]),
+              *algebra_times[None, "K11"][:2], 5 * qcells * 4, 12 * qcells,
+              algebra_times[None, "K11"][2]),
+        entry("K12 polish_update", "krylov_algebra.cu", "otmb_tpu/models/solvers.py:1280",
+              qlaunches["K12"] + qbatched["K12"], max(algebra_worst["K12"],
+                                                      algebra_worst["sums"]),
+              *algebra_times[None, "K12"][:2], 11 * qcells * 4, 16 * qcells,
+              algebra_times[None, "K12"][2]),
     ]
+    for (members, name), (k_ms, _, e_ms) in algebra_times.items():
+        nbytes = (5 if name == "K11" else 11) * qcells * 4 * (members or 1)
+        log(f"[roofline] {name} at {quarter} f32{'' if members is None else f', B = {members}'}: "
+            f"{nbytes / 1e9:.3f} GB compulsory in {k_ms:.4f} ms = {nbytes / k_ms / 1e6:.1f} "
+            f"GB/s, bound {nbytes / PEAK_BYTES * 1e3:.4f} ms at 3.35 TB/s "
+            f"({100 * nbytes / PEAK_BYTES * 1e3 / k_ms:.1f} %); the eager sequence {e_ms:.4f} ms")
     log(f"[total] {time.perf_counter() - t_start:.1f} s from the start of main, the kernels' "
         f"build included (card {card})")
     print(card)

@@ -80,7 +80,7 @@ from .grid.geometry import (
     makegridmetrics,
 )
 from .grid.indices import Indices, as2d, as3d, makeindices, wet_vector
-from .grid.topology import GridTopology, detect_topology
+from .grid.topology import GridTopology, detect_topology, shift_values
 from .models.redi import (
     RediOperator,
     build_redi_operator,
@@ -110,7 +110,15 @@ from .models.solvers import (
     solve_shifted_multi,
     water_mass_fractions,
 )
-from .models.transport import TransportOperators, assemble_transport, transportmatrix
+from .models.transport import (
+    TransportOperators,
+    assemble_transport,
+    buildTadv,
+    buildTkH,
+    buildTkVdeep,
+    buildTkVML,
+    transportmatrix,
+)
 from .ops.apply import (
     apply_stencil,
     apply_stencil_transpose,
@@ -146,7 +154,7 @@ from .utils.debugging import OperatorValidation, enable_nan_debugging, validate_
 from .utils.profiling import dma_peak_probe, roofline_report
 from .utils.sparse_export import coeffs_to_scipy
 from .utils.convert import redi_operator_from_numpy
-from .utils.synthetic import synthetic_dataset
+from .utils.synthetic import synthetic_dataset, synthetic_device_case
 
 __all__ = [
     "ArakawaGrid",
@@ -179,6 +187,10 @@ __all__ = [
     "assemble_T",
     "assemble_transport",
     "bolus_gm_velocity",
+    "buildTadv",
+    "buildTkH",
+    "buildTkVML",
+    "buildTkVdeep",
     "build_redi_operator",
     "cell_thickness_from_lev_bnds",
     "coeffs_to_scipy",
@@ -224,6 +236,7 @@ __all__ = [
     "save_operator",
     "save_state",
     "sequestration_time",
+    "shift_values",
     "sigma0_teos10",
     "slope_taper",
     "solve_shifted",
@@ -234,6 +247,7 @@ __all__ = [
     "stencil_apply",
     "stencil_apply_multi",
     "synthetic_dataset",
+    "synthetic_device_case",
     "transportmatrix",
     "transpose_coeffs",
     "tridiag_factor",

@@ -25,6 +25,9 @@ Direction = Literal["east", "west", "north", "south", "top", "bottom"]
 
 #: The six face/neighbour directions, in the order used for stencil legs.
 DIRECTIONS: tuple[Direction, ...] = ("east", "west", "north", "south", "top", "bottom")
+HORIZONTAL_DIRECTIONS: tuple[Direction, ...] = ("east", "west", "north", "south")
+OPPOSITE = {"east": "west", "west": "east", "north": "south", "south": "north",
+            "top": "bottom", "bottom": "top"}
 BIPOLAR = "bipolar"
 TRIPOLAR = "tripolar"
 UNKNOWN = "unknown"

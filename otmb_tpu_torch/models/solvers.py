@@ -4,7 +4,8 @@ Counterpart of the main-path subset of `otmb_tpu.models.solvers`: explicit
 Euler through the K1 kernel; one host-driven Krylov engine that runs
 right-preconditioned BiCGStab(1), BiCGStab(2) or restarted GMRES(30)
 with the Jacobi or the vertical-line Thomas preconditioner (K2), and
-BiCGStab(2) on the fused Krylov-step kernel K3; the implicit Euler step;
+BiCGStab(2) on the fused Krylov-step kernel K3, each of its cycles ending
+in the algebra kernels K11 and K12; the implicit Euler step;
 mixed-precision iterative refinement; and the ideal age and sequestration
 time workloads.
 
@@ -50,6 +51,7 @@ from ..grid.topology import GridTopology
 from ..ops.apply import transpose_coeffs
 from ..ops.coeffs import StencilCoeffs
 from ..ops.krylov import fused_krylov_step, krylov_scratch
+from ..ops.krylov_algebra import polish_sums, polish_update
 from ..ops.stencil import euler_propagate, euler_step, stencil_apply, stencil_apply_multi
 from ..ops.tridiag import tridiag_factor, tridiag_solve_factored
 from ..utils import debugging
@@ -137,14 +139,17 @@ def _axpy(y: torch.Tensor, a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 class _Field(NamedTuple):
     """What the solvers do on a field: apply a stencil (`apply(c, x)` = T x
     through the kernel, coefficients possibly narrower than x), reduce (the
-    dot and the 2-norm), and where it starts (`offset`, the global (j0, i0)
-    of its first cell). On one device the field is whole; on a process grid
-    it is the rank's shard (`parallel.solve_halo.halo_field`), and every
-    reduction is all-reduced, so the ranks take the same decisions."""
+    dot, the 2-norm, and `reduce`, which turns sums over the field's own
+    cells, such as K11's and K12's, into the whole field's), and where it
+    starts (`offset`, the global (j0, i0) of its first cell). On one device
+    the field is whole; on a process grid it is the rank's shard
+    (`parallel.solve_halo.halo_field`), and every reduction is all-reduced,
+    so the ranks take the same decisions."""
 
     apply: Callable[[StencilCoeffs, torch.Tensor], torch.Tensor]
     dot: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
     norm: Callable[[torch.Tensor], float]
+    reduce: Callable[[torch.Tensor], torch.Tensor]
     offset: tuple[int, int] = (0, 0)
 
 
@@ -157,7 +162,7 @@ def _whole_field(topology: GridTopology) -> _Field:
             return stencil_apply_multi(c, x, topology)
         return stencil_apply(c, x, topology)
 
-    return _Field(apply, _dot, lambda v: float(torch.linalg.vector_norm(v)))
+    return _Field(apply, _dot, lambda v: float(torch.linalg.vector_norm(v)), lambda s: s)
 
 
 class _System(NamedTuple):
@@ -359,15 +364,20 @@ def _bicgstab2_cycles(sys_: _System, step, st: _State2, ncycles: int) -> _State2
     in y-space. `step(x1, x2, c, rhat)` returns (z = x1 + c x2, K z,
     <rhat, K z>); the algebra is that of the JAX package's
     `_sr_chunk2_fused`, and with the unfused step that of
-    `_bicgstab2_cycles`. The dots are `sys_`'s (all-reduced on a shard)."""
-    dot = sys_.dot
+    `_bicgstab2_cycles`. Each cycle ends in two kernels: K11 (r0 -= alpha
+    u1 and the five polish sums) and K12 (the updates of y, r0 and u0,
+    with the deferred y += alpha u0, and <rhat, r0> for the next cycle's
+    top; the first cycle of a call forms that dot on its own). The dots
+    and sums are `sys_`'s (all-reduced on a shard)."""
+    dot, reduce = sys_.dot, sys_.field.reduce
     y, r0, u0, rhat, rho0, alpha, omega = st
     one = torch.ones_like(rho0)
     guard = lambda d: torch.where(d == 0, one, d)
-    for _ in range(ncycles):
+    rho_next = None
+    for cycle in range(ncycles):
         rho0 = -omega * rho0
         # BiCG step j = 0
-        rho1 = dot(rhat, r0)
+        rho1 = dot(rhat, r0) if rho_next is None else rho_next
         beta = alpha * rho1 / guard(rho0)
         rho0 = rho1
         u0, u1, d1 = step(r0, u0, -beta, rhat)
@@ -381,21 +391,18 @@ def _bicgstab2_cycles(sys_: _System, step, st: _State2, ncycles: int) -> _State2
         u0 = _axpy(r0, -beta, u0)
         u1, u2, d3 = step(r1, u1, -beta, rhat)
         alpha = rho0 / guard(d3)
-        r0 = _axpy(r0, -alpha, u1)
         r1, r2, _ = step(r1, u2, -alpha, None)
-        y = _axpy(y, alpha, u0)
-        # 2D minimal-residual polish: min ||r0 - w1 r1 - w2 r2||
-        t11 = dot(r1, r1)
-        t12 = dot(r1, r2)
-        t22 = dot(r2, r2)
-        s1 = dot(r0, r1)
-        s2 = dot(r0, r2)
+        # 2D minimal-residual polish: min ||r0 - w1 r1 - w2 r2||, with
+        # r0 -= alpha u1 and y += alpha u0 folded into K11 and K12
+        r0, sums = polish_sums(r0, u1, r1, r2, alpha)
+        t11, t12, t22, s1, s2 = reduce(sums).unbind(-1)
         det = guard(t11 * t22 - t12 * t12)
         w1 = (t22 * s1 - t12 * s2) / det
         w2 = (t11 * s2 - t12 * s1) / det
-        y = _axpy(_axpy(y, w1, r0), w2, r1)
-        r0 = _axpy(_axpy(r0, -w1, r1), -w2, r2)
-        u0 = _axpy(_axpy(u0, -w1, u1), -w2, u2)
+        y, r0, u0, rho_next = polish_update(y, u0, r0, r1, r2, u1, u2, alpha, w1, w2,
+                                            rhat if cycle + 1 < ncycles else None)
+        if rho_next is not None:
+            rho_next = reduce(rho_next)
         omega = w2
     return _State2(y, r0, u0, rhat, rho0, alpha, omega)
 
@@ -881,9 +888,12 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
     steps, the matvecs of 600 BiCGStab(2) pairs. In the bf16-narrow mode
     every algorithm keeps f32 vectors.
 
-    The best iterate is kept (narrow) and restored after a pass that made
-    the defect 4x worse (or not finite); that reverted pass gets one retry.
-    Any other pass that starts without a 0.9x contraction of the previous
+    The best iterate is kept (narrow) and restored after a pass that left
+    the defect more than 1/0.9x the best (or not finite); that reverted
+    pass gets one retry, from the narrow-rounded best iterate, whose inner
+    solve takes another path. (The JAX package reverts only a pass 4x
+    worse, and refines on from the iterate a pass 1-4x worse left.) Any
+    other pass that starts without a 0.9x contraction of the previous
     pass's start stops the loop with a warning: repeating a stalled pass
     from the same defect cannot help. Each pass asks its inner solve only
     for the contraction still needed, max(inner_tol, 0.5 * tol / rel), at
@@ -935,8 +945,9 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
         if rel <= tol:
             break
         reverted = False
-        if best_x is not None and not rel <= 4.0 * best_rel:
-            # the last pass diverged: refine from the best iterate instead
+        if best_x is not None and not rel <= best_rel / 0.9:
+            # the last pass made the defect worse by more than the 0.9x
+            # that counts as progress: refine from the best iterate
             x = best_x.to(wide)
             r_hat, s_safe, rel = _ir_defect(field, c_defect, x, b, extra_n, shift, bnorm_safe)
             reverted = True

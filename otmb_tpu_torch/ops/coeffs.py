@@ -18,6 +18,7 @@ import torch
 
 from ..grid.geometry import GridMetrics
 from ..grid.topology import DIRECTIONS, GridTopology, fold_i, neighbor_valid, neighbor_values
+from ..utils.device import default_device
 from .fluxes import FaceFluxes
 
 
@@ -48,6 +49,14 @@ class StencilCoeffs(NamedTuple):
 def add_coeffs(*cs: StencilCoeffs) -> StencilCoeffs:
     """Sum of operators (the reference's sparse `+`, matrixbuilding.jl:147)."""
     return StencilCoeffs(*(sum(legs) for legs in zip(*cs)))
+
+
+def zeros_coeffs(shape, dtype: torch.dtype, device=None) -> StencilCoeffs:
+    """The zero operator of `shape` (nz, ny, nx): seven zero legs sharing one
+    tensor, made on `device` (None: the current CUDA device, raising
+    without one)."""
+    z = torch.zeros(shape, dtype=dtype, device=default_device(device))
+    return StencilCoeffs(z, z, z, z, z, z, z)
 
 
 def _pair_mean_rho(rho, direction, topology):

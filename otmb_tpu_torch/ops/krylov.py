@@ -35,6 +35,7 @@ from .. import _build
 from ..grid.topology import UNKNOWN, GridTopology
 from .apply import apply_stencil
 from .coeffs import StencilCoeffs
+from .krylov_algebra import dot64
 from .tridiag import tridiag_factor, tridiag_solve_plain
 
 #: Kernel launches made by this module's wrappers.
@@ -85,22 +86,18 @@ def krylov_scratch(m_lower: torch.Tensor, m_diag: torch.Tensor, m_upper: torch.T
     return KrylovScratch(cp, rden, torch.empty_like(m_diag), partials, _legs_key(m_legs))
 
 
-def _dot64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """<a, b> accumulated in f64, returned in a's dtype (as the kernel does)."""
-    return torch.dot(a.reshape(-1).double(), b.reshape(-1).double()).to(a.dtype)
-
-
 def fused_krylov_step_plain(a_coeffs: StencilCoeffs, m_lower, m_diag, m_upper, x1, x2, c2,
                             rhat, topology: GridTopology, with_combine: bool = True,
                             with_dot: bool = True):
     """The kernel's plain version: the port's plain Thomas solve, then the
-    plain stencil apply, then an f64 dot."""
+    plain stencil apply, then an f64 dot rounded to x1's dtype (as the
+    kernel does)."""
     if with_combine:
         z = x1 + torch.as_tensor(c2, dtype=x1.dtype, device=x1.device) * x2
     else:
         z = x1
     out = apply_stencil(a_coeffs, tridiag_solve_plain(m_lower, m_diag, m_upper, z), topology)
-    return z, out, (_dot64(rhat, out) if with_dot else None)
+    return z, out, (dot64(rhat, out).to(x1.dtype) if with_dot else None)
 
 
 def _validate(a_coeffs, m_legs, x1, x2, rhat, topology, with_combine, with_dot):

@@ -12,6 +12,7 @@ together.
 """
 
 from .assemble_halo import assemble_T_halo
+from .halo import apply_stencil_halo
 from .halo_kernel import (
     euler_propagate_halo,
     euler_propagate_halo_multi,
@@ -33,6 +34,7 @@ from .solve_halo import solve_shifted_halo, transpose_coeffs_halo
 __all__ = [
     "ProcessGrid",
     "RediShard",
+    "apply_stencil_halo",
     "assemble_T_halo",
     "euler_propagate_halo",
     "euler_propagate_halo_multi",

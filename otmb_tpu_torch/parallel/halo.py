@@ -312,3 +312,15 @@ def _boundary_patch(coeffs: StencilCoeffs, bulk: torch.Tensor, halos, scale: flo
     if south_h is not None:
         bulk[..., 0, :] += scale * c(coeffs.south[..., 0, :]) * south_h
     return bulk
+
+
+def apply_stencil_halo(coeffs: StencilCoeffs, chi: torch.Tensor, topology: GridTopology,
+                       grid: ProcessGrid) -> torch.Tensor:
+    """y = T chi on this rank's shard with one halo exchange: the JAX
+    package's `apply_stencil_halo` (its `mesh` is `grid` here), which is
+    `halo_kernel.stencil_apply_halo` (K7) without overlap. `coeffs` and
+    `chi` are the rank's shards, `topology` the global one; every rank
+    calls it."""
+    from .halo_kernel import stencil_apply_halo  # halo_kernel imports this module
+
+    return stencil_apply_halo(coeffs, chi, topology, grid)

@@ -14,7 +14,8 @@ rank's shard:
   * the dot is the local `torch.dot` plus one `all_reduce` (SUM), and the
     norm its square root, so every rank reads the same residuals, and
     every stop, stall, restart and divergence decision of the engine is
-    taken in lockstep;
+    taken in lockstep; BiCGStab(2)'s five polish sums (K11) are one
+    all-reduce of the stacked local sums, and K12's <rhat, r0> another;
   * a jittered restart alternates its sign by the global index (the
     shard's offset), so it builds the slice of the whole field's shadow
     vector.
@@ -68,6 +69,7 @@ def halo_field(topology: GridTopology, grid: ProcessGrid, overlap: bool = True) 
         apply=apply,
         dot=dot,
         norm=lambda v: math.sqrt(float(dot(v, v))),
+        reduce=lambda sums: all_reduce_sum(sums, grid),
         offset=grid.offset(topology.ny, topology.nx),
     )
 

@@ -15,9 +15,13 @@ from __future__ import annotations
 
 import dataclasses
 
+import math
+
 import numpy as np
+import torch
 
 from ..config import EARTH_RADIUS
+from .device import default_device
 
 
 @dataclasses.dataclass
@@ -90,6 +94,126 @@ def _smooth_field(shape, rng: np.random.Generator, scale: float) -> np.ndarray:
     return scale * out
 
 
+def _vertices(nx: int, ny: int, lat_edges: np.ndarray, lon_edges: np.ndarray):
+    """Vertex arrays (4, ny, nx) of a regular lat-lon grid: SW, SE, NE, NW."""
+    vlon = np.zeros((4, ny, nx))
+    vlat = np.zeros((4, ny, nx))
+    vlon[0] = lon_edges[None, :-1]
+    vlon[1] = lon_edges[None, 1:]
+    vlon[2] = lon_edges[None, 1:]
+    vlon[3] = lon_edges[None, :-1]
+    vlat[0] = lat_edges[:-1, None]
+    vlat[1] = lat_edges[:-1, None]
+    vlat[2] = lat_edges[1:, None]
+    vlat[3] = lat_edges[1:, None]
+    return vlon, vlat
+
+
+def _north_edge(topology: str) -> float:
+    if topology == "bipolar":
+        return 90.0
+    if topology == "tripolar":
+        return 66.0
+    raise ValueError(f"unknown topology {topology!r}")
+
+
+def synthetic_device_case(nx: int, ny: int, nz: int, topology: str = "tripolar",
+                          dtype: torch.dtype = torch.float32, seed: int = 0, device=None):
+    """The large-scale benchmark case, its 3D fields made by torch ops on
+    `device` (None: the current CUDA device, raising without one): only
+    O(ny * nx) host arrays cross to the device. The JAX package's
+    `synthetic_device_case`, step by step: the same numpy draws in the same
+    order (the seafloor, then mlotst), the same vertices (the tripolar
+    pole row included), the same flow harmonics with the tripolar vmo fold
+    row, NaN on land.
+
+    Returns (gridmetrics, wet3d, umo, vmo, mlotst). The grid is
+    `synthetic_dataset`'s with `land_fraction=0.15` (the same wet mask for
+    a seed); the flow is fixed harmonics, not `synthetic_dataset`'s random
+    ones."""
+    from ..grid import geometry as geo
+    from ..grid.topology import detect_topology
+
+    if nx % 2 != 0:
+        raise ValueError("nx must be even for the tripolar fold")
+    device = default_device(device)
+    rng = np.random.default_rng(seed)
+
+    lat_north_edge = _north_edge(topology)
+    lat_edges = np.linspace(-78.0, lat_north_edge, ny + 1)
+    lon_edges = np.linspace(0.0, 360.0, nx + 1)
+    vlon, vlat = _vertices(nx, ny, lat_edges, lon_edges)
+    if topology == "tripolar":
+        p = np.empty(nx + 1)
+        half = nx // 2
+        p[: half + 1] = 80.0 + np.arange(half + 1) * (180.0 / half)
+        for i in range(half + 1, nx + 1):
+            p[i] = p[nx - i]
+        vlon[3, ny - 1, :] = p[:-1]
+        vlon[2, ny - 1, :] = p[1:]
+        vlat[2:, ny - 1, :] = lat_north_edge
+
+    lon2d = 0.5 * (lon_edges[:-1] + lon_edges[1:])[None, :].repeat(ny, axis=0)
+    lat2d = 0.5 * (lat_edges[:-1] + lat_edges[1:])[:, None].repeat(nx, axis=1)
+
+    thick = _level_thicknesses(nz)
+    lev = np.cumsum(thick) - 0.5 * thick
+    area = _cell_areas(lat_edges, nx)
+    kbot = _seafloor_levels(nx, ny, nz, rng, land_fraction=0.15)
+    topo = detect_topology(vlon, vlat, nz)
+
+    t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
+    area_d = t(np.where(kbot > 0, area, np.nan))
+    thick_d = t(thick).reshape(nz, 1, 1)
+    wet = torch.arange(nz, device=device).reshape(nz, 1, 1) < torch.as_tensor(
+        kbot, device=device)[None]
+    nan = torch.tensor(float("nan"), dtype=dtype, device=device)
+    v3d = torch.where(wet, area_d[None] * thick_d, nan)
+    thk = v3d / area_d[None]
+    z3d = torch.cumsum(thk, dim=0) - 0.5 * thk
+    # smooth flow harmonics, NaN junk on land like CMIP output
+    k = torch.arange(nz, dtype=dtype, device=device).reshape(nz, 1, 1)
+    j = torch.arange(ny, dtype=dtype, device=device).reshape(1, ny, 1)
+    i = torch.arange(nx, dtype=dtype, device=device).reshape(1, 1, nx)
+    pi = math.pi
+    umo = 1e8 * (
+        torch.cos(2 * pi * 2 * i / nx + 0.3)
+        * torch.cos(pi * 1 * j / ny + 1.1)
+        * torch.cos(pi * 2 * k / nz + 0.7)
+        + 0.5 * torch.cos(2 * pi * 3 * i / nx + 2.0)
+        * torch.cos(pi * 2 * j / ny)
+    )
+    vmo = 1e8 * (
+        torch.cos(2 * pi * 1 * i / nx + 1.7)
+        * torch.cos(pi * 2 * j / ny + 0.2)
+        * torch.cos(pi * 1 * k / nz + 1.9)
+    )
+    if topo.is_tripolar:
+        top = vmo[:, ny - 1, :]
+        vmo[:, ny - 1, :] = 0.5 * (top - torch.flip(top, dims=(-1,)))
+    umo = torch.where(wet, umo, nan)
+    vmo = torch.where(wet, vmo, nan)
+
+    lon_t, lat_t, vlon_t, vlat_t = t(lon2d), t(lat2d), t(vlon), t(vlat)
+    gm = geo.GridMetrics(
+        area2d=area_d,
+        v3d=v3d,
+        thkcello=thk,
+        lon=lon_t,
+        lat=lat_t,
+        lon_vertices=vlon_t,
+        lat_vertices=vlat_t,
+        z3d=z3d,
+        zt=t(lev),
+        edge_length=geo.edge_lengths(vlon_t, vlat_t),
+        distance_to_edge=geo.distances_to_edge(lon_t, lat_t, vlon_t, vlat_t),
+        distance_to_neighbour=geo.distances_to_neighbour(lon_t, lat_t, topo),
+        topology=topo,
+    )
+    mlotst = t(np.where(kbot > 0, rng.uniform(15.0, 0.8 * float(lev[-1]), (ny, nx)), np.nan))
+    return gm, wet, umo, vmo, mlotst
+
+
 def synthetic_dataset(
     nx: int = 18,
     ny: int = 14,
@@ -111,27 +235,10 @@ def synthetic_dataset(
         raise ValueError("nx must be even for the tripolar fold")
     rng = np.random.default_rng(seed)
 
-    if topology == "bipolar":
-        lat_north_edge = 90.0
-    elif topology == "tripolar":
-        lat_north_edge = 66.0
-    else:
-        raise ValueError(f"unknown topology {topology!r}")
-
+    lat_north_edge = _north_edge(topology)
     lat_edges = np.linspace(lat_south, lat_north_edge, ny + 1)
     lon_edges = np.linspace(0.0, 360.0, nx + 1)
-
-    # Vertex arrays (4, ny, nx): SW, SE, NE, NW.
-    vlon = np.zeros((4, ny, nx))
-    vlat = np.zeros((4, ny, nx))
-    vlon[0] = lon_edges[None, :-1]
-    vlon[1] = lon_edges[None, 1:]
-    vlon[2] = lon_edges[None, 1:]
-    vlon[3] = lon_edges[None, :-1]
-    vlat[0] = lat_edges[:-1, None]
-    vlat[1] = lat_edges[:-1, None]
-    vlat[2] = lat_edges[1:, None]
-    vlat[3] = lat_edges[1:, None]
+    vlon, vlat = _vertices(nx, ny, lat_edges, lon_edges)
 
     if topology == "tripolar":
         # Palindromic vertex longitudes along the seam (p[i] == p[nx - i]).

@@ -1,4 +1,5 @@
 """otmb_tpu_torch's CUDA kernels against their plain PyTorch versions (and
+K11/K12, the BiCGStab(2) cycle's algebra, against theirs in every mode;
 K5 against K1, member by member; K7, K8 and K9 on shards against K1/K5, K4
 and K6 on the whole field), on the card. Every test here needs an
 NVIDIA GPU and skips without one. The file imports no JAX, so it also runs
@@ -15,7 +16,7 @@ import torch
 
 import otmb_tpu_torch as P
 from otmb_tpu_torch.models import redi_kernel
-from otmb_tpu_torch.ops import krylov, stencil, tridiag
+from otmb_tpu_torch.ops import krylov, krylov_algebra, stencil, tridiag
 from otmb_tpu_torch.ops.krylov import fused_krylov_step_plain
 from otmb_tpu_torch.ops.coeffs import StencilCoeffs
 from otmb_tpu_torch.ops.tridiag import tridiag_solve_plain
@@ -905,3 +906,104 @@ def test_native_labeller_builds_into_the_build_dir(device):
     coarsen.load_native()
     path = coarsen.native_library_path()
     assert path.parent == _build.BUILD_DIR and path.exists()
+
+
+#: K11/K12 shapes (nz, ny, nx): every nx of 37, 180, 1440, ny of 13, 1080
+#: and nz of 1, 13, 75 at least once; none a multiple of the 1024-cell tile.
+ALGEBRA_SHAPES = [(1, 13, 37), (13, 13, 180), (75, 13, 1440), (1, 1080, 1440),
+                  (13, 1080, 180), (75, 1080, 37)]
+#: The sums within 1e-12 of the f64 plain sums (f64 `torch.dot`s, whose
+#: order differs from the kernel's fixed tree), relative to the sum of the
+#: terms' magnitudes.
+TOL_ALGEBRA_SUM = 1e-12
+
+
+def _algebra_inputs(device, shape, members, dtype, nfields: int, seed: int):
+    rng = np.random.default_rng(seed)
+    lead = () if members is None else (members,)
+    fields = [torch.as_tensor(rng.standard_normal(lead + shape), device=device).to(dtype)
+              for _ in range(nfields)]
+    scalar = lambda: torch.as_tensor(rng.uniform(-1.0, 1.0, lead), device=device).to(dtype)
+    return fields, scalar
+
+
+def _check_sums(got, pairs, dtype):
+    """`got` (..., k) against the f64 plain sums of `pairs`: within
+    TOL_ALGEBRA_SUM; in f32 also equal to their rounding unless the f64
+    value lies within that bound of a rounding tie."""
+    want = torch.stack([krylov_algebra.dot64(a, b) for a, b in pairs], dim=-1)
+    mag = torch.stack([krylov_algebra.dot64(a.abs(), b.abs()) for a, b in pairs], dim=-1)
+    g = got.double()
+    if dtype == torch.float64:
+        assert bool(((g - want).abs() <= TOL_ALGEBRA_SUM * mag).all())
+        return
+    rounded = want.float().double()
+    tie = ((g + rounded) / 2 - want).abs() <= TOL_ALGEBRA_SUM * mag
+    assert bool(((g == rounded) | tie).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("members", [None, 1, 3, 8])
+@pytest.mark.parametrize("shape", ALGEBRA_SHAPES)
+def test_k11_equals_plain(device, shape, members, dtype):
+    (r0, u1, r1, r2), scalar = _algebra_inputs(device, shape, members, dtype, 4, 21)
+    alpha = scalar()
+    n0 = krylov_algebra.SUMS_LAUNCHES
+    got_r0, sums = krylov_algebra.polish_sums(r0, u1, r1, r2, alpha)
+    assert krylov_algebra.SUMS_LAUNCHES == n0 + 1
+    want_r0, _ = krylov_algebra.polish_sums_plain(r0, u1, r1, r2, alpha)
+    torch.testing.assert_close(got_r0, want_r0, rtol=0, atol=0)
+    assert sums.shape == r0.shape[:-3] + (krylov_algebra.NSUMS,) and sums.dtype == dtype
+    _check_sums(sums, ((r1, r1), (r1, r2), (r2, r2), (want_r0, r1), (want_r0, r2)), dtype)
+
+
+@pytest.mark.parametrize("with_dot", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("members", [None, 1, 3, 8])
+@pytest.mark.parametrize("shape", ALGEBRA_SHAPES)
+def test_k12_equals_plain(device, shape, members, dtype, with_dot):
+    fields, scalar = _algebra_inputs(device, shape, members, dtype, 8, 22)
+    y, u0, r0, r1, r2, u1, u2, rhat = fields
+    alpha, w1, w2 = scalar(), scalar(), scalar()
+    rhat = rhat if with_dot else None
+    n0 = krylov_algebra.UPDATE_LAUNCHES
+    got = krylov_algebra.polish_update(y, u0, r0, r1, r2, u1, u2, alpha, w1, w2, rhat)
+    assert krylov_algebra.UPDATE_LAUNCHES == n0 + 1
+    want = krylov_algebra.polish_update_plain(y, u0, r0, r1, r2, u1, u2, alpha, w1, w2, rhat)
+    for g, w in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    if with_dot:
+        assert got[3].shape == r0.shape[:-3] and got[3].dtype == dtype
+        _check_sums(got[3].unsqueeze(-1), ((rhat, want[1]),), dtype)
+    else:
+        assert got[3] is None
+
+
+def test_k11_k12_sums_repeat(device):
+    """The same inputs give the same sums, bit for bit, launch after launch."""
+    (r0, u1, r1, r2), scalar = _algebra_inputs(device, (75, 1080, 37), 3, torch.float32, 4, 23)
+    alpha = scalar()
+    first = krylov_algebra.polish_sums(r0, u1, r1, r2, alpha)[1]
+    for _ in range(3):
+        torch.testing.assert_close(krylov_algebra.polish_sums(r0, u1, r1, r2, alpha)[1], first,
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("members", [None, 4])
+def test_bicgstab2_cycle_runs_k11_and_k12(case, members):
+    """A BiCGStab(2) solve (a field on K3, a batch unfused on K5 + K2) ends
+    every cycle in K11 and K12, and two solves give the same bits."""
+    _, gm, idx, T, _ = case
+    b = idx.wet3d.to(torch.float32)
+    if members is not None:
+        b = torch.stack([b * (m + 1) for m in range(members)])
+    kw = dict(shift=1e-3, tol=1e-6, chunk=20, algorithm="bicgstab2", fused=members is None)
+    n11, n12 = krylov_algebra.SUMS_LAUNCHES, krylov_algebra.UPDATE_LAUNCHES
+    stats = {}
+    x1, r1 = P.solve_shifted_chunked(T.to(torch.float32), b, gm.topology, stats=stats, **kw)
+    cycles = stats["iters"] // 2
+    assert krylov_algebra.SUMS_LAUNCHES - n11 == cycles
+    assert krylov_algebra.UPDATE_LAUNCHES - n12 == cycles
+    x2, r2 = P.solve_shifted_chunked(T.to(torch.float32), b, gm.topology, **kw)
+    torch.testing.assert_close(x1, x2, rtol=0, atol=0)
+    assert (r1 == r2) if members is None else bool((r1 == r2).all())

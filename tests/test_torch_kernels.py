@@ -297,8 +297,9 @@ def test_library_path_hashes_sources_and_flags():
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert path == _build.library_path()
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {"assemble.cu", "krylov.cu",
-                                                         "probe.cu", "redi.cu",
-                                                         "stencil.cu", "tridiag.cu"}
+                                                         "krylov_algebra.cu", "probe.cu",
+                                                         "redi.cu", "stencil.cu",
+                                                         "tridiag.cu"}
     assert not any("fast-math" in f or "fast_math" in f or "ftz" in f
                    for f in _build.NVCC_FLAGS)
 
