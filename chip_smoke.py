@@ -46,9 +46,10 @@ use, the coarsening's C++ labelling core with g++), then:
      and read after (K11 and K12 required);
  10. holds K3 against the composition of the K2 and K1 kernels and its
      plain version at 0.25 degrees (tripolar) and 720x540x75 (bipolar),
-     in f32 and f64, on T and T', for each use the engine makes of it,
-     and K5 at B = 1, 5 and 8 (f32 and bf16 legs) against K1 member by
-     member on both grids; K11 and K12 on a field and a batch of 4 in f32
+     in f32 and f64, on T and T', for each use the engine makes of it (in
+     f32 with combine and dot also on M's legs other than A's: lower and
+     upper halved, the diagonal scaled), and K5 at B = 1, 5 and 8 (f32
+     and bf16 legs) against K1 member by member on both grids; K11 and K12 on a field and a batch of 4 in f32
      and f64 against their plain versions (updates exact, sums within
      1e-12 of the f64 plain sums), and in f32 their times beside the plain
      versions' and the eager addcmul/torch.dot sequence they replace;
@@ -63,7 +64,8 @@ use, the coarsening's C++ labelling core with g++), then:
      measured bandwidth and the fractions of it that K1, K2, K3 and K5
      reach at 0.25 degrees;
  13. times K1, K2, K3 and one BiCGStab(2) cycle (fused and unfused) at
-     0.25 degrees, and K10;
+     0.25 degrees, K3 also at 1 degree (combine and dot, rhat a field of
+     its own; its bound counts 12 fields, K3_STREAMS), and K10;
  14. drives the 1-degree density path through the public API (f64 grid
      metrics made without device=, on the current CUDA device), counts
      reset before and read after: TEOS-10 density of the synthetic
@@ -208,6 +210,11 @@ TOL_MEAN_AGE = 1e-6
 # against the f64 dot of the plain out it may differ by the rounding of the
 # value type, bounded by TOL_K3_DOT * sum |rhat * out|.
 TOL_K3 = 0.0
+# K3's compulsory fields by (combine, dot): A's 7 legs and x1 read, out
+# written, and x2 read and z written with combine, rhat read with dot. M
+# adds none: its lower and upper are A's bottom and top, its diagonal A's
+# guarded.
+K3_STREAMS = {(True, True): 12, (True, False): 11, (False, True): 10, (False, False): 9}
 TOL_K3_DOT = {torch.float32: 1e-5, torch.float64: 1e-12}
 # K10 adds the same f32 values in the same order as its plain version.
 TOL_K10 = 0.0
@@ -584,6 +591,8 @@ def phase_times(P, card, T, gm, idx):
                       lambda: tridiag_factor_plain(lower, diag, upper), 20, 3),
         "K4": (lambda: P.assemble_T(umo, vmo, ml, gm),
                lambda: assemble_transport(umo, vmo, ml, gm, wet).T, 20, 5),
+        # K3 as the engine runs it: combine and dot on the ideal-age system
+        "K3": k3_timing_pair(P, T, topo, wet, 50, 5),
         # K4's prep entry: the resident fields and per-level rows
         "K4 prep": (lambda: assemble._prep(gm, ml, *KAPPAS(P)),
                     lambda: (assemble._residents(gm, ml, P.KAPPA_H_DEFAULT),
@@ -766,6 +775,26 @@ def k3_operator(c, wet, topo, transpose: bool, dtype):
     return sys_.a, sys_.m_legs
 
 
+def k3_timing_pair(P, T, topo, wet, calls_k: int, calls_p: int, combine: bool = True,
+                   dot: bool = True):
+    """(kernel, plain, calls) of K3 (with combine and dot unless told) on
+    the ideal-age system of T in f32, x1 the wet mask and x2, rhat fields
+    of their own."""
+    from otmb_tpu_torch.ops.krylov import fused_krylov_step_plain, krylov_scratch
+
+    a, m = k3_operator(T, wet, topo, False, torch.float32)
+    gen = torch.Generator(device=wet.device).manual_seed(SEED + 4)
+    x2, rhat = (torch.where(wet, torch.randn(wet.shape, generator=gen, device=wet.device), 0.0)
+                for _ in range(2))
+    x1 = wet.float()
+    c2 = torch.tensor(-0.37, dtype=torch.float32, device=wet.device)
+    scratch = krylov_scratch(*m)
+    kw = dict(with_combine=combine, with_dot=dot)
+    return (lambda: P.fused_krylov_step(a, *m, x1, x2, c2, rhat, topo, scratch=scratch, **kw),
+            lambda: fused_krylov_step_plain(a, *m, x1, x2, c2, rhat, topo, **kw), calls_k,
+            calls_p)
+
+
 def phase_k3(P, device, cases):
     """K3 against the composition of the K2 and K1 kernels and against its
     plain version: z and out exact, d within TOL_K3_DOT, d repeatable."""
@@ -809,6 +838,19 @@ def phase_k3(P, device, cases):
                         require(torch.equal(d, d2), f"K3 {tag}: d differs between two calls")
                         msg += (f"; |d - d_ref| {derr:.3e} <= {bound:.3e} "
                                 f"({TOL_K3_DOT[dtype]} * sum|rhat*out|), repeatable")
+                    if combine and dot and dtype == torch.float32:
+                        # M's legs other than A's: lower and upper halved, the diagonal
+                        # 1.5 times A's guarded; against K2 + K1 on those legs
+                        other = (0.5 * m[0], 1.5 * m[1], 0.5 * m[2])
+                        _, oout, _ = P.fused_krylov_step(a, *other, x1, x2, c2, rhat, topo, **kw)
+                        owant = P.stencil_apply(a, P.tridiag_solve(*other, want_z), topo)
+                        err_other = rel_err(oout, owant)[0]
+                        require(err_other <= TOL_K3, f"K3 {tag}, M's legs not A's: out max abs "
+                                                     f"{err_other:.3e}")
+                        require(not torch.equal(oout, out), f"K3 {tag}: other legs, same out")
+                        err_out = max(err_out, err_other)
+                        msg += "; M's legs other than A's: out exact vs K2+K1 on them"
+                        del other, oout, owant
                     log(f"[K3] {tag}: {msg}")
                     worst[(kind, str(dtype), op)] = max(worst.get((kind, str(dtype), op), 0.0),
                                                         err_out)
@@ -841,8 +883,9 @@ def phase_probe(P, device, card, k_times):
         f"(card {card}); launches {counts['K10']}")
     nx, ny, nz = QUARTER
     cells = nx * ny * nz
-    # compulsory traffic: every input read once, every output written once (f32)
-    streams_of = {"K1 apply": 9, "K2": 5, "K3": 15}
+    # compulsory traffic: every input read once, every output written once
+    # (f32); K3 as timed, with combine and dot
+    streams_of = {"K1 apply": 9, "K2": 5, "K3": K3_STREAMS[True, True]}
     fractions = {}
     for name, n in streams_of.items():
         rate = n * cells * 4 / (k_times[name][0] * 1e-3) / 1e9
@@ -860,7 +903,7 @@ def phase_times_quarter(P, card, T, gm, idx):
     eager vector algebra)."""
     from otmb_tpu_torch.models import solvers as S
     from otmb_tpu_torch.ops.apply import apply_stencil
-    from otmb_tpu_torch.ops.krylov import fused_krylov_step_plain, krylov_scratch
+    from otmb_tpu_torch.ops.krylov import krylov_scratch
     from otmb_tpu_torch.ops.tridiag import tridiag_solve_factored_plain
 
     topo, wet = gm.topology, idx.wet3d
@@ -868,9 +911,6 @@ def phase_times_quarter(P, card, T, gm, idx):
     b = wet.float()
     sys_ = S._system(T, torch.float32, topo, extra_diag=surface_mask(wet, torch.float32))
     a, m = sys_.a, sys_.m_legs
-    gen = torch.Generator(device=b.device).manual_seed(SEED + 4)
-    x2 = torch.where(wet, torch.randn(wet.shape, generator=gen, device=b.device), 0.0)
-    c2 = torch.tensor(-0.37, dtype=torch.float32, device=b.device)
     scratch = krylov_scratch(*m, factor=sys_.factor)
     cp, rden = sys_.factor
     pairs = {
@@ -878,8 +918,7 @@ def phase_times_quarter(P, card, T, gm, idx):
                      20, 5),
         "K2": (lambda: P.tridiag_solve_factored(cp, rden, m[2], b),
                lambda: tridiag_solve_factored_plain(cp, rden, m[2], b), 20, 3),
-        "K3": (lambda: P.fused_krylov_step(a, *m, b, x2, c2, x2, topo, scratch=scratch),
-               lambda: fused_krylov_step_plain(a, *m, b, x2, c2, x2, topo), 20, 3),
+        "K3": k3_timing_pair(P, T, topo, wet, 20, 3),
     }
     times = {}
     for name, (kernel, plain, calls_k, calls_p) in pairs.items():
@@ -2769,6 +2808,9 @@ def main() -> int:
     log_rates([*(("K2 solve", f"{size} {dt}", 5 * n * nb, ms) for size, n, t in (
                    (one, cells, times), (quarter, qcells, qtimes))
                  for dt, nb, ms in (("f32", 4, t["K2"][0]), ("f64", 8, t["K2 f64"][0]))),
+               *((f"K3 combine + dot ({K3_STREAMS[True, True]} streams)", f"{size} f32",
+                  K3_STREAMS[True, True] * n * 4, t["K3"][0])
+                 for size, n, t in ((one, cells, times), (quarter, qcells, qtimes))),
                ("K6", f"{one} f32", redi_bytes(cells, plane, 4, 1, 4), k6_times["K6"][0]),
                ("K6 bf16", f"{one} (bf16, f32)", redi_bytes(cells, plane, 2, 1, 4),
                 k6_times["K6 bf16"][0]),
@@ -2839,7 +2881,7 @@ def main() -> int:
               *times["K4 prep"], (21 * plane + 7 * NZ) * 4, 6 * plane + 10 * NZ, None),
         entry("K3 fused_krylov_step", "krylov.cu", "otmb_tpu/ops/krylov_pallas.py:68",
               qlaunches["K3"], k3_worst[("tripolar", str(torch.float32), "T")], *qtimes["K3"],
-              15 * qcells * 4, 30 * qcells, None),
+              K3_STREAMS[True, True] * qcells * 4, 30 * qcells, None),
         entry("K5 stencil_apply_multi/euler_step_multi", "stencil.cu",
               "otmb_tpu/ops/stencil_pallas.py:747", batched["K5"] + qbatched["K5"],
               max(k5_worst, k5_err), k5_times[BATCH]["K5"], k5_times[BATCH]["plain"],

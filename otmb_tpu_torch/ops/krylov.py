@@ -14,6 +14,13 @@ and returns (z, out, d). All fields are (nz, ny, nx) of one dtype, f32 or
 f64; c2 is a number or a 0-d tensor and d a 0-d tensor of that dtype, so
 the engine never reads a scalar back to the host between steps.
 
+M's factor (cp and rden = 1/denom of the Thomas forward sweep) depends on
+the legs only: K2's factor kernel forms it once per solve
+(`krylov_scratch`), and every step reads it. The kernel keeps each
+column's dp and M(z) in shared memory, so a step writes no scratch field;
+only columns too tall for it (f64 above nz = 176, f32 above nz = 360)
+keep that state in a buffer the kernel allocates for the launch.
+
 A CUDA tensor always goes to the kernel, whose z and out equal the
 composition of the port's own kernels, stencil_apply(a, tridiag_solve(...,
 x1 + c2 * x2)), bit for bit, and whose d is summed in f64 in a fixed order
@@ -41,22 +48,23 @@ from .tridiag import tridiag_factor, tridiag_solve_plain
 #: Kernel launches made by this module's wrappers.
 LAUNCHES = 0
 
-#: Columns each thread block owns along i and j (kTI, kTJ in csrc/krylov.cu).
-TILE_I, TILE_J = 254, 2
+#: Owned columns of the kernel's narrowest tile along i (kOwnNarrow in
+#: csrc/krylov.cu; a strip is one row or more): the dot's partial sums are
+#: allocated for ceil(nx / MIN_OWN) * ny blocks, the most a launch makes.
+MIN_OWN = 30
 
 _ENTRY = {torch.float32: "otmb_krylov_f32", torch.float64: "otmb_krylov_f64"}
-_ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 class KrylovScratch(NamedTuple):
     """What one solve's half-steps share: the factorization of M (cp and
-    rden = 1/denom of the Thomas forward sweep), the dp field of each
-    step's sweep, the per-block partial sums of the dot (f64), and `legs`,
-    which identifies the Thomas legs the factorization belongs to."""
+    rden = 1/denom of the Thomas forward sweep), the per-block partial sums
+    of the dot (f64), and `legs`, which identifies the Thomas legs the
+    factorization belongs to."""
 
     cp: torch.Tensor
     rden: torch.Tensor
-    dp: torch.Tensor
     partials: torch.Tensor
     legs: tuple
 
@@ -69,8 +77,8 @@ def krylov_scratch(m_lower: torch.Tensor, m_diag: torch.Tensor, m_upper: torch.T
                    factor: tuple[torch.Tensor, torch.Tensor] | None = None) -> KrylovScratch:
     """The scratch of `fused_krylov_step` on these Thomas legs: M's factor
     (`factor`, K2's (cp, rden) of the same legs, or one `tridiag_factor`
-    launch here) and the rest, allocated. Do it once per solve and pass the
-    result to every step of the solve."""
+    launch here) and the dot's partial sums. Do it once per solve and pass
+    the result to every step of the solve."""
     m_legs = (m_lower, m_diag, m_upper)
     for name, t in zip(("m_lower", "m_diag", "m_upper"), m_legs):
         if t.dtype not in _ENTRY:
@@ -79,11 +87,10 @@ def krylov_scratch(m_lower: torch.Tensor, m_diag: torch.Tensor, m_upper: torch.T
                 or t.device != m_diag.device or not t.is_contiguous():
             raise ValueError(f"krylov_scratch: {name} must be a contiguous (nz, ny, nx) "
                              f"tensor of m_diag's dtype and device")
-    nz, ny, nx = m_diag.shape
-    nblocks = -(-nx // TILE_I) * -(-ny // TILE_J)
-    partials = torch.empty(nblocks, dtype=torch.float64, device=m_diag.device)
+    _, ny, nx = m_diag.shape
+    partials = torch.empty(-(-nx // MIN_OWN) * ny, dtype=torch.float64, device=m_diag.device)
     cp, rden = tridiag_factor(*m_legs) if factor is None else factor
-    return KrylovScratch(cp, rden, torch.empty_like(m_diag), partials, _legs_key(m_legs))
+    return KrylovScratch(cp, rden, partials, _legs_key(m_legs))
 
 
 def fused_krylov_step_plain(a_coeffs: StencilCoeffs, m_lower, m_diag, m_upper, x1, x2, c2,
@@ -155,11 +162,11 @@ def fused_krylov_step(a_coeffs: StencilCoeffs, m_lower: torch.Tensor, m_diag: to
     ptr = lambda t: None if t is None else t.data_ptr()
     _build.launch(
         _ENTRY[x1.dtype], _ARGTYPES, x1.device,
-        *(leg.data_ptr() for leg in a_coeffs), m_upper.data_ptr(), scratch.cp.data_ptr(),
-        scratch.rden.data_ptr(), x1.data_ptr(), ptr(x2 if with_combine else None), ptr(c2_t),
+        *(leg.data_ptr() for leg in a_coeffs), scratch.cp.data_ptr(), scratch.rden.data_ptr(),
+        m_upper.data_ptr(), x1.data_ptr(), ptr(x2 if with_combine else None), ptr(c2_t),
         ptr(rhat if with_dot else None), ptr(z if with_combine else None), out.data_ptr(),
-        scratch.dp.data_ptr(), scratch.partials.data_ptr(), ptr(d), scratch.partials.numel(),
-        nz, ny, nx, int(topology.is_tripolar), int(with_combine), int(with_dot),
+        scratch.partials.data_ptr(), ptr(d), scratch.partials.numel(), nz, ny, nx,
+        int(topology.is_tripolar), int(with_combine), int(with_dot),
     )
     LAUNCHES += 1
     return z, out, d

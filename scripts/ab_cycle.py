@@ -19,7 +19,12 @@ host-built case of `chip_smoke.py`, f32 T from K4):
     elementwise kernels (addcmul, where, the scalar algebra), of the dots
     (cuBLAS and reductions), and in all ("busy"), with the kernel count;
   * the fixed-work batched solve of 4 latitude-band dyes (150 matvec pairs,
-    K5 + batched K2): ms per member-pair, wall over pairs x members.
+    K5 + batched K2): ms per member-pair, wall over pairs x members;
+  * the peak device memory of the age's solve (above what was allocated
+    before it), and K3 alone (chip_smoke.py's timing call; with combine and
+    dot, and with each other flag pair) at 1440x1080x75 and at 360x300x50:
+    ms per call (CUDA events) and its kernels' device ms per call
+    (torch.profiler).
 
 The order lists the roots by index; "0,1,1,0" runs OLD, NEW, NEW, OLD. Each
 run prints one JSON line; the calling process prints them all and the card,
@@ -38,6 +43,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
 QUARTER = (1440, 1080, 75)
+ONE = (360, 300, 50)
 CYCLES = 5  # cycles per timed or traced window
 PAIRS = 150  # matvec pairs of the fixed-work batched solve
 BANDS = 4
@@ -87,13 +93,17 @@ def run_one(root: Path, device=None) -> dict:
     del ds
     topo, wet = gm.topology, idx.wet3d
 
-    # the refined ideal age
+    # the refined ideal age, with the peak device memory of its solve
     stats = {}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gamma, res = P.ideal_age(T, wet, topo, tol=C.TOL_AGE, refine=True, algorithm="bicgstab2",
                              stats=stats)
     torch.cuda.synchronize()
     out["age_s"] = time.perf_counter() - t0
+    out["age_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
     out["age_res"] = res
     out["age_passes"] = stats["refinements"]
     out["age_pairs"] = sum(p.get("inner_iters") or 0 for p in stats["passes"])
@@ -127,6 +137,7 @@ def run_one(root: Path, device=None) -> dict:
     out["cycle_kernels"] = kernels / CYCLES
     del sys_, step, state
     torch.cuda.empty_cache()
+    out["k3"] = {"quarter": _k3_times(C, P, T, topo, wet)}
 
     # the fixed-work batched solve
     bs, surf = C.bands_rhs(wet, BANDS)
@@ -140,6 +151,43 @@ def run_one(root: Path, device=None) -> dict:
     wall = time.perf_counter() - t0
     out["batched_ms_per_member_pair"] = wall * 1e3 / (BANDS * st["iters"])
     out["batched_res"] = res.tolist()
+    del xs, bs, surf, T, gm, idx
+    torch.cuda.empty_cache()
+
+    # K3 at 1 degree, where a column walk is latency-bound
+    nx, ny, nz = ONE
+    ds, gm, idx = C.build_case(P, nx, ny, nz, "tripolar", torch.float32, device)
+    T = P.assemble_T(ds.umo, ds.vmo, ds.mlotst, gm)
+    out["k3"]["one"] = _k3_times(C, P, T, gm.topology, idx.wet3d)
+    return out
+
+
+def _k3_times(C, P, T, topo, wet) -> dict:
+    """K3 on the ideal-age system of T (chip_smoke.py's timing call), with
+    combine and dot ("ms", "device_ms") and with each other flag pair
+    ("combine=0,dot=1", ...): ms per call over back-to-back calls (CUDA
+    events, wrapper included) and its kernels' device ms per call
+    (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for combine, dot in ((True, True), (True, False), (False, True), (False, False)):
+        kernel = C.k3_timing_pair(P, T, topo, wet, 20, 0, combine, dot)[0]
+        ms = C.cuda_ms(kernel, 20)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                kernel()
+            torch.cuda.synchronize()
+        device_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                        if e.device_type == DeviceType.CUDA and "krylov" in e.name) / 1e3 / 10
+        times = {"ms": ms, "device_ms": device_ms}
+        if combine and dot:
+            out.update(times)
+        else:
+            out[f"combine={int(combine)},dot={int(dot)}"] = times
+        del kernel
     return out
 
 

@@ -221,6 +221,146 @@ def test_k3_factorization_equals_plain(case, dtype):
                             with_dot=False, scratch=krylov.krylov_scratch(*(t.clone() for t in m)))
 
 
+K3_FLAGS = [(True, True), (True, False), (False, True), (False, False)]
+
+
+def _k3_random(device, kind, nz, ny, nx, dtype, seed):
+    """Random legs on a (nz, ny, nx) grid with land columns (every leg 0,
+    the diagonal too) and a partial column, the legs across missing
+    neighbours left nonzero (both K3 and the composition read 0 there);
+    x1, x2, rhat random."""
+    rng = np.random.default_rng(seed)
+    t = lambda scale=1.0: torch.as_tensor(scale * rng.standard_normal((nz, ny, nx)),
+                                          device=device)
+    wet = torch.ones((nz, ny, nx), dtype=torch.bool, device=device)
+    wet[:, ny // 2, : nx // 3] = False
+    wet[:, -1, -1] = False  # a land column in the fold row
+    wet[nz // 2:, 1, 2] = False
+    legs = {"diag": 3.0 + t().abs()}
+    for leg in ("east", "west", "north", "south", "top", "bottom"):
+        legs[leg] = t(0.3)
+    a = StencilCoeffs(**{k: torch.where(wet, v, 0.0).to(dtype) for k, v in legs.items()})
+    return P.GridTopology(kind, nx, ny, nz), a, t().to(dtype), t().to(dtype), t().to(dtype)
+
+
+def _k3_check(a, m, x1, x2, rhat, topo, dtype, call):
+    """Every combine/dot flag of `call` (the kernel on legs m) against the
+    K2 + K1 composition: z and out exact, d within its bound and the same
+    bits on a second call."""
+    c2 = torch.tensor(-0.37, dtype=dtype, device=x1.device)
+    for combine, dot in K3_FLAGS:
+        z, out, d = call(x1, x2 if combine else None, c2, rhat if dot else None)
+        want_z = x1 + c2 * x2 if combine else x1
+        want_out = P.stencil_apply(a, P.tridiag_solve(*m, want_z), topo)
+        torch.testing.assert_close(z, want_z, rtol=0, atol=0)
+        torch.testing.assert_close(out, want_out, rtol=0, atol=0)
+        if not dot:
+            assert d is None
+            continue
+        ref = torch.dot(rhat.double().flatten(), want_out.double().flatten())
+        scale = float((rhat.double() * want_out.double()).abs().sum())
+        assert abs(float(d) - float(ref)) <= (1e-5 if dtype == torch.float32 else 1e-12) * scale
+        assert torch.equal(d, call(x1, x2 if combine else None, c2, rhat)[2])
+
+
+@pytest.mark.parametrize("path", ["a_legs", "other_legs"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind", ["tripolar", "bipolar"])
+@pytest.mark.parametrize("nz", [1, 2, 50, 75])
+def test_k3_cut_shapes_equal_composition(device, nz, kind, dtype, path):
+    """K3 at nz up to 75 on 37 x 70 columns (not a multiple of any tile
+    along i or of the strips along j), both topologies (the fold row
+    solved by the top strip), land columns with diag 0, every flag: on
+    A's own legs (the engine's M) and on other legs (an unguarded diagonal
+    with zeros and legs unrelated to A)."""
+    topo, a, x1, x2, rhat = _k3_random(device, kind, nz, 37, 70, dtype, seed=nz)
+    if path == "a_legs":
+        m = (a.bottom, torch.where(a.diag != 0, a.diag, 1.0), a.top)
+    else:
+        rng = np.random.default_rng(nz + 100)
+        r = lambda: torch.as_tensor(rng.standard_normal((nz, 37, 70)), device=device).to(dtype)
+        m = (0.2 * r(), 2.0 + r().abs(), 0.2 * r())
+        m[1][:, 0, :5] = 0.0
+    scratch = krylov.krylov_scratch(*m)
+    n0 = krylov.LAUNCHES
+    _k3_check(a, m, x1, x2, rhat, topo, dtype,
+              lambda x1, x2, c2, rhat: P.fused_krylov_step(
+                  a, *m, x1, x2, c2, rhat, topo, with_combine=x2 is not None,
+                  with_dot=rhat is not None, scratch=scratch))
+    assert krylov.LAUNCHES == n0 + 6
+
+
+# (dtype, nz, ny, nx, state in device memory): the launcher's choices,
+# reached through the shapes. 56-column tiles in strips of one row and of
+# several rows; 30-column tiles where 56 columns' state would not fit in
+# shared memory (f64 above nz = 96, f32 above nz = 200), up to their limit
+# (f64 nz = 176, f32 nz = 360); past it the state in device memory.
+K3_LAUNCH_SHAPES = [
+    (torch.float32, 20, 23, 300, False),
+    (torch.float32, 20, 200, 1500, False),
+    (torch.float64, 96, 9, 70, False),
+    (torch.float64, 120, 9, 70, False),
+    (torch.float64, 176, 9, 70, False),
+    (torch.float64, 177, 9, 70, True),
+    (torch.float64, 177, 40, 1500, True),
+    (torch.float32, 201, 9, 70, False),
+    (torch.float32, 360, 5, 40, False),
+    (torch.float32, 361, 5, 40, True),
+]
+
+
+@pytest.mark.parametrize("shape", K3_LAUNCH_SHAPES, ids=lambda s: "{}-{}x{}x{}".format(
+    str(s[0]).replace("torch.", ""), *s[1:4]))
+@pytest.mark.parametrize("kind", ["tripolar", "bipolar"])
+def test_k3_tiles_and_strips_equal_composition(device, kind, shape):
+    """The launcher's choices change no bit: every tile, strip and place of
+    a block's state that the shapes of K3_LAUNCH_SHAPES lead it to, on A's
+    own legs, every flag, against the composition; the kernel that ran
+    keeps its state in device memory exactly where the shape says."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dtype, nz, ny, nx, spill = shape
+    topo, a, x1, x2, rhat = _k3_random(device, kind, nz, ny, nx, dtype, seed=nz)
+    m = (a.bottom, torch.where(a.diag != 0, a.diag, 1.0), a.top)
+    scratch = krylov.krylov_scratch(*m)
+    call = lambda x1, x2, c2, rhat: P.fused_krylov_step(
+        a, *m, x1, x2, c2, rhat, topo, with_combine=x2 is not None, with_dot=rhat is not None,
+        scratch=scratch)
+    _k3_check(a, m, x1, x2, rhat, topo, dtype, call)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call(x1, x2, 0.5, rhat)
+        torch.cuda.synchronize()
+    # krylov_kernel<T, kCombine, kDot, kSpill>
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "krylov_kernel" in e.name]
+    assert len(names) == 1, names
+    assert names[0].split("<")[1].split(">")[0].split(",")[-1].strip() == str(spill).lower()
+
+
+@pytest.mark.parametrize("dot", [True, False])
+def test_k3_is_one_launch_per_call(case, dot):
+    """One K3 kernel a call, and the finish kernel of the dot with it:
+    nothing else runs on the card (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    topo, a, m, x1, x2, rhat = _k3_inputs(case, torch.float32, False)
+    c2 = torch.tensor(0.5, dtype=torch.float32, device=x1.device)
+    scratch = krylov.krylov_scratch(*m)
+    step = lambda: P.fused_krylov_step(a, *m, x1, x2, c2, rhat, topo, with_dot=dot,
+                                       scratch=scratch)
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == (2 if dot else 1), names
+    assert sum("krylov_kernel" in n for n in names) == 1
+    assert sum("krylov_dot_finish" in n for n in names) == (1 if dot else 0)
+
+
 def test_k10_equals_plain(device):
     thunk, nbytes = P.dma_peak_probe(nstreams=7, mbytes=8, device=device)
     assert nbytes == 8 * 8 * 1024 * 1024

@@ -22,6 +22,7 @@ from otmb_tpu.ops.coeffs import StencilCoeffs as JaxCoeffs
 from otmb_tpu.ops.krylov_pallas import fused_krylov_step as jax_fused_krylov_step
 from otmb_tpu_torch.ops import krylov
 from otmb_tpu_torch.ops.krylov import fused_krylov_step_plain, krylov_scratch
+from otmb_tpu_torch.ops.tridiag import tridiag_solve_plain
 from otmb_tpu_torch.utils import profiling
 from otmb_tpu_torch.utils.convert import coeffs_from_numpy
 
@@ -181,15 +182,17 @@ def test_cpu_path_launches_nothing():
 def test_scratch_factors_the_thomas_legs():
     """The scratch carries cp and rden = 1/denom of the Thomas forward
     sweep (on the CPU from the plain factorization): a solve from them in
-    K2's order equals the plain Thomas solve bit for bit. One f64 partial
-    per thread block of (TILE_J, TILE_I) owned columns."""
+    K2's order equals the plain Thomas solve bit for bit. No dp field: the
+    kernel keeps dp on chip. One f64 partial per thread block of the
+    narrowest tile on one row, the most blocks a launch makes."""
     nz, ny, nx = 5, 31, 61
     legs, m, x1, _, _ = _case(nz, ny, nx, "tripolar", np.float64, seed=6)
     *mt, x1t = _port(legs, m, x1)[1:]
     s = krylov_scratch(*mt)
-    assert s.cp.shape == s.rden.shape == s.dp.shape == (nz, ny, nx)
+    assert s._fields == ("cp", "rden", "partials", "legs")
+    assert s.cp.shape == s.rden.shape == (nz, ny, nx)
     assert s.partials.dtype == torch.float64
-    assert s.partials.numel() == (-(-nx // krylov.TILE_I)) * (-(-ny // krylov.TILE_J))
+    assert s.partials.numel() == (-(-nx // krylov.MIN_OWN)) * ny
     dp, dp_prev = torch.empty_like(x1t), torch.zeros_like(x1t[0])
     for k in range(nz):
         dp_prev = dp[k] = (x1t[k] - mt[2][k] * dp_prev) * s.rden[k]
@@ -199,6 +202,31 @@ def test_scratch_factors_the_thomas_legs():
     assert torch.equal(x, P.tridiag_solve(*mt, x1t))
     with pytest.raises(TypeError):
         krylov_scratch(*(t.half() for t in mt))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("kind", ["tripolar", "bipolar"])
+def test_plain_on_a_legs_matches_pallas(kind, dtype):
+    """The engine's M: lower and upper are A's own bottom and top tensors,
+    the diagonal A's guarded (land columns arrive with diag 0). The plain
+    step on those legs against the Pallas kernel, and bit for bit against
+    the composition of the plain Thomas solve and the plain stencil."""
+    nz, ny, nx = 7, 16, 24
+    legs, m, x1, x2, rhat = _case(nz, ny, nx, kind, dtype, seed=11)
+    c2 = dtype(0.61)
+    z_j, out_j, d_j = _jax(legs, m, x1, x2, c2, rhat, kind)
+    a, _, _, _, x1t, x2t, rhatt = _port(legs, m, x1, x2, rhat)
+    assert bool((a.diag == 0).any())
+    mt = (a.bottom, torch.where(a.diag != 0, a.diag, 1.0), a.top)
+    topo = P.GridTopology(kind, nx, ny, nz)
+    z, out, d = P.fused_krylov_step(a, *mt, x1t, x2t, float(c2), rhatt, topo,
+                                    scratch=krylov_scratch(*mt))
+    tol = TOL[dtype]
+    np.testing.assert_allclose(z.numpy(), z_j, rtol=tol["rtol"], atol=tol["atol"])
+    np.testing.assert_allclose(out.numpy(), out_j, rtol=tol["rtol"], atol=tol["atol"])
+    np.testing.assert_allclose(float(d), d_j, rtol=tol["d_rtol"])
+    want = P.apply_stencil(a, tridiag_solve_plain(*mt, z), topo)
+    assert torch.equal(out, want)
 
 
 # --- K10 -------------------------------------------------------------------
