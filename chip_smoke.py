@@ -3,8 +3,9 @@
 Builds the CUDA kernels K1 (stencil), K2 (Thomas solve), K3 (fused Krylov
 step), K4 (fused assembly), K5 (multi-tracer stencil), K6 (Redi operator,
 one tracer or a batch), K7, K8 and K9 (the stencil, the assembly and Redi
-on one shard of a process grid), K10 (bandwidth probe) and K11/K12 (the
-BiCGStab(2) cycle's polish sums and polish update) from
+on one shard of a process grid), K10 (bandwidth probe), K11/K12 (the
+BiCGStab(2) cycle's polish sums and polish update) and K13 (a BiCGStab(1)
+iteration's algebra) from
 otmb_tpu_torch/csrc, one nvcc per source in parallel (and, at its first
 use, the coarsening's C++ labelling core with g++), then:
 
@@ -14,14 +15,17 @@ use, the coarsening's C++ labelling core with g++), then:
      tripolar, seed 0) through the public API, with the launch counts set
      to 0 just before: grid metrics -> indices -> face fluxes ->
      transportmatrix, the fused assembly (K4), 200 explicit Euler steps
-     (K1) and the refined ideal age (K1 + K2, f64 defects through K1);
-  3. checks that K1, K2 and K4 each launched during that run, then runs
+     (K1) and the refined ideal age (K1 + K2 + K13, f64 defects through K1);
+  3. checks that K1, K2, K4 and K13 each launched during that run, then runs
      the same refined age on the bf16-rounded operator (the bf16-narrow
      mode: K1 in (bf16, f32), K2 on f32 legs), launches counted;
   4. holds each kernel against its plain PyTorch version at the main
      path's shapes, on both topologies, with the tolerances stated below,
-     K2 on a batch of 3 against one launch per member, and K5 in every
-     type pair at B = 4 and 8 against K1 per member and plain;
+     K2 on a batch of 3 against one launch per member, K13's entries (f32
+     and f64, a field and B = 4, and the guard cases: a zero <rhat, v>, <t,
+     t> and omega) against their plain versions bit for bit, timed beside
+     the eager sequence they replace, and K5 in every type pair at B = 4
+     and 8 against K1 per member and plain;
   5. holds the card's slice at the 18x14x6 test size against the golden
      operator and ages in tests/data/golden_tile.npz; then makes the 1-degree
      case on the card with synthetic_device_case (seed 0) and holds it to
@@ -31,7 +35,7 @@ use, the coarsening's C++ labelling core with g++), then:
      reset before and read after each run: 200 batched Euler steps of 8
      tracers (K5; each member equal to K1's propagation bit for bit), and
      the water-mass fractions of 4 latitude bands on the f32 K4 operator
-     and on the f64 one (K5 + batched K2), with their residuals, bounds
+     and on the f64 one (K5 + batched K2 + K13), with their residuals, bounds
      and linearity against the single-RHS all-surface dye solve;
   7. times each kernel and its plain version with CUDA events, and K5 at
      B = 1, 2, 4, 8 beside B launches of K1 and its plain version;
@@ -99,7 +103,9 @@ use, the coarsening's C++ labelling core with g++), then:
      held to K1/K5, K4 and K6 on the rank's shard and to their plain
      versions, bit for bit (overlap to its stated bound), and so are K7's
      pack and edge entries and K4's prep entry; the sharded mean ages to
-     the single-device ones; every rank must launch K7, K7 multi, K8, K9,
+     the single-device ones; on (2, 2) each rank counts the all-reduces
+     of 10 BiCGStab(1) iterations on its shard (3 an iteration required,
+     K13 launched); every rank must launch K7, K7 multi, K8, K9,
      the pack, edge and prep entries and none of K1, K3-K6. Rank 0 traces
      20 overlapped sharded matvecs under torch.profiler (3 kernels and at
      most one copy each way per matvec, required) and times each kernel on
@@ -393,7 +399,8 @@ def phase_main_path(P, device, card):
         f"{stats['refinements']} passes, {t_age:.3f} s wall, volume-weighted mean age "
         f"{mean_age:.3f} yr")
 
-    launches = {name: n for name, n in read().items() if name in ("K1", "K2", "K4", "K4 prep")}
+    launches = {name: n for name, n in read().items()
+                if name in ("K1", "K2", "K4", "K4 prep", "K13")}
     log(f"[launches] main path: {launches}")
     for name, n in launches.items():
         require(n > 0, f"{name} was not launched on the main path")
@@ -637,7 +644,8 @@ def reset_launches():
                 "K4 prep": (assemble, "PREP_LAUNCHES"), "K7 pack": (halo_kernel, "PACK_LAUNCHES"),
                 "K7 edge": (halo_kernel, "EDGE_LAUNCHES"),
                 "K11": (krylov_algebra, "SUMS_LAUNCHES"),
-                "K12": (krylov_algebra, "UPDATE_LAUNCHES")}
+                "K12": (krylov_algebra, "UPDATE_LAUNCHES"),
+                "K13": (krylov_algebra, "BICG1_LAUNCHES")}
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
     return lambda: {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
@@ -1067,6 +1075,132 @@ def phase_algebra_quarter(card, wet):
     return worst, times
 
 
+# K13 (one BiCGStab(1) iteration's algebra, csrc/krylov_algebra.cu) runs its
+# plain version's products, sums and scalars in its order without FMA: the
+# sums add f64 products in the kernel's fixed tree (`tree_sum`), so every
+# entry equals its plain version bit for bit.
+TOL_K13 = 0.0
+# K13's compulsory streams an iteration: the <rhat, v> sum 2, s 3 (r, v
+# read, s written), the t-sums 2, the update 8 (x, phat, shat, s, t, rhat
+# read, x and r written), p 4 (r, p, v read, p written); 20 operations a
+# cell (the sums 6, s 2, the update 8, p 4).
+K13_STREAMS = 19
+K13_FLOPS = 20
+
+
+def k13_eager(S, x, r, p, rhat, v, phat, shat, t, rho):
+    """The eager addcmul/torch.dot/where sequence K13 replaces: one
+    iteration's algebra as the port ran it before K13."""
+    guard = lambda d: torch.where(d == 0, 1.0, d)
+    alpha = rho / guard(S._dot(rhat, v))
+    s = S._axpy(r, -alpha, v)
+    omega = S._dot(t, s) / guard(S._dot(t, t))
+    x1 = S._axpy(S._axpy(x, alpha, phat), omega, shat)
+    r1 = S._axpy(s, -omega, t)
+    rho1 = S._dot(rhat, r1)
+    beta = (rho1 / guard(rho)) * (alpha / guard(omega))
+    return x1, r1, S._axpy(r1, beta, S._axpy(p, -omega, v)), rho1
+
+
+def k13_iteration(A, fields, rho, plain: bool) -> tuple:
+    """K13's four entries (or their plain versions) chained as one
+    iteration of `_bicgstab_steps`: every output, in order."""
+    x, r, p, rhat, v, phat, shat, t = fields
+    sums, s_entry, update, p_entry = ((A.bicg1_sums_plain, A.bicg1_s_plain,
+                                       A.bicg1_update_plain, A.bicg1_p_plain) if plain else
+                                      (A.bicg1_sums, A.bicg1_s, A.bicg1_update, A.bicg1_p))
+    dv = sums(v, rhat)
+    s, alpha = s_entry(r, v, rho, dv)
+    ts = sums(t, s, True)
+    x1, r1, omega, rho1 = update(x, phat, shat, s, t, rhat, alpha, ts)
+    return dv, s, alpha, ts, x1, r1, omega, rho1, p_entry(r1, p, v, rho, rho1, alpha, omega)
+
+
+def phase_k13(card, cases):
+    """K13 at 1 degree on both topologies (the wet masks of `cases`), in f32
+    and f64, on a field and on a batch of ALGEBRA_BATCH, and on the guard
+    cases (rhat = 0: a zero <rhat, v> and rho'; t = 0: a zero <t, t> and
+    omega), every entry against its plain version at TOL_K13; then, on the
+    tripolar f32 field, the five entries of one iteration timed with CUDA
+    events beside the plain versions and the eager sequence they replace,
+    and their device ms under torch.profiler. Returns the worst error and
+    the times {"ms", "plain_ms", "eager_ms", "device_ms", "entries"}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from otmb_tpu_torch.models import solvers as S
+    from otmb_tpu_torch.ops import krylov_algebra as A
+
+    worst = 0.0
+    times = {}
+    for kind, wet in cases:
+        gen = torch.Generator(device=wet.device).manual_seed(SEED + 13)
+        for dtype in (torch.float32, torch.float64):
+            for members in (None, ALGEBRA_BATCH):
+                lead = () if members is None else (members,)
+                field = lambda: torch.where(wet, torch.randn(lead + tuple(wet.shape), generator=gen,
+                                                             device=wet.device, dtype=dtype), 0.0)
+                rho = torch.rand(lead, generator=gen, device=wet.device, dtype=dtype) + 0.5
+                fields = [field() for _ in range(8)]
+                for guard in (False, True):
+                    if guard:
+                        fields[3] = torch.zeros_like(fields[3])  # rhat
+                        fields[7] = torch.zeros_like(fields[7])  # t
+                    got = k13_iteration(A, fields, rho, plain=False)
+                    want = k13_iteration(A, fields, rho, plain=True)
+                    err = max(exact_err(g, w) for g, w in zip(got, want))
+                    worst = max(worst, err)
+                    tag = (f"{kind} {'x'.join(map(str, wet.shape[::-1]))} "
+                           f"{str(dtype).replace('torch.', '')}"
+                           + ("" if members is None else f", B = {members}")
+                           + (", guards (rhat = 0, t = 0)" if guard else ""))
+                    require(err <= TOL_K13, f"K13 {tag}: an entry differs from plain by {err:.3e}")
+                    if guard:
+                        require(bool((got[6] == 0).all()) and all(
+                            bool(torch.isfinite(g).all()) for g in got),
+                            f"K13 {tag}: omega not 0 or a value not finite")
+                    log(f"[K13] {tag}: the sums, alpha, s, omega, x', r', <rhat, r'> and p' "
+                        f"equal to plain (max abs {err:.1e}, tol {TOL_K13})")
+                    del got, want
+                if kind == "tripolar" and dtype == torch.float32 and members is None:
+                    fields = [field() for _ in range(8)]
+                    fns = {"kernel": lambda: k13_iteration(A, fields, rho, plain=False),
+                           "plain": lambda: k13_iteration(A, fields, rho, plain=True),
+                           "eager": lambda: k13_eager(S, *fields, rho)}
+                    t = time_set(fns, {"kernel": 20, "plain": 3, "eager": 20})
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        for _ in range(10):
+                            fns["kernel"]()
+                        torch.cuda.synchronize()
+                    dev = sum(e.time_range.elapsed_us() for e in prof.events()
+                              if e.device_type == DeviceType.CUDA) / 1e3 / 10
+                    x, r, p, rhat, v, phat, shat, tt = fields
+                    dv = A.bicg1_sums(v, rhat)
+                    s, alpha = A.bicg1_s(r, v, rho, dv)
+                    ts = A.bicg1_sums(tt, s, True)
+                    x1, r1, omega, rho1 = A.bicg1_update(x, phat, shat, s, tt, rhat, alpha, ts)
+                    entries = time_set({
+                        "sums <v, rhat>": lambda: A.bicg1_sums(v, rhat),
+                        "s": lambda: A.bicg1_s(r, v, rho, dv),
+                        "sums <t, s>, <t, t>": lambda: A.bicg1_sums(tt, s, True),
+                        "update": lambda: A.bicg1_update(x, phat, shat, s, tt, rhat, alpha, ts),
+                        "p": lambda: A.bicg1_p(r1, p, v, rho, rho1, alpha, omega)},
+                        dict.fromkeys(("sums <v, rhat>", "s", "sums <t, s>, <t, t>", "update",
+                                       "p"), 20))
+                    times = {"ms": t["kernel"], "plain_ms": t["plain"], "eager_ms": t["eager"],
+                             "device_ms": dev, "entries": entries}
+                    log(f"[time] K13 at {NX}x{NY}x{NZ} f32, one iteration's algebra (5 entries): "
+                        f"kernel {t['kernel']:.4f} ms (device {dev:.4f} ms, torch.profiler), "
+                        f"plain {t['plain']:.4f} ms, the eager addcmul/torch.dot/where sequence it "
+                        f"replaces {t['eager']:.4f} ms per iteration; entries "
+                        + ", ".join(f"{k} {v:.4f}" for k, v in entries.items())
+                        + f" ms (CUDA events over back-to-back calls, median of 5; card {card})")
+                    del x, r, p, rhat, v, phat, shat, tt, dv, s, ts, x1, r1
+                del fields
+        torch.cuda.empty_cache()
+    return worst, times
+
+
 # The device case at 1 degree against the host path's makegridmetrics (f32
 # of f64 fields): v3d is area x thickness rounded from f32 factors (three
 # roundings); z3d a cumulative f32 sum down NZ levels.
@@ -1161,7 +1295,7 @@ def phase_batched(P, device, gm, idx, T32, T64):
     counts = read()
     require(counts["K5"] == 200 and counts["K1"] == 0,
             f"batched propagation launches {counts}: expected 200 K5 and no K1")
-    total = {"K5": counts["K5"], "K2": 0}
+    total = {"K5": counts["K5"], "K2": 0, "K13": 0}
     require(bool(torch.isfinite(chis).all()), "batched tracers not finite")
     drift = max(abs(float((chis[m].double() * v).sum()) / float((chis0[m].double() * v).sum())
                     - 1.0) for m in range(BATCH))
@@ -1199,10 +1333,12 @@ def phase_batched(P, device, gm, idx, T32, T64):
         tag = f"[fractions] 1-degree {REGIONS} latitude bands, {name} operator, tol {tol}"
         log(f"{tag}: {wall:.3f} s wall, {stats['iters']} iterations (stop {stats['stop']}), "
             f"residuals {' '.join(f'{r:.3e}' for r in res.tolist())}; launches {counts}")
-        require(counts["K5"] > 0 and counts["K2"] > 0 and counts["K1"] == 0,
-                f"{tag}: launches {counts}: expected K5 and K2, and no K1")
+        require(counts["K5"] > 0 and counts["K2"] > 0 and counts["K13"] > 0
+                and counts["K1"] == 0,
+                f"{tag}: launches {counts}: expected K5, K2 and K13, and no K1")
         total["K5"] += counts["K5"]
         total["K2"] += counts["K2"]
+        total["K13"] += counts["K13"]
         require(float(res.max()) <= tol, f"{tag}: residual {float(res.max()):.3e} > {tol}")
         frw = fr[:, wet]
         require(bool(torch.isfinite(frw).all()), f"{tag}: fractions not finite")
@@ -2217,6 +2353,7 @@ def phase_cli(P, card, ds, mean_age: float, mean_seq: float, fractions: torch.Te
 
 SHARD_GRIDS = ((2, 2), (1, 4))
 SHARD_STEPS = 200
+SHARD_ITERS = 10  # BiCGStab(1) iterations whose all-reduces a rank counts
 # K7, K8 and K9 read the values K1/K5, K4 and K6 read at the same cells and
 # run their operations in their order: equal bit for bit, and so are their
 # plain versions.
@@ -2370,6 +2507,27 @@ def _shard_rank(grid, with_solves: bool) -> dict:
     out = {"shape": grid.shape, "rank": grid.rank, "setup_s": t_set,
            "prop_s": t_prop / 2, "host_staged": grid.host_staged}
     if with_solves:
+        # the all-reduces of SHARD_ITERS BiCGStab(1) iterations on the shard
+        # (K2, K7 and K13): <rhat, v>, then <t, s> with <t, t>, then <rhat, r>
+        from otmb_tpu_torch.models import solvers as S
+        from otmb_tpu_torch.parallel import solve_halo
+
+        sys_ = S._system(T_l, torch.float32, topo,
+                         extra_diag=sh(surface_mask(wet, torch.float32)), grid=grid)
+        state = S._initial_state(sys_, "bicgstab", sh(wet.float()))
+        reduce, calls = solve_halo.all_reduce_sum, [0]
+
+        def counted(t, g):
+            calls[0] += 1
+            return reduce(t, g)
+
+        solve_halo.all_reduce_sum = counted
+        try:
+            S._bicgstab_steps(sys_, state, SHARD_ITERS)
+        finally:
+            solve_halo.all_reduce_sum = reduce
+        out["reduces_per_iter"] = calls[0] / SHARD_ITERS
+        del sys_, state
         stats = {}
         t_age = time.perf_counter()
         age_l, out["age_res"] = P.ideal_age(T_l, sh(wet), topo, tol=TOL_AGE, refine=True,
@@ -2643,6 +2801,10 @@ def phase_sharded(card, mean_age: float, mean_seq: float) -> dict:
                 f"{mv['d2h']} / {mv['h2d']} copies each way (3 and at most 1 expected)")
         if "age_res" in r0:
             for r in ranks:
+                require(r["reduces_per_iter"] == 3 and r["launches"]["K13"] > 0,
+                        f"rank {r['rank']} of {shape}: {r['reduces_per_iter']} all-reduces a "
+                        f"BiCGStab(1) iteration (3 expected), K13 launched "
+                        f"{r['launches']['K13']} times")
                 require(r["age_res"] <= TOL_AGE and r["seq_res"] <= TOL_AGE,
                         f"sharded age / sequestration residual {r['age_res']:.3e} / "
                         f"{r['seq_res']:.3e} > {TOL_AGE}")
@@ -2661,7 +2823,10 @@ def phase_sharded(card, mean_age: float, mean_seq: float) -> dict:
                 f"time (BiCGStab(2) inner): residual {r0['seq_res']:.3e}, {r0['seq_s']:.3f} s, "
                 f"mean {r0['mean_seq']:.9f} yr vs {mean_seq:.9f} (rel {rel_s:.3e}); "
                 f"solve_shifted_halo BiCGStab(2) f32: residual {r0['b2_res']:.3e} after "
-                f"{r0['b2_iters']} pairs ({r0['b2_stop']})")
+                f"{r0['b2_iters']} pairs ({r0['b2_stop']}); all-reduces a BiCGStab(1) "
+                f"iteration {r0['reduces_per_iter']:g} on every rank (over {SHARD_ITERS}); K13 "
+                f"launches {', '.join(str(r['launches']['K13']) for r in ranks)} on ranks 0-"
+                f"{len(ranks) - 1}")
         if "fr" in r0:
             fr0 = r0["fr"]
             walls = ", ".join(f"{r['fr']['s']:.3f}" for r in ranks)
@@ -2734,6 +2899,7 @@ def main() -> int:
                  ("bipolar", bT64, bgm64.topology, bidx.wet3d)]
     k1_worst = phase_k1(P, device, ops_cases)
     k2_worst = phase_k2(P, device, ops_cases)
+    k13_worst, k13_times = phase_k13(card, [("tripolar", idx.wet3d), ("bipolar", bidx.wet3d)])
     # K5 in every type pair at the batch sizes of the 1-degree batched path
     k5_worst = phase_k5_checks(P, device, ops_cases, (("f64", "f64"), ("f32", "f64"),
                                                       ("f32", "f32"), ("bf16", "f32")),
@@ -2933,6 +3099,25 @@ def main() -> int:
               *algebra_times[None, "K12"][:2], 11 * qcells * 4, 16 * qcells,
               algebra_times[None, "K12"][2]),
     ]
+    kernels.append(
+        # one BiCGStab(1) iteration's algebra, which the reference leaves to
+        # XLA's fusion of its fori_loop body (no pallas_call): launches (of
+        # the five entries) on the 1-degree main path, the batched path and
+        # the (2, 2) sharded ranks; ms per iteration's five entries on the
+        # 1-degree f32 field; library: the eager sequence it replaces
+        entry("K13 bicg1 (sums, s, update, p)", "krylov_algebra.cu",
+              "otmb_tpu/models/solvers.py:1132", launches["K13"] + batched["K13"]
+              + s_launches("K13"), k13_worst, k13_times["ms"], k13_times["plain_ms"],
+              K13_STREAMS * cells * 4, K13_FLOPS * cells, k13_times["eager_ms"]))
+    k13_bytes = K13_STREAMS * cells * 4
+    log(f"[roofline] K13 at {one} f32, one iteration's five entries: {k13_bytes / 1e9:.4f} GB "
+        f"compulsory in {k13_times['ms']:.4f} ms ({k13_times['device_ms']:.4f} device ms) = "
+        f"{k13_bytes / k13_times['ms'] / 1e6:.1f} GB/s, bound {k13_bytes / PEAK_BYTES * 1e3:.4f} "
+        f"ms at 3.35 TB/s ({100 * k13_bytes / PEAK_BYTES * 1e3 / k13_times['ms']:.1f} %; by "
+        f"device time {100 * k13_bytes / PEAK_BYTES * 1e3 / k13_times['device_ms']:.1f} %); the "
+        f"eager sequence {k13_times['eager_ms']:.4f} ms; K13 launches: main path "
+        f"{launches['K13']}, batched path {batched['K13']}, {SHARD_GRIDS[0]} sharded ranks "
+        f"{s_launches('K13')}")
     for (members, name), (k_ms, _, e_ms) in algebra_times.items():
         nbytes = (5 if name == "K11" else 11) * qcells * 4 * (members or 1)
         log(f"[roofline] {name} at {quarter} f32{'' if members is None else f', B = {members}'}: "

@@ -1,4 +1,5 @@
-// K11 and K12: the vector algebra of a BiCGStab(2) cycle around K3.
+// K11 and K12: the vector algebra of a BiCGStab(2) cycle around K3; K13
+// (further down): that of a BiCGStab(1) iteration around K2 and K1.
 //
 // The JAX package runs its BiCGStab(2) cycle (otmb_tpu/models/solvers.py:
 // _sr_chunk2_fused, _bicgstab2_cycles) as one jitted fori_loop, so XLA
@@ -256,6 +257,254 @@ int launch_polish_update(const void* y, const void* u0, const void* r0, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
+// K13: one BiCGStab(1) iteration's vector algebra, around its two K2 and two
+// K1 launches. The JAX package runs the iteration as one fori_loop body
+// (otmb_tpu/models/solvers.py:_sr_chunk1, batched _mr_chunk1), where XLA
+// fuses the axpys and the four vdots into a few loop fusions with the
+// scalars on the device; eager PyTorch would launch five addcmuls, four
+// dots and some twenty scalar kernels an iteration. K13 does it in four
+// entries, each where the data flow allows no fewer (a global reduction
+// stands between two entries):
+//
+//   bicg1_sums     after v = A phat:   <v, rhat>
+//                  after t = A shat:   <t, s> and <t, t> (t read once)
+//   bicg1_s        alpha = rho / guard(<rhat, v>);  s = r - alpha v
+//   bicg1_update   omega = <t, s> / guard(<t, t>);
+//                  x' = (x + alpha phat) + omega shat;  r' = s - omega t;
+//                  the partial <rhat, r'>
+//   bicg1_p        beta = (rho' / guard(rho)) (alpha / guard(omega));
+//                  p' = r' + beta (p - omega v)
+//
+// with guard(d) = d where d != 0, else 1: the reference's order and guards.
+// The scalars are formed on the device in the field's type from the
+// reduced sums (device tensors; each block forms its member's own, and
+// block 0 stores alpha and omega for the later entries), so nothing is read
+// back. On a process grid the sums are the shard's, and the engine
+// all-reduces them between the entries: three all-reduces an iteration.
+//
+// Bound on the H100: device-memory bandwidth. The four entries move 19
+// streams (2 + 2 sums, 3, 8, 4), 0.1225 ms at 1 degree in f32; the eager
+// sequence moves 26. Sums, rounding and the batch are K11's and K12's: f64
+// per thread in a fixed order, a fixed shuffle tree, alg_finish_kernel over
+// the blocks; each update formed in double and rounded once; blockIdx.y is
+// the member, and its blocks depend on its size only, so member b of a
+// batch gives the field solve's bits.
+
+template <typename T>
+__device__ __forceinline__ T bicg1_guard(T d) {
+  return d == T(0) ? T(1) : d;
+}
+
+template <typename T, int S>
+__global__ void __launch_bounds__(kAlgThreads)
+bicg1_sums_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                  double* __restrict__ partials, long long n) {
+  __shared__ double warp_sums[S][kAlgWarps];
+  const int m = blockIdx.y;
+  const long long base = static_cast<long long>(m) * n;
+  const long long tiles = (n + kAlgTile - 1) / kAlgTile;
+  double acc[S];
+#pragma unroll
+  for (int q = 0; q < S; ++q) acc[q] = 0.0;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long e0 = tile * kAlgTile + threadIdx.x;
+    T xa[kAlgPer], xb[kAlgPer];
+#pragma unroll
+    for (int q = 0; q < kAlgPer; ++q) {
+      const long long e = e0 + q * kAlgThreads;
+      const bool in = e < n;
+      const long long c = base + (in ? e : 0);
+      xa[q] = in ? a[c] : T(0);
+      xb[q] = in ? b[c] : T(0);
+    }
+#pragma unroll
+    for (int q = 0; q < kAlgPer; ++q) {
+      if (e0 + q * kAlgThreads < n) {
+        const double da = xa[q], db = xb[q];
+        acc[0] += da * db;
+        if constexpr (S == 2) acc[1] += da * da;
+      }
+    }
+  }
+  block_sums<S>(acc, warp_sums,
+                partials + (static_cast<long long>(m) * gridDim.x + blockIdx.x) * S);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kAlgThreads)
+bicg1_s_kernel(const T* __restrict__ r, const T* __restrict__ v, const T* __restrict__ rho,
+               const T* __restrict__ dv, T* __restrict__ s_out, T* __restrict__ alpha_out,
+               long long n) {
+  const int m = blockIdx.y;
+  const long long base = static_cast<long long>(m) * n;
+  const T alpha = rho[m] / bicg1_guard(dv[m]);
+  if (blockIdx.x == 0 && threadIdx.x == 0) alpha_out[m] = alpha;
+  const double a = alpha;
+  const long long tiles = (n + kAlgTile - 1) / kAlgTile;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long e0 = tile * kAlgTile + threadIdx.x;
+    T xr[kAlgPer], xv[kAlgPer];
+#pragma unroll
+    for (int q = 0; q < kAlgPer; ++q) {
+      const long long e = e0 + q * kAlgThreads;
+      const bool in = e < n;
+      const long long c = base + (in ? e : 0);
+      xr[q] = in ? r[c] : T(0);
+      xv[q] = in ? v[c] : T(0);
+    }
+#pragma unroll
+    for (int q = 0; q < kAlgPer; ++q) {
+      const long long e = e0 + q * kAlgThreads;
+      if (e < n) s_out[base + e] = static_cast<T>(double(xr[q]) - a * double(xv[q]));
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kAlgThreads)
+bicg1_update_kernel(const T* __restrict__ x, const T* __restrict__ phat,
+                    const T* __restrict__ shat, const T* __restrict__ s,
+                    const T* __restrict__ t, const T* __restrict__ rhat,
+                    const T* __restrict__ alpha, const T* __restrict__ ts,
+                    T* __restrict__ x_out, T* __restrict__ r_out, T* __restrict__ omega_out,
+                    double* __restrict__ partials, long long n) {
+  __shared__ double warp_sums[1][kAlgWarps];
+  const int m = blockIdx.y;
+  const long long base = static_cast<long long>(m) * n;
+  const T omega = ts[2 * m] / bicg1_guard(ts[2 * m + 1]);
+  if (blockIdx.x == 0 && threadIdx.x == 0) omega_out[m] = omega;
+  const double a = alpha[m];
+  const double w = omega;
+  const long long tiles = (n + kAlgTile - 1) / kAlgTile;
+  double acc[1] = {0.0};
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long e0 = tile * kAlgTile + threadIdx.x;
+    T xx[kAlgPer], xp[kAlgPer], xs[kAlgPer], xsv[kAlgPer], xt[kAlgPer], xh[kAlgPer];
+#pragma unroll
+    for (int q = 0; q < kAlgPer; ++q) {
+      const long long e = e0 + q * kAlgThreads;
+      const bool in = e < n;
+      const long long c = base + (in ? e : 0);
+      xx[q] = in ? x[c] : T(0);
+      xp[q] = in ? phat[c] : T(0);
+      xs[q] = in ? shat[c] : T(0);
+      xsv[q] = in ? s[c] : T(0);
+      xt[q] = in ? t[c] : T(0);
+      xh[q] = in ? rhat[c] : T(0);
+    }
+#pragma unroll
+    for (int q = 0; q < kAlgPer; ++q) {
+      const long long e = e0 + q * kAlgThreads;
+      if (e < n) {
+        const T xv = static_cast<T>((double(xx[q]) + a * double(xp[q])) + w * double(xs[q]));
+        const T rv = static_cast<T>(double(xsv[q]) - w * double(xt[q]));
+        x_out[base + e] = xv;
+        r_out[base + e] = rv;
+        acc[0] += static_cast<double>(xh[q]) * static_cast<double>(rv);
+      }
+    }
+  }
+  block_sums<1>(acc, warp_sums, partials + static_cast<long long>(m) * gridDim.x + blockIdx.x);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kAlgThreads)
+bicg1_p_kernel(const T* __restrict__ r, const T* __restrict__ p, const T* __restrict__ v,
+               const T* __restrict__ rho, const T* __restrict__ rho_new,
+               const T* __restrict__ alpha, const T* __restrict__ omega,
+               T* __restrict__ p_out, long long n) {
+  const int m = blockIdx.y;
+  const long long base = static_cast<long long>(m) * n;
+  const T beta = (rho_new[m] / bicg1_guard(rho[m])) * (alpha[m] / bicg1_guard(omega[m]));
+  const double bt = beta;
+  const double w = omega[m];
+  const long long tiles = (n + kAlgTile - 1) / kAlgTile;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long e0 = tile * kAlgTile + threadIdx.x;
+    T xr[kAlgPer], xp[kAlgPer], xv[kAlgPer];
+#pragma unroll
+    for (int q = 0; q < kAlgPer; ++q) {
+      const long long e = e0 + q * kAlgThreads;
+      const bool in = e < n;
+      const long long c = base + (in ? e : 0);
+      xr[q] = in ? r[c] : T(0);
+      xp[q] = in ? p[c] : T(0);
+      xv[q] = in ? v[c] : T(0);
+    }
+#pragma unroll
+    for (int q = 0; q < kAlgPer; ++q) {
+      const long long e = e0 + q * kAlgThreads;
+      if (e < n) {
+        p_out[base + e] =
+            static_cast<T>(double(xr[q]) + bt * (double(xp[q]) - w * double(xv[q])));
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_bicg1_sums(const void* a, const void* b, void* partials, void* sums, long long n,
+                      int members, int nblk, int with_aa, cudaStream_t st) {
+  if (!alg_shape_ok(n, members, nblk)) return static_cast<int>(cudaErrorInvalidValue);
+  const T* pa = static_cast<const T*>(a);
+  const T* pb = static_cast<const T*>(b);
+  double* part = static_cast<double*>(partials);
+  const dim3 grid(nblk, members);
+  if (with_aa) {
+    bicg1_sums_kernel<T, 2><<<grid, kAlgThreads, 0, st>>>(pa, pb, part, n);
+  } else {
+    bicg1_sums_kernel<T, 1><<<grid, kAlgThreads, 0, st>>>(pa, pb, part, n);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (with_aa) {
+    alg_finish_kernel<T, 2><<<members, kAlgFinishThreads, 0, st>>>(part, nblk,
+                                                                    static_cast<T*>(sums));
+  } else {
+    alg_finish_kernel<T, 1><<<members, kAlgFinishThreads, 0, st>>>(part, nblk,
+                                                                    static_cast<T*>(sums));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bicg1_s(const void* r, const void* v, const void* rho, const void* dv, void* s_out,
+                   void* alpha_out, long long n, int members, int nblk, cudaStream_t st) {
+  if (!alg_shape_ok(n, members, nblk)) return static_cast<int>(cudaErrorInvalidValue);
+  auto c = [](const void* q) { return static_cast<const T*>(q); };
+  bicg1_s_kernel<T><<<dim3(nblk, members), kAlgThreads, 0, st>>>(
+      c(r), c(v), c(rho), c(dv), static_cast<T*>(s_out), static_cast<T*>(alpha_out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bicg1_update(const void* x, const void* phat, const void* shat, const void* s,
+                        const void* t, const void* rhat, const void* alpha, const void* ts,
+                        void* x_out, void* r_out, void* omega_out, void* partials,
+                        void* rho_out, long long n, int members, int nblk, cudaStream_t st) {
+  if (!alg_shape_ok(n, members, nblk)) return static_cast<int>(cudaErrorInvalidValue);
+  auto c = [](const void* q) { return static_cast<const T*>(q); };
+  bicg1_update_kernel<T><<<dim3(nblk, members), kAlgThreads, 0, st>>>(
+      c(x), c(phat), c(shat), c(s), c(t), c(rhat), c(alpha), c(ts), static_cast<T*>(x_out),
+      static_cast<T*>(r_out), static_cast<T*>(omega_out), static_cast<double*>(partials), n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  alg_finish_kernel<T, 1><<<members, kAlgFinishThreads, 0, st>>>(
+      static_cast<const double*>(partials), nblk, static_cast<T*>(rho_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bicg1_p(const void* r, const void* p, const void* v, const void* rho,
+                   const void* rho_new, const void* alpha, const void* omega, void* p_out,
+                   long long n, int members, int nblk, cudaStream_t st) {
+  if (!alg_shape_ok(n, members, nblk)) return static_cast<int>(cudaErrorInvalidValue);
+  auto c = [](const void* q) { return static_cast<const T*>(q); };
+  bicg1_p_kernel<T><<<dim3(nblk, members), kAlgThreads, 0, st>>>(
+      c(r), c(p), c(v), c(rho), c(rho_new), c(alpha), c(omega), static_cast<T*>(p_out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace otmb
 
 #define OTMB_ALGEBRA_ENTRIES(SUFFIX, T)                                                         \
@@ -278,3 +527,36 @@ int launch_polish_update(const void* y, const void* u0, const void* r0, const vo
 
 OTMB_ALGEBRA_ENTRIES(f32, float)
 OTMB_ALGEBRA_ENTRIES(f64, double)
+
+#define OTMB_BICG1_ENTRIES(SUFFIX, T)                                                          \
+  OTMB_EXPORT int otmb_bicg1_sums_##SUFFIX(const void* a, const void* b, void* partials,      \
+                                           void* sums, long long n, int members, int nblk,    \
+                                           int with_aa, void* stream) {                       \
+    return otmb::launch_bicg1_sums<T>(a, b, partials, sums, n, members, nblk, with_aa,         \
+                                      static_cast<cudaStream_t>(stream));                      \
+  }                                                                                            \
+  OTMB_EXPORT int otmb_bicg1_s_##SUFFIX(const void* r, const void* v, const void* rho,         \
+                                        const void* dv, void* s_out, void* alpha_out,          \
+                                        long long n, int members, int nblk, void* stream) {    \
+    return otmb::launch_bicg1_s<T>(r, v, rho, dv, s_out, alpha_out, n, members, nblk,          \
+                                   static_cast<cudaStream_t>(stream));                         \
+  }                                                                                            \
+  OTMB_EXPORT int otmb_bicg1_update_##SUFFIX(                                                  \
+      const void* x, const void* phat, const void* shat, const void* s, const void* t,         \
+      const void* rhat, const void* alpha, const void* ts, void* x_out, void* r_out,           \
+      void* omega_out, void* partials, void* rho_out, long long n, int members, int nblk,      \
+      void* stream) {                                                                          \
+    return otmb::launch_bicg1_update<T>(x, phat, shat, s, t, rhat, alpha, ts, x_out, r_out,    \
+                                        omega_out, partials, rho_out, n, members, nblk,        \
+                                        static_cast<cudaStream_t>(stream));                    \
+  }                                                                                            \
+  OTMB_EXPORT int otmb_bicg1_p_##SUFFIX(const void* r, const void* p, const void* v,           \
+                                        const void* rho, const void* rho_new,                  \
+                                        const void* alpha, const void* omega, void* p_out,     \
+                                        long long n, int members, int nblk, void* stream) {    \
+    return otmb::launch_bicg1_p<T>(r, p, v, rho, rho_new, alpha, omega, p_out, n, members,     \
+                                   nblk, static_cast<cudaStream_t>(stream));                   \
+  }
+
+OTMB_BICG1_ENTRIES(f32, float)
+OTMB_BICG1_ENTRIES(f64, double)

@@ -51,7 +51,8 @@ from ..grid.topology import GridTopology
 from ..ops.apply import transpose_coeffs
 from ..ops.coeffs import StencilCoeffs
 from ..ops.krylov import fused_krylov_step, krylov_scratch
-from ..ops.krylov_algebra import polish_sums, polish_update
+from ..ops.krylov_algebra import (bicg1_p, bicg1_s, bicg1_sums, bicg1_update, polish_sums,
+                                  polish_update)
 from ..ops.stencil import euler_propagate, euler_step, stencil_apply, stencil_apply_multi
 from ..ops.tridiag import tridiag_factor, tridiag_solve_factored
 from ..utils import debugging
@@ -122,10 +123,6 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.ndim == 4:
         return torch.stack([torch.dot(u.reshape(-1), v.reshape(-1)) for u, v in zip(a, b)])
     return torch.dot(a.reshape(-1), b.reshape(-1))
-
-
-def _nonzero(x: torch.Tensor) -> torch.Tensor:
-    return torch.where(x == 0, 1.0, x)
 
 
 def _axpy(y: torch.Tensor, a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -316,22 +313,23 @@ def _restart_state(sys_: _System, algorithm: str, step, x: torch.Tensor, b: torc
 
 def _bicgstab_steps(sys_: _System, st: _State1, nsteps: int) -> _State1:
     """`nsteps` iterations of right-preconditioned BiCGStab, with the
-    breakdown guards of the JAX package's `_sr_chunk1`."""
+    breakdown guards of the JAX package's `_sr_chunk1`. Around each
+    iteration's two M (K2) and two A (K1) applications its vector algebra
+    is K13's four entries (`ops/krylov_algebra.py`), the scalars on the
+    device; the sums are `sys_`'s, reduced over the field (on a shard, one
+    all-reduce each: <rhat, v>, then <t, s> with <t, t>, then <rhat, r>)."""
     x, r, p, rhat, rho = st
-    A, M, dot = sys_.apply, sys_.M, sys_.dot
+    A, M, reduce = sys_.apply, sys_.M, sys_.field.reduce
     for _ in range(nsteps):
         phat = M(p)
         v = A(phat)
-        alpha = rho / _nonzero(dot(rhat, v))
-        s = _axpy(r, -alpha, v)
+        s, alpha = bicg1_s(r, v, rho, reduce(bicg1_sums(v, rhat)))
         shat = M(s)
         t = A(shat)
-        omega = dot(t, s) / _nonzero(dot(t, t))
-        x = _axpy(_axpy(x, alpha, phat), omega, shat)
-        r = _axpy(s, -omega, t)
-        rho_new = dot(rhat, r)
-        beta = (rho_new / _nonzero(rho)) * (alpha / _nonzero(omega))
-        p = _axpy(r, beta, _axpy(p, -omega, v))
+        x, r, omega, rho_new = bicg1_update(x, phat, shat, s, t, rhat, alpha,
+                                            reduce(bicg1_sums(t, s, with_aa=True)))
+        rho_new = reduce(rho_new)
+        p = bicg1_p(r, p, v, rho, rho_new, alpha, omega)
         rho = rho_new
     return _State1(x, r, p, rhat, rho)
 

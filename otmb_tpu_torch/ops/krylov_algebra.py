@@ -1,4 +1,5 @@
-"""K11 and K12: the vector algebra at the end of a BiCGStab(2) cycle.
+"""K11 and K12: the vector algebra at the end of a BiCGStab(2) cycle; K13:
+the vector algebra of a BiCGStab(1) iteration.
 
 The JAX package leaves this algebra to XLA, which fuses it inside the
 jitted cycle (`otmb_tpu/models/solvers.py:_sr_chunk2_fused`); here it is
@@ -26,6 +27,28 @@ always goes to the kernel (errors raise); a CPU tensor takes the plain
 version (`polish_sums_plain`, `polish_update_plain`): float64 products and
 sums in the kernel's order, which the kernel, built with -fmad=false,
 rounds alike, and f64 `torch.dot`s.
+
+K13 (`csrc/krylov_algebra.cu`) is one BiCGStab(1) iteration's algebra
+around its K2 and K1 launches, the reference's `_sr_chunk1` body in four
+entries, with a global reduction between each two:
+
+  * `bicg1_sums(a, b, with_aa=False)` -> (..., 1) <a, b>, or (..., 2)
+    (<a, b>, <a, a>) with `with_aa` (a read once): <v, rhat> after
+    v = A phat, (<t, s>, <t, t>) after t = A shat;
+  * `bicg1_s(r, v, rho, dv)` -> (s, alpha): alpha = rho / guard(dv) and
+    s = r - alpha v;
+  * `bicg1_update(x, phat, shat, s, t, rhat, alpha, ts)` -> (x', r', omega,
+    <rhat, r'>): omega = ts[0] / guard(ts[1]), x' = (x + alpha phat) +
+    omega shat, r' = s - omega t;
+  * `bicg1_p(r, p, v, rho, rho_new, alpha, omega)` -> p' = r + beta (p -
+    omega v), beta = (rho_new / guard(rho)) (alpha / guard(omega));
+
+guard(d) = d where d != 0, else 1. The scalars are formed in the fields'
+dtype from the reduced sums, on the device; sums, updates, batches and
+rounding are K11's and K12's. On a process grid the sums are the shard's,
+and the engine all-reduces them (three all-reduces an iteration). The
+plain versions are `bicg1_*_plain`. Every output is a fresh tensor: the
+engine keeps references to earlier iterates.
 """
 
 from __future__ import annotations
@@ -36,19 +59,26 @@ import torch
 
 from .. import _build
 
-#: Launches made by `polish_sums` (K11) and `polish_update` (K12).
+#: Launches made by `polish_sums` (K11) and `polish_update` (K12), and by
+#: K13's four entries together.
 SUMS_LAUNCHES = 0
 UPDATE_LAUNCHES = 0
+BICG1_LAUNCHES = 0
 
 #: Cells a block takes at a time, and the most blocks a member gets
-#: (kAlgTile, kAlgMaxBlocks in csrc/krylov_algebra.cu).
+#: (kAlgTile, kAlgMaxBlocks in csrc/krylov_algebra.cu); a block's threads,
+#: the cells a thread takes from a tile, and the finish kernel's threads
+#: (kAlgThreads, kAlgPer, kAlgFinishThreads).
 TILE, MAX_BLOCKS = 1024, 1024
+THREADS, PER, FINISH_THREADS = 256, 4, 256
 NSUMS = 5
 
 _TYPES = {torch.float32: "f32", torch.float64: "f64"}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SUMS_ARGTYPES = [_P] * 8 + [_L, _I, _I, _P]
 _UPDATE_ARGTYPES = [_P] * 16 + [_L, _I, _I, _I, _P]
+_BICG1_ARGTYPES = {"sums": [_P] * 4 + [_L, _I, _I, _I, _P], "s": [_P] * 6 + [_L, _I, _I, _P],
+                   "update": [_P] * 13 + [_L, _I, _I, _P], "p": [_P] * 8 + [_L, _I, _I, _P]}
 
 
 def _blocks(n: int) -> int:
@@ -174,3 +204,176 @@ def polish_update(y: torch.Tensor, u0: torch.Tensor, r0: torch.Tensor, r1: torch
                   nblk, int(dot))
     UPDATE_LAUNCHES += 1
     return y_out, r0_out, u0_out, d
+
+
+def _guard(d: torch.Tensor) -> torch.Tensor:
+    """d where d != 0, else 1 (the reference's breakdown guard)."""
+    return torch.where(d == 0, torch.ones_like(d), d)
+
+
+def _check_sums(what: str, name: str, sums: torch.Tensor, x: torch.Tensor, width: int) -> None:
+    if not isinstance(sums, torch.Tensor) or sums.shape != x.shape[:-3] + (width,) \
+            or sums.dtype != x.dtype or sums.device != x.device:
+        raise ValueError(f"{what}: {name} must be a tensor of shape "
+                         f"{tuple(x.shape[:-3]) + (width,)}, dtype {x.dtype}, on {x.device}")
+
+
+def _warp_tree(v: torch.Tensor) -> torch.Tensor:
+    """A warp's shuffle tree over the last axis (32 lanes): lane i adds lane
+    i + off for off = 16, 8, 4, 2, 1, and lane 0 holds the sum."""
+    for off in (16, 8, 4, 2, 1):
+        v = v[..., :off] + v[..., off:2 * off]
+    return v[..., 0]
+
+
+def _block_tree(v: torch.Tensor) -> torch.Tensor:
+    """`block_sums` over the last axis (a block's threads): each warp's tree,
+    then warp 0's tree over the warp sums, its other lanes 0."""
+    warps = _warp_tree(v.unflatten(-1, (-1, 32)))
+    return _warp_tree(torch.nn.functional.pad(warps, (0, 32 - warps.shape[-1])))
+
+
+def tree_sum(prod: torch.Tensor) -> torch.Tensor:
+    """The sums over the last axis of float64 products (members, n), each
+    member in the order of K13's kernels: thread t of block b adds the cells
+    t + 256 q of tiles b, b + nblk, ... (tile by tile, q = 0..3) to 0.0 in
+    turn, the block sums its threads by `_block_tree`, and the finish
+    kernel's thread t adds the blocks t, t + 256, ... in turn before its
+    own `_block_tree`. Padding adds +0.0 to sums that start at +0.0, which
+    changes no bit. Returns (members,) float64."""
+    members, n = prod.shape
+    nblk = _blocks(n)
+    tiles = -(-n // TILE)
+    rounds = -(-tiles // nblk)
+    cells = torch.nn.functional.pad(prod, (0, rounds * nblk * TILE - n))
+    cells = cells.view(members, rounds, nblk, PER, THREADS).permute(0, 2, 4, 1, 3)
+    acc = torch.zeros((members, nblk, THREADS), dtype=torch.float64, device=prod.device)
+    for k in range(rounds * PER):
+        acc = acc + cells[..., k // PER, k % PER]
+    partials = _block_tree(acc)
+    turns = -(-nblk // FINISH_THREADS)
+    partials = torch.nn.functional.pad(partials, (0, turns * FINISH_THREADS - nblk))
+    partials = partials.view(members, turns, FINISH_THREADS)
+    acc = torch.zeros((members, FINISH_THREADS), dtype=torch.float64, device=prod.device)
+    for k in range(turns):
+        acc = acc + partials[:, k]
+    return _block_tree(acc)
+
+
+def _sum64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """<a, b> per member in K13's order (`tree_sum`), rounded to a's dtype:
+    0-d for a field, (B,) for a batch."""
+    prod = (a.double() * b.double()).reshape(-1, a.shape[-3:].numel())
+    return tree_sum(prod).reshape(a.shape[:-3]).to(a.dtype)
+
+
+def bicg1_sums_plain(a, b, with_aa: bool = False):
+    """K13's sums, plain: f64 products summed in the kernel's order and
+    rounded to the fields' dtype."""
+    pairs = ((a, b), (a, a)) if with_aa else ((a, b),)
+    return torch.stack([_sum64(u, w) for u, w in pairs], dim=-1)
+
+
+def bicg1_s_plain(r, v, rho, dv):
+    """K13's s entry, plain: alpha in the fields' dtype, s formed in f64 and
+    rounded once."""
+    alpha = rho / _guard(dv[..., 0])
+    return (r.double() - _member(alpha, r) * v.double()).to(r.dtype), alpha
+
+
+def bicg1_update_plain(x, phat, shat, s, t, rhat, alpha, ts):
+    """K13's update entry, plain: omega in the fields' dtype, x' and r'
+    formed in f64 and rounded once, and <rhat, r'> (f64 products summed in
+    the kernel's order, rounded to the fields' dtype)."""
+    omega = ts[..., 0] / _guard(ts[..., 1])
+    a, w = _member(alpha, x), _member(omega, x)
+    x_new = ((x.double() + a * phat.double()) + w * shat.double()).to(x.dtype)
+    r_new = (s.double() - w * t.double()).to(x.dtype)
+    return x_new, r_new, omega, _sum64(rhat, r_new)
+
+
+def bicg1_p_plain(r, p, v, rho, rho_new, alpha, omega):
+    """K13's p entry, plain: beta in the fields' dtype, p' formed in f64 and
+    rounded once."""
+    beta = (rho_new / _guard(rho)) * (alpha / _guard(omega))
+    b, w = _member(beta, r), _member(omega, r)
+    return (r.double() + b * (p.double() - w * v.double())).to(r.dtype)
+
+
+def _check13(what: str, fields: dict, scalars: dict) -> torch.Tensor:
+    """`_check`, and the fields' dtype one K13 takes (f32 or f64) on every
+    device."""
+    x = _check(what, fields, scalars)
+    if x.dtype not in _TYPES:
+        raise TypeError(f"{what}: fields must be float32 or float64, got {x.dtype}")
+    return x
+
+
+def _bicg1_launch(entry: str, x: torch.Tensor, *tensors, flag: int | None = None) -> None:
+    """Launch K13's `entry` on the fields of `x`'s shape, with the tensors'
+    pointers in the C entry's order (and `flag`, the sums' with_aa)."""
+    global BICG1_LAUNCHES
+    n, members, nblk = _geometry(x)
+    _build.launch(f"otmb_bicg1_{entry}_{_TYPES[x.dtype]}", _BICG1_ARGTYPES[entry], x.device,
+                  *(t.data_ptr() for t in tensors), n, members, nblk,
+                  *(() if flag is None else (flag,)))
+    BICG1_LAUNCHES += 1
+
+
+def _partials(x: torch.Tensor, width: int) -> torch.Tensor:
+    """The blocks' f64 partial sums of a launch on the fields of `x`."""
+    n, members, nblk = _geometry(x)
+    return torch.empty(members * nblk * width, dtype=torch.float64, device=x.device)
+
+
+def bicg1_sums(a: torch.Tensor, b: torch.Tensor, with_aa: bool = False) -> torch.Tensor:
+    """K13: (..., 1) <a, b>, or (..., 2) (<a, b>, <a, a>) with `with_aa`;
+    see the module docstring."""
+    x = _check13("bicg1_sums", dict(a=a, b=b), {})
+    if not x.is_cuda:
+        return bicg1_sums_plain(a, b, with_aa)
+    width = 2 if with_aa else 1
+    sums = torch.empty(x.shape[:-3] + (width,), dtype=x.dtype, device=x.device)
+    _bicg1_launch("sums", x, a, b, _partials(x, width), sums, flag=int(with_aa))
+    return sums
+
+
+def bicg1_s(r: torch.Tensor, v: torch.Tensor, rho: torch.Tensor, dv: torch.Tensor):
+    """K13: (s, alpha); see the module docstring."""
+    x = _check13("bicg1_s", dict(r=r, v=v), dict(rho=rho))
+    _check_sums("bicg1_s", "dv", dv, x, 1)
+    if not x.is_cuda:
+        return bicg1_s_plain(r, v, rho, dv)
+    rho, dv = rho.contiguous(), dv.contiguous()  # held until the launch is enqueued
+    s, alpha = torch.empty_like(r), torch.empty_like(rho)
+    _bicg1_launch("s", x, r, v, rho, dv, s, alpha)
+    return s, alpha
+
+
+def bicg1_update(x: torch.Tensor, phat: torch.Tensor, shat: torch.Tensor, s: torch.Tensor,
+                 t: torch.Tensor, rhat: torch.Tensor, alpha: torch.Tensor, ts: torch.Tensor):
+    """K13: (x', r', omega, <rhat, r'>); see the module docstring."""
+    f = _check13("bicg1_update", dict(x=x, phat=phat, shat=shat, s=s, t=t, rhat=rhat),
+               dict(alpha=alpha))
+    _check_sums("bicg1_update", "ts", ts, f, 2)
+    if not f.is_cuda:
+        return bicg1_update_plain(x, phat, shat, s, t, rhat, alpha, ts)
+    alpha, ts = alpha.contiguous(), ts.contiguous()
+    x_new, r_new, omega = torch.empty_like(x), torch.empty_like(s), torch.empty_like(alpha)
+    rho = torch.empty_like(alpha)
+    _bicg1_launch("update", f, x, phat, shat, s, t, rhat, alpha, ts, x_new, r_new, omega,
+                  _partials(f, 1), rho)
+    return x_new, r_new, omega, rho
+
+
+def bicg1_p(r: torch.Tensor, p: torch.Tensor, v: torch.Tensor, rho: torch.Tensor,
+            rho_new: torch.Tensor, alpha: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
+    """K13: p' = r + beta (p - omega v); see the module docstring."""
+    x = _check13("bicg1_p", dict(r=r, p=p, v=v),
+               dict(rho=rho, rho_new=rho_new, alpha=alpha, omega=omega))
+    if not x.is_cuda:
+        return bicg1_p_plain(r, p, v, rho, rho_new, alpha, omega)
+    scalars = [t.contiguous() for t in (rho, rho_new, alpha, omega)]
+    p_new = torch.empty_like(p)
+    _bicg1_launch("p", x, r, p, v, *scalars, p_new)
+    return p_new

@@ -1,8 +1,9 @@
-"""Same-card A/B of the 0.25-degree BiCGStab(2) engine between checkouts of
-the repository: the refined ideal age, one cycle's device time by kernel
-class, and the fixed-work batched solve.
+"""Same-card A/B of the Krylov engine between checkouts of the repository:
+at 0.25 degrees the BiCGStab(2) engine (the refined ideal age, one cycle's
+device time by kernel class, and the fixed-work batched solve), or with
+--bicg1 the 1-degree BiCGStab(1) workloads.
 
-    python3 scripts/ab_cycle.py --roots OLD NEW --order 0,1,1,0 [--out FILE]
+    python3 scripts/ab_cycle.py --roots OLD NEW --order 0,1,1,0 [--bicg1] [--out FILE]
 
 Every run is a process of its own that imports `otmb_tpu_torch` from one
 checkout (which builds that checkout's kernels from its `csrc/`) and
@@ -26,6 +27,27 @@ host-built case of `chip_smoke.py`, f32 T from K4):
     ms per call (CUDA events) and its kernels' device ms per call
     (torch.profiler).
 
+With --bicg1 a run measures instead, at 360x300x50 (tripolar, seed 0, f32
+T from K4):
+
+  * the refined ideal age (tol 1e-8, BiCGStab(1) inner solves on K2 + K1):
+    AGE_RUNS walls, passes, inner iterations per pass, residual, mean age
+    and the peak device memory of the solves; then one more run under `torch.profiler`, whose kernels' summed
+    device time is the device-busy seconds, and the idle share 1 - busy /
+    the median untraced wall;
+  * one inner iteration (the age's inner system, ITERS iterations of
+    `_bicgstab_steps` from a warmed state): ms per iteration with CUDA
+    events, and under `torch.profiler` its device ms by kernel class (K1,
+    K2, K13, the eager axpys, the dots, the scalar kernels, other) and its
+    kernels;
+  * the water-mass fractions of 4 latitude bands on the f64 operator
+    (`assemble_transport`), tol 1e-12: wall and iterations;
+  * on a (2, 2) process grid of four ranks sharing the card (gloo): the
+    refined ideal age and sequestration time (BiCGStab(1) inner solves)
+    with their walls, residuals and mean ages, and the all-reduces one
+    BiCGStab(1) iteration makes (`all_reduce_sum` counted over ITERS
+    iterations of `_bicgstab_steps` on the shard).
+
 The order lists the roots by index; "0,1,1,0" runs OLD, NEW, NEW, OLD. Each
 run prints one JSON line; the calling process prints them all and the card,
 and writes them to --out.
@@ -47,6 +69,8 @@ ONE = (360, 300, 50)
 CYCLES = 5  # cycles per timed or traced window
 PAIRS = 150  # matvec pairs of the fixed-work batched solve
 BANDS = 4
+AGE_RUNS = 3  # untimed-profiler refined ages per --bicg1 run
+ITERS = 20  # BiCGStab(1) iterations per timed or traced window
 
 
 def _smoke():
@@ -70,11 +94,191 @@ def _kernel_class(name: str) -> str:
     return "elementwise"
 
 
+def _bicg1_class(name: str) -> str:
+    """The class of a kernel in a BiCGStab(1) iteration's trace, by name."""
+    low = name.lower()
+    if "stencil" in low:
+        return "K1"
+    if "thomas" in low:
+        return "K2"
+    if "bicg1" in low or "alg_finish" in low:
+        return "K13"
+    if "addcmul" in low:
+        return "axpy"
+    if "dot" in low or "reduce" in low or "gemv" in low:
+        return "dots"
+    if "elementwise" in low:
+        return "scalar"
+    return "other"
+
+
+def _device_ms(prof, classify=None) -> tuple[float, dict, int, dict]:
+    """The summed device ms of the kernels in a trace, by class when
+    `classify` is given, the kernel count (copies and memsets apart) and
+    the kernels by name."""
+    from torch.autograd import DeviceType
+
+    busy, classes, kernels, names = 0.0, {}, 0, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        busy += ms
+        if e.name.startswith(("Memcpy", "Memset")):
+            continue
+        kernels += 1
+        name = e.name.split("(")[0][-70:]
+        names[name] = names.get(name, 0) + 1
+        if classify is not None:
+            key = classify(e.name)
+            classes[key] = classes.get(key, 0.0) + ms
+    return busy, classes, kernels, names
+
+
+def _bicg1_rank(grid) -> dict:
+    """One rank of the (2, 2) grid: the all-reduces of ITERS BiCGStab(1)
+    iterations on the shard, then the sharded refined age and sequestration
+    time, timed, gathered into whole-field mean ages."""
+    import torch
+    import torch.distributed as dist
+
+    import otmb_tpu_torch as P
+    from otmb_tpu_torch import parallel as Q
+    from otmb_tpu_torch.models import solvers as S
+    from otmb_tpu_torch.parallel import solve_halo
+
+    C = _smoke()
+    sync = torch.cuda.synchronize if grid.device.type == "cuda" else (lambda: None)
+    nx, ny, nz = ONE
+    ds, gm, idx = C.build_case(P, nx, ny, nz, "tripolar", torch.float32, grid.device)
+    topo, wet = gm.topology, idx.wet3d
+    T = P.assemble_T(ds.umo, ds.vmo, ds.mlotst, gm)
+    sh = lambda x: Q.shard_pytree(x, grid, topo.shape2d)
+    T_l, wet_l = sh(T), sh(wet)
+    sys_ = S._system(T_l, torch.float32, topo, extra_diag=sh(C.surface_mask(wet, torch.float32)),
+                     grid=grid)
+    state = S._bicgstab_steps(sys_, S._initial_state(sys_, "bicgstab", wet_l.float()), 2)
+    calls = [0]
+    reduce = solve_halo.all_reduce_sum
+
+    def counted(t, g):
+        calls[0] += 1
+        return reduce(t, g)
+
+    solve_halo.all_reduce_sum = counted
+    S._bicgstab_steps(sys_, state, ITERS)
+    solve_halo.all_reduce_sum = reduce
+    out = {"allreduces_per_iter": calls[0] / ITERS}
+    del sys_, state
+    for name, solve in (("age", P.ideal_age), ("seq", P.sequestration_time)):
+        dist.barrier()
+        stats = {}
+        t0 = time.perf_counter()
+        x_l, res = solve(T_l, wet_l, topo, tol=C.TOL_AGE, refine=True, stats=stats, grid=grid)
+        sync()
+        out[f"{name}_s"] = time.perf_counter() - t0
+        out[f"{name}_res"], out[f"{name}_passes"] = res, stats["refinements"]
+        x = Q.gather_field(x_l, grid)
+        out[f"{name}_mean_yr"] = C.mean_years(x, gm.v3d, wet)
+    return out
+
+
+def run_bicg1(root: Path, device=None) -> dict:
+    """Every --bicg1 measurement of one checkout (see the module
+    docstring)."""
+    sys.path.insert(0, str(root))
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import otmb_tpu_torch as P
+    from otmb_tpu_torch.models import solvers as S
+    from otmb_tpu_torch.parallel import spawn_grid
+
+    assert Path(P.__file__).resolve().is_relative_to(root.resolve()), P.__file__
+    C = _smoke()
+    device = torch.device("cuda", 0) if device is None else device
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    out = {"root": str(root)}
+    nx, ny, nz = ONE
+    ds, gm, idx = C.build_case(P, nx, ny, nz, "tripolar", torch.float32, device)
+    topo, wet = gm.topology, idx.wet3d
+    T = P.assemble_T(ds.umo, ds.vmo, ds.mlotst, gm)
+    sync()
+
+    # the refined ideal age: untraced walls (and the peak device memory of
+    # its solves above what was allocated before them), then one traced run
+    walls = []
+    cuda = device.type == "cuda"
+    if cuda:
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    for _ in range(AGE_RUNS):
+        stats = {}
+        t0 = time.perf_counter()
+        gamma, res = P.ideal_age(T, wet, topo, tol=C.TOL_AGE, refine=True, stats=stats)
+        sync()
+        walls.append(time.perf_counter() - t0)
+    out["age_s"] = walls
+    if cuda:
+        out["age_peak_mb"] = (torch.cuda.max_memory_allocated() - base) / 1e6
+    out["age_res"], out["age_passes"] = res, stats["refinements"]
+    out["age_inner_iters"] = [p.get("inner_iters") for p in stats["passes"]]
+    out["age_mean_yr"] = C.mean_years(gamma, gm.v3d, wet)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        P.ideal_age(T, wet, topo, tol=C.TOL_AGE, refine=True)
+        sync()
+    busy, _, kernels, _ = _device_ms(prof)
+    out["age_busy_s"] = busy / 1e3
+    out["age_kernels"] = kernels
+    out["age_idle_share"] = 1.0 - out["age_busy_s"] / statistics.median(walls)
+    del gamma
+
+    # one inner iteration of the age's system
+    sys_ = S._system(T, torch.float32, topo, extra_diag=C.surface_mask(wet, torch.float32))
+    state = S._bicgstab_steps(sys_, S._initial_state(sys_, "bicgstab", wet.float()), 2)
+    out["iter_ms"] = C.cuda_ms(lambda: S._bicgstab_steps(sys_, state, ITERS), 1) / ITERS
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        S._bicgstab_steps(sys_, state, ITERS)
+        sync()
+    busy, classes, kernels, names = _device_ms(prof, _bicg1_class)
+    out["iter_busy_ms"] = busy / ITERS
+    out["iter_device_ms"] = {k: v / ITERS for k, v in sorted(classes.items())}
+    out["iter_kernels"] = kernels / ITERS
+    out["iter_kernel_names"] = {k: v / ITERS for k, v in names.items()}
+    del sys_, state
+
+    # the batched f64 fractions
+    gm64 = P.makegridmetrics(
+        areacello=ds.areacello, volcello=ds.volcello, lon=ds.lon, lat=ds.lat, lev=ds.lev,
+        lon_vertices=ds.lon_vertices, lat_vertices=ds.lat_vertices, dtype=torch.float64,
+        device=device)
+    T64 = P.assemble_transport(ds.umo, ds.vmo, ds.mlotst, gm64, wet).T
+    masks = C.latitude_bands(ny, nx, BANDS)
+    stats = {}
+    sync()
+    t0 = time.perf_counter()
+    _, res = P.water_mass_fractions(T64, wet, topo, masks, tol=1e-12, stats=stats)
+    sync()
+    out["fractions_s"] = time.perf_counter() - t0
+    out["fractions_iters"], out["fractions_res"] = stats["iters"], res.tolist()
+    del T64, gm64, T, gm, idx, ds
+    torch.cuda.empty_cache()
+
+    # the sharded solves on (2, 2)
+    ranks = spawn_grid(_bicg1_rank, (2, 2), (), backend="gloo", device=str(device),
+                       timeout_s=600)
+    out["sharded"] = {k: [r[k] for r in ranks] if k.endswith("_s") else ranks[0][k]
+                      for k in ranks[0]}
+    return out
+
+
 def run_one(root: Path, device=None) -> dict:
     """Every measurement of one checkout (see the module docstring)."""
     sys.path.insert(0, str(root))
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     import otmb_tpu_torch as P
@@ -124,13 +328,8 @@ def run_one(root: Path, device=None) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         S._bicgstab2_cycles(sys_, step, state, CYCLES)
         torch.cuda.synchronize()
-    classes, kernels = {}, 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA or e.name.startswith(("Memcpy", "Memset")):
-            continue
-        kernels += 1
-        key = _kernel_class(e.name)
-        classes[key] = classes.get(key, 0.0) + e.time_range.elapsed_us() / 1e3 / CYCLES
+    _, classes, kernels, _ = _device_ms(prof, _kernel_class)
+    classes = {k: v / CYCLES for k, v in classes.items()}
     out["cycle_device_ms"] = classes
     out["cycle_busy_ms"] = sum(classes.values())
     out["cycle_algebra_ms"] = out["cycle_busy_ms"] - classes.get("K3", 0.0)
@@ -196,10 +395,11 @@ def main() -> int:
     ap.add_argument("--roots", nargs="+", type=Path)
     ap.add_argument("--order", default="0,1,1,0")
     ap.add_argument("--out", type=Path)
+    ap.add_argument("--bicg1", action="store_true")
     ap.add_argument("--one", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one is not None:
-        print(json.dumps(run_one(args.one)), flush=True)
+        print(json.dumps((run_bicg1 if args.bicg1 else run_one)(args.one)), flush=True)
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -209,8 +409,8 @@ def main() -> int:
     for i in map(int, args.order.split(",")):
         root = args.roots[i].resolve()
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, __file__, "--one", str(root)],
-                              capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, __file__, "--one", str(root)]
+                              + ["--bicg1"] * args.bicg1, capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout, proc.stderr[-4000:], file=sys.stderr)
             return proc.returncode
