@@ -628,27 +628,13 @@ def time_pair(kernel, plain, calls_k: int, calls_p: int) -> tuple[float, float]:
 
 
 def reset_launches():
-    """Set every kernel's launch count to 0; returns a reader of the counts."""
-    from otmb_tpu_torch.models import redi_kernel
-    from otmb_tpu_torch.ops import assemble, krylov, krylov_algebra, stencil, tridiag
-    from otmb_tpu_torch.utils import profiling
+    """Start counting kernel launches here; returns a reader of each kernel's
+    C entry calls since (`_build.calls`, by `_build.KERNELS`)."""
+    from otmb_tpu_torch import _build
 
-    from otmb_tpu_torch.parallel import assemble_halo, halo_kernel, redi_halo
-
-    counters = {"K1": (stencil, "LAUNCHES"), "K2": (tridiag, "LAUNCHES"),
-                "K3": (krylov, "LAUNCHES"), "K4": (assemble, "LAUNCHES"),
-                "K5": (stencil, "MULTI_LAUNCHES"), "K6": (redi_kernel, "LAUNCHES"),
-                "K6 multi": (redi_kernel, "MULTI_LAUNCHES"), "K10": (profiling, "LAUNCHES"),
-                "K7": (halo_kernel, "LAUNCHES"), "K7 multi": (halo_kernel, "MULTI_LAUNCHES"),
-                "K8": (assemble_halo, "LAUNCHES"), "K9": (redi_halo, "LAUNCHES"),
-                "K4 prep": (assemble, "PREP_LAUNCHES"), "K7 pack": (halo_kernel, "PACK_LAUNCHES"),
-                "K7 edge": (halo_kernel, "EDGE_LAUNCHES"),
-                "K11": (krylov_algebra, "SUMS_LAUNCHES"),
-                "K12": (krylov_algebra, "UPDATE_LAUNCHES"),
-                "K13": (krylov_algebra, "BICG1_LAUNCHES")}
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
-    return lambda: {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    start = {name: _build.calls(prefixes) for name, prefixes in _build.KERNELS.items()}
+    return lambda: {name: _build.calls(prefixes) - start[name]
+                    for name, prefixes in _build.KERNELS.items()}
 
 
 def surface_mask(wet: torch.Tensor, dtype) -> torch.Tensor:

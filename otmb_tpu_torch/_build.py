@@ -41,6 +41,10 @@ build_seconds: float | None = None
 
 _lib: ctypes.CDLL | None = None
 _functions: dict[str, ctypes._CFuncPtr] = {}
+# Calls of each C entry point made through `launch` (a batch through an
+# entry that also takes one field under "multi:" + the name), and their total.
+_calls: dict[str, int] = {}
+_total = 0
 # The device the library's own CUDA runtime has current, per host thread:
 # only this module changes it, so a launch selects a device only when it
 # differs from the last one selected on the thread.
@@ -123,15 +127,58 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, argtypes: list, device: torch.device, *args) -> None:
+def launch(name: str, argtypes: list, device: torch.device, *args, batch: bool = False) -> None:
     """Call the C entry point `name` on `device`, on PyTorch's current
-    stream there (appended as the last argument); raise on a CUDA error."""
+    stream there (appended as the last argument); raise on a CUDA error.
+    Each call that returns is counted (`calls`). `batch` marks a batch
+    passed to an entry that also takes one field (K6, K7): it is counted
+    under "multi:" + `name`, so the two count apart."""
+    global _total
     lib = library()
     if getattr(_selected, "index", None) != device.index:
         check(lib.otmb_set_device(device.index), "cudaSetDevice")
         _selected.index = device.index
     stream = torch.cuda.current_stream(device).cuda_stream
     check(function(name, argtypes)(*args, stream), name)
+    key = "multi:" + name if batch else name
+    _calls[key] = _calls.get(key, 0) + 1
+    _total += 1
+
+
+#: Each kernel's C entry calls as `calls` reads them: the prefixes of the
+#: names it counts them under. K6 and K7 take one field or a batch through
+#: the same entries; "K6 multi" and "K7 multi" are their batch calls.
+KERNELS: dict[str, tuple[str, ...]] = {
+    "K1": ("otmb_stencil_f", "otmb_stencil_bf"),
+    "K2": ("otmb_thomas_",),
+    "K3": ("otmb_krylov_",),
+    "K4": ("otmb_assemble_f",),
+    "K4 prep": ("otmb_assemble_prep_",),
+    "K5": ("otmb_stencil_multi_",),
+    "K6": ("otmb_redi_f", "otmb_redi_bf"),
+    "K6 multi": ("multi:otmb_redi_f", "multi:otmb_redi_bf"),
+    "K7": ("otmb_stencil_halo_",),
+    "K7 multi": ("multi:otmb_stencil_halo_",),
+    "K7 pack": ("otmb_halo_pack_",),
+    "K7 edge": ("otmb_halo_edge_",),
+    "K8": ("otmb_assemble_halo_",),
+    "K9": ("otmb_redi_halo_",),
+    "K10": ("otmb_probe_",),
+    "K11": ("otmb_polish_sums_",),
+    "K12": ("otmb_polish_update_",),
+    "K13": ("otmb_bicg1_",),
+}
+
+
+def calls(prefix: str | tuple[str, ...] = "") -> int:
+    """Calls made through `launch` in this process counted under names that
+    start with `prefix` (one prefix, or any of a tuple, such as a value of
+    `KERNELS`; "" counts every call). A call is one entry call, not one
+    kernel: an entry may launch two kernels (a sums kernel and its
+    `alg_finish`)."""
+    if prefix == "":
+        return _total
+    return sum(n for name, n in _calls.items() if name.startswith(prefix))
 
 
 def function(name: str, argtypes: list) -> ctypes._CFuncPtr:

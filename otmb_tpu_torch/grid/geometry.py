@@ -19,6 +19,7 @@ import torch
 
 from ..config import EARTH_RADIUS
 from ..utils.device import default_device
+from ..utils.tracing import traced
 from .topology import GridTopology, detect_topology, neighbor_values
 
 # Vertex indices delimiting each directed cell edge, 0-based
@@ -173,6 +174,7 @@ def distances_to_neighbour(lon, lat, topology: GridTopology) -> PerDirection:
     return PerDirection(**out)
 
 
+@traced
 def makegridmetrics(
     *,
     areacello,

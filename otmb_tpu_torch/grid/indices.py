@@ -13,6 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.tracing import traced
+
 
 @dataclasses.dataclass(frozen=True)
 class Indices:
@@ -30,6 +32,7 @@ class Indices:
         return tuple(self.wet3d.shape)
 
 
+@traced
 def makeindices(v3d: torch.Tensor) -> Indices:
     """Wet cells are those with finite volume."""
     wet3d = torch.isfinite(v3d)

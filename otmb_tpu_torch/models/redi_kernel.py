@@ -27,11 +27,6 @@ from .. import _build
 from ..grid.topology import UNKNOWN
 from .redi import _COEF_FIELDS, RediOperator, redi_apply
 
-#: Kernel launches made by this module's wrappers: K6 on one tracer, K6 on
-#: a batch.
-LAUNCHES = 0
-MULTI_LAUNCHES = 0
-
 _ENTRY = {
     (torch.float32, torch.float32): "otmb_redi_f32_f32",
     (torch.bfloat16, torch.float32): "otmb_redi_bf16_f32",
@@ -71,7 +66,6 @@ def _validate(op: RediOperator, chi: torch.Tensor, batched: bool) -> None:
 
 
 def _run(op: RediOperator, chi: torch.Tensor, batched: bool) -> torch.Tensor:
-    global LAUNCHES, MULTI_LAUNCHES
     _validate(op, chi, batched)
     if not chi.is_cuda:
         return redi_apply(op, chi)
@@ -82,11 +76,7 @@ def _run(op: RediOperator, chi: torch.Tensor, batched: bool) -> torch.Tensor:
     _build.launch(_ENTRY[(op.ae.dtype, chi.dtype)], _ARGTYPES, chi.device,
                   ctypes.cast(fields, ctypes.c_void_p), op.wet.data_ptr(), chi.data_ptr(),
                   out.data_ptr(), chi.shape[0] if batched else 1, nz, ny, nx,
-                  int(op.topology.is_tripolar))
-    if batched:
-        MULTI_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
+                  int(op.topology.is_tripolar), batch=batched)
     return out
 
 

@@ -40,7 +40,6 @@ from __future__ import annotations
 
 import math
 import sys
-import time
 import warnings
 from typing import Callable, NamedTuple
 
@@ -56,6 +55,7 @@ from ..ops.krylov_algebra import (bicg1_p, bicg1_s, bicg1_sums, bicg1_update, po
 from ..ops.stencil import euler_propagate, euler_step, stencil_apply, stencil_apply_multi
 from ..ops.tridiag import tridiag_factor, tridiag_solve_factored
 from ..utils import debugging
+from ..utils.tracing import span, traced
 
 #: Matvec pairs (BiCGStab(1) iterations, half BiCGStab(2) cycles) between
 #: host reads of the residual: the one cadence of every Krylov solve.
@@ -159,7 +159,8 @@ def _whole_field(topology: GridTopology) -> _Field:
             return stencil_apply_multi(c, x, topology)
         return stencil_apply(c, x, topology)
 
-    return _Field(apply, _dot, lambda v: float(torch.linalg.vector_norm(v)), lambda s: s)
+    return _Field(apply, _dot, lambda v: _read(torch.linalg.vector_norm(v), "norm")[0],
+                  lambda s: s)
 
 
 class _System(NamedTuple):
@@ -458,10 +459,12 @@ def _arnoldi(sys_: _System, v0: torch.Tensor, m: int):
 
 
 def _read(values, what: str) -> list[float]:
-    """Values the engine reads to the host, as floats; with NaN debugging
-    on (`utils.debugging.enable_nan_debugging`), a non-finite one raises
-    FloatingPointError."""
-    out = values.reshape(-1).tolist() if isinstance(values, torch.Tensor) else list(values)
+    """Values the engine or the refinement reads to the host, as floats,
+    inside an `engine.read` span (every read of theirs comes through here);
+    with NaN debugging on (`utils.debugging.enable_nan_debugging`), a
+    non-finite one raises FloatingPointError."""
+    with span("engine.read", what=what):
+        out = values.reshape(-1).tolist() if isinstance(values, torch.Tensor) else list(values)
     if debugging.NAN_DEBUG and not all(math.isfinite(v) for v in out):
         raise FloatingPointError(f"non-finite {what} read by the Krylov engine: {out}")
     return out
@@ -507,43 +510,44 @@ def _gmres(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, early_stop:
                 break
         if iters >= maxiter or stop != "maxiter":
             break
-        t_cycle = time.perf_counter()
-        m = min(GMRES_RESTART, maxiter - iters)
-        beta2 = sys_.dot(r, r)
-        V, H = _arnoldi(sys_, r / torch.sqrt(torch.where(beta2 == 0, 1.0, beta2)), m)
-        host = _read(torch.cat([beta2.reshape(1), H.reshape(-1)]).double(), "GMRES cycle")
-        iters += m
-        cycles += 1
-        start_rn2, Hh = host[0], np.array(host[1:]).reshape(m + 1, m)
-        if start_rn2 < best_rn2:  # the true residual of the cycle's starting x
-            best_x, best_rn2 = x, start_rn2
-        if not np.isfinite(Hh).all() or not math.isfinite(start_rn2):
-            stop = "diverged"
-            break
-        e1 = np.zeros(m + 1)
-        e1[0] = math.sqrt(start_rn2)
-        y = np.linalg.lstsq(Hh, e1, rcond=None)[0]
-        est2 = float(np.sum((e1 - Hh @ y) ** 2))
-        y_dev = torch.as_tensor(y, dtype=b.dtype, device=b.device)
-        x = x + sys_.M((y_dev @ V[:m].reshape(m, -1)).view_as(b))
-        del V
-        r = b - sys_.apply(x)
-        rn2 = None
-        say(f"cycle {cycles}: rel residual at its start {math.sqrt(start_rn2 / bnorm2):.3e}, "
-            f"least-squares estimate after {math.sqrt(est2 / bnorm2):.3e}")
-        if early_stop and cycles % 3 == 0:
-            if not start_rn2 < 0.98 ** 2 * window_rn2:
-                warnings.warn(
-                    f"solve_shifted_chunked: GMRES relative residual "
-                    f"{math.sqrt(start_rn2 / bnorm2):.3e} after {iters} Arnoldi steps improved "
-                    f"<2% over the last 3 cycles — likely the rounding floor of {b.dtype}; "
-                    f"wrap in solve_shifted_ir for tighter residuals, or pass early_stop=False "
-                    f"to keep iterating.", stacklevel=4)
-                stop = "stall"
-            window_rn2 = start_rn2
-        if est2 <= atol2 or iters >= maxiter or stop != "maxiter":
-            rn2 = _read(sys_.dot(r, r), "residual")[0]  # confirm with the true residual
-        chunk_s.append(round(time.perf_counter() - t_cycle, 4))
+        with span("gmres.cycle") as cycle:
+            m = min(GMRES_RESTART, maxiter - iters)
+            beta2 = sys_.dot(r, r)
+            V, H = _arnoldi(sys_, r / torch.sqrt(torch.where(beta2 == 0, 1.0, beta2)), m)
+            host = _read(torch.cat([beta2.reshape(1), H.reshape(-1)]).double(), "GMRES cycle")
+            iters += m
+            cycles += 1
+            start_rn2, Hh = host[0], np.array(host[1:]).reshape(m + 1, m)
+            if start_rn2 < best_rn2:  # the true residual of the cycle's starting x
+                best_x, best_rn2 = x, start_rn2
+            if not np.isfinite(Hh).all() or not math.isfinite(start_rn2):
+                stop = "diverged"
+                break
+            e1 = np.zeros(m + 1)
+            e1[0] = math.sqrt(start_rn2)
+            y = np.linalg.lstsq(Hh, e1, rcond=None)[0]
+            est2 = float(np.sum((e1 - Hh @ y) ** 2))
+            y_dev = torch.as_tensor(y, dtype=b.dtype, device=b.device)
+            x = x + sys_.M((y_dev @ V[:m].reshape(m, -1)).view_as(b))
+            del V
+            r = b - sys_.apply(x)
+            rn2 = None
+            say(f"cycle {cycles}: rel residual at its start "
+                f"{math.sqrt(start_rn2 / bnorm2):.3e}, least-squares estimate after "
+                f"{math.sqrt(est2 / bnorm2):.3e}")
+            if early_stop and cycles % 3 == 0:
+                if not start_rn2 < 0.98 ** 2 * window_rn2:
+                    warnings.warn(
+                        f"solve_shifted_chunked: GMRES relative residual "
+                        f"{math.sqrt(start_rn2 / bnorm2):.3e} after {iters} Arnoldi steps "
+                        f"improved <2% over the last 3 cycles — likely the rounding floor of "
+                        f"{b.dtype}; wrap in solve_shifted_ir for tighter residuals, or pass "
+                        f"early_stop=False to keep iterating.", stacklevel=4)
+                    stop = "stall"
+                window_rn2 = start_rn2
+            if est2 <= atol2 or iters >= maxiter or stop != "maxiter":
+                rn2 = _read(sys_.dot(r, r), "residual")[0]  # confirm with the true residual
+        chunk_s.append(round(cycle.seconds, 4))
     return _finish(sys_, b, best_x, [best_rn2], [bnorm2], stats,
                    dict(iters=iters, restarts=0, stop=stop, diverge_restarts=0, cycles=cycles,
                         chunk_s=chunk_s))
@@ -562,7 +566,7 @@ def _finish(sys_: _System, b: torch.Tensor, x: torch.Tensor, best_rn2: list, bno
                      end_rel=max(math.sqrt(v) / (math.sqrt(w) if w > 0 else 1.0)
                                  for v, w in zip(best_rn2, bnorm2)))
     r = sys_.apply(x) - b
-    rnorm = [math.sqrt(v) for v in sys_.dot(r, r).reshape(-1).tolist()]
+    rnorm = [math.sqrt(v) for v in _read(sys_.dot(r, r), "final residual")]
     return x, [v / (math.sqrt(w) if w > 0 else 1.0) for v, w in zip(rnorm, bnorm2)]
 
 
@@ -606,7 +610,8 @@ def _engine(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, chunk: int
         # A field's jittered restarts count against `max_restarts`, a
         # batch's do not: the JAX package's two engines differ so.
         restarts += 1 if not (batch and jitter) else 0
-        state = _restart_members(sys_, algorithm, step, state, best_x, b, mask, jitter)
+        with span("engine.restart", jitter=jitter):
+            state = _restart_members(sys_, algorithm, step, state, best_x, b, mask, jitter)
         for m in members:
             if mask[m]:
                 div_streak[m] = 0
@@ -631,28 +636,31 @@ def _engine(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, chunk: int
 
     first_chunk = True
     while iters < maxiter:
-        t_chunk = time.perf_counter()
-        nsteps = min(chunk, maxiter - iters)
-        # BiCGStab(1) iterations, or BiCGStab(2) cycles of two matvec pairs
-        units = nsteps if algorithm == "bicgstab" else max(1, nsteps // 2)
-        # The first chunk is read after 1, 2, 4, ... units as well, for the
-        # convergence test and the best iterate only.
-        parts = _doubling(units) if first_chunk else [units]
-        first_chunk = False
-        for n in parts:
-            if algorithm == "bicgstab":
-                state = _bicgstab_steps(sys_, state, n)
-                iters += n
-            else:
-                state = _bicgstab2_cycles(sys_, step, state, n)
-                iters += 2 * n
-            read()
-            say("rel recurrence residual "
-                + " ".join(f"{math.sqrt(v / w) if w else 0.0:.3e}" for v, w in zip(rn2, bnorm2)))
-            if all(finished) or any(f is None and not math.isfinite(v)
-                                    for f, v in zip(finished, rn2)):
-                break
-        chunk_s.append(round(time.perf_counter() - t_chunk, 4))
+        with span("engine.chunk") as this_chunk:
+            nsteps = min(chunk, maxiter - iters)
+            # BiCGStab(1) iterations, or BiCGStab(2) cycles of two matvec pairs
+            units = nsteps if algorithm == "bicgstab" else max(1, nsteps // 2)
+            # The first chunk is read after 1, 2, 4, ... units as well, for the
+            # convergence test and the best iterate only.
+            parts = _doubling(units) if first_chunk else [units]
+            first_chunk = False
+            for n in parts:
+                pairs = n if algorithm == "bicgstab" else 2 * n
+                # issued without a read: the span's length is the host's
+                # issue time while the launch queue has room
+                with span("engine.steps", iters=pairs):
+                    if algorithm == "bicgstab":
+                        state = _bicgstab_steps(sys_, state, n)
+                    else:
+                        state = _bicgstab2_cycles(sys_, step, state, n)
+                iters += pairs
+                read()
+                say("rel recurrence residual " + " ".join(
+                    f"{math.sqrt(v / w) if w else 0.0:.3e}" for v, w in zip(rn2, bnorm2)))
+                if all(finished) or any(f is None and not math.isfinite(v)
+                                        for f, v in zip(finished, rn2)):
+                    break
+        chunk_s.append(round(this_chunk.seconds, 4))
         if all(finished):
             stop = "converged" if all(f == "converged" for f in finished) else "diverged"
             break
@@ -727,6 +735,7 @@ def _engine(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, chunk: int
                         diverge_restarts=div_restarts, chunk_s=chunk_s))
 
 
+@traced
 def solve_shifted_chunked(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopology,
                           shift: float = 0.0, extra_diag: torch.Tensor | None = None,
                           tol: float = 1e-10, maxiter: int = 2000, chunk: int = CHUNK,
@@ -773,7 +782,9 @@ def solve_shifted_chunked(coeffs: StencilCoeffs, b: torch.Tensor, topology: Grid
       ones included), ``stop`` ("converged" / "stall" / "diverged" /
       "maxiter"), ``diverge_restarts``, ``start_rel``, ``end_rel``
       (recurrence residuals) and ``chunk_s`` (wall seconds per chunk, host
-      read included).
+      read included; the `engine.chunk` (GMRES: `gmres.cycle`) spans'
+      readings of the wall clock, `time.time_ns()`, which a clock step
+      moves).
     - `grid` (a `parallel.mesh.ProcessGrid`; the JAX package's `mesh=`)
       runs the solve on a process grid: `coeffs`, `b` (one field, or a
       batch (B, nz, ny_l, nx_l)) and `extra_diag` are the rank's shards,
@@ -800,11 +811,14 @@ def solve_shifted_chunked(coeffs: StencilCoeffs, b: torch.Tensor, topology: Grid
         raise ValueError("on a process grid the solve runs unfused (K3 has no halo mode)")
     sys_ = _system(coeffs, b.dtype, topology, shift, extra_diag, transpose, preconditioner,
                    grid, overlap)
-    x, res = _engine(sys_, b, tol, maxiter, chunk, algorithm, fused and algorithm == "bicgstab2",
-                     early_stop, max_restarts, max_diverge_restarts, stats, verbose)
+    with span("engine", algorithm=algorithm, batch=b.shape[0] if b.ndim == 4 else 0):
+        x, res = _engine(sys_, b, tol, maxiter, chunk, algorithm,
+                         fused and algorithm == "bicgstab2", early_stop, max_restarts,
+                         max_diverge_restarts, stats, verbose)
     return x, (res[0] if b.ndim == 3 else torch.tensor(res, dtype=torch.float64))
 
 
+@traced
 def solve_shifted(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopology,
                   shift: float = 0.0, extra_diag: torch.Tensor | None = None,
                   tol: float = 1e-10, maxiter: int = 2000, transpose: bool = False,
@@ -848,13 +862,16 @@ def _ir_defect(field: _Field, c_narrow: StencilCoeffs, x: torch.Tensor,
     """One wide defect r = b - A x from the NARROW coefficients (widened
     inside the K1 or K7 kernel, exactly), and its normalised form: returns
     (r / s, s, s / ||b||) with s = ||r|| (1 where r == 0)."""
-    wide = x.dtype
-    r = b_narrow.to(wide) - (shift * x + extra_narrow.to(wide) * x + field.apply(c_narrow, x))
-    s = field.norm(r)
-    s_safe = s if s != 0 else 1.0
-    return r / s_safe, s_safe, s / bnorm_safe
+    with span("ir.defect"):
+        wide = x.dtype
+        r = b_narrow.to(wide) - (shift * x + extra_narrow.to(wide) * x
+                                 + field.apply(c_narrow, x))
+        s = field.norm(r)
+        s_safe = s if s != 0 else 1.0
+        return r / s_safe, s_safe, s / bnorm_safe
 
 
+@traced
 def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopology,
                      shift: float = 0.0, extra_diag: torch.Tensor | None = None,
                      tol: float = 1e-9, inner_tol: float = 1e-4,
@@ -900,7 +917,8 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
     `stats`, if a dict, receives ``passes`` (one dict per pass: rel_start,
     reverted, inner_tol, inner_iters, inner_stop, inner_restarts,
     inner_end_rel, inner_chunk_s, wall_s), ``refinements`` and
-    ``rel_final``."""
+    ``rel_final``. ``wall_s`` is the `ir.pass` span's length on the wall
+    clock (`time.time_ns()`, which a clock step moves)."""
     if inner_algorithm not in ALGORITHMS:
         raise ValueError(f"unknown inner_algorithm {inner_algorithm!r}")
     field, coeffs = _field_for(coeffs, topology, transpose, grid)
@@ -931,54 +949,56 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
     pass_log = [] if stats is None else stats.setdefault("passes", [])
 
     for pass_i in range(max_refinements):
-        t_pass = time.perf_counter()
-        if pass_i == 0:
-            # x == 0, so the defect is b: no wide apply needed.
-            r_hat, s_safe, rel = b_nv / bnorm_safe, bnorm_safe, bn_n / bnorm_safe
-        else:
-            r_hat, s_safe, rel = _ir_defect(field, c_defect, x, b, extra_n, shift, bnorm_safe)
-        if rel < best_rel:
-            best_rel = rel
-            best_x = x.to(narrow_vec)
-        if rel <= tol:
-            break
-        reverted = False
-        if best_x is not None and not rel <= best_rel / 0.9:
-            # the last pass made the defect worse by more than the 0.9x
-            # that counts as progress: refine from the best iterate
-            x = best_x.to(wide)
-            r_hat, s_safe, rel = _ir_defect(field, c_defect, x, b, extra_n, shift, bnorm_safe)
-            reverted = True
-        entry = {"rel_start": rel, "reverted": reverted}
-        pass_log.append(entry)
-        retry = reverted and not prev_reverted
-        if rel >= 0.9 * rel_prev and not retry:
-            warnings.warn(
-                f"solve_shifted_ir: refinement stagnated at relative residual "
-                f"{rel:.3e} (previous {rel_prev:.3e}); the inner {inner_algorithm} solve is "
-                f"likely exiting at its inner_maxiter={inner_maxiter} budget without "
-                f"reaching inner_tol={inner_tol}.",
-                stacklevel=2,
-            )
-            entry["stagnated"] = True
-            break
-        rel_prev, prev_reverted = rel, reverted
-        pass_tol = min(0.9, max(inner_tol, 0.5 * tol / rel))
-        inner = {}
-        rhs = r_hat.to(narrow_vec)
-        del r_hat
-        kw = dict(shift=shift, extra_diag=extra_diag, tol=pass_tol, maxiter=inner_maxiter,
-                  preconditioner=preconditioner, stats=inner, grid=grid)
-        if inner_algorithm != "bicgstab":
-            d, _ = solve_shifted_chunked(coeffs, rhs, topology, max_restarts=0,
-                                         algorithm=inner_algorithm, **kw)
-        else:
-            d, _ = solve_shifted(coeffs, rhs, topology, **kw)
-        del rhs
-        x = x + s_safe * d.to(wide)
-        entry.update(inner_tol=pass_tol, inner_iters=inner["iters"], inner_stop=inner["stop"],
-                     inner_restarts=inner["restarts"], inner_end_rel=inner["end_rel"],
-                     inner_chunk_s=inner["chunk_s"], wall_s=time.perf_counter() - t_pass)
+        with span("ir.pass", **{"pass": pass_i}) as this_pass:
+            if pass_i == 0:
+                # x == 0, so the defect is b: no wide apply needed.
+                r_hat, s_safe, rel = b_nv / bnorm_safe, bnorm_safe, bn_n / bnorm_safe
+            else:
+                r_hat, s_safe, rel = _ir_defect(field, c_defect, x, b, extra_n, shift, bnorm_safe)
+            if rel < best_rel:
+                best_rel = rel
+                best_x = x.to(narrow_vec)
+            if rel <= tol:
+                break
+            reverted = False
+            if best_x is not None and not rel <= best_rel / 0.9:
+                # the last pass made the defect worse by more than the 0.9x
+                # that counts as progress: refine from the best iterate
+                x = best_x.to(wide)
+                r_hat, s_safe, rel = _ir_defect(field, c_defect, x, b, extra_n, shift, bnorm_safe)
+                reverted = True
+            entry = {"rel_start": rel, "reverted": reverted}
+            pass_log.append(entry)
+            retry = reverted and not prev_reverted
+            if rel >= 0.9 * rel_prev and not retry:
+                warnings.warn(
+                    f"solve_shifted_ir: refinement stagnated at relative residual "
+                    f"{rel:.3e} (previous {rel_prev:.3e}); the inner {inner_algorithm} solve is "
+                    f"likely exiting at its inner_maxiter={inner_maxiter} budget without "
+                    f"reaching inner_tol={inner_tol}.",
+                    stacklevel=2,
+                )
+                entry["stagnated"] = True
+                break
+            rel_prev, prev_reverted = rel, reverted
+            pass_tol = min(0.9, max(inner_tol, 0.5 * tol / rel))
+            inner = {}
+            rhs = r_hat.to(narrow_vec)
+            del r_hat
+            kw = dict(shift=shift, extra_diag=extra_diag, tol=pass_tol, maxiter=inner_maxiter,
+                      preconditioner=preconditioner, stats=inner, grid=grid)
+            if inner_algorithm != "bicgstab":
+                d, _ = solve_shifted_chunked(coeffs, rhs, topology, max_restarts=0,
+                                             algorithm=inner_algorithm, **kw)
+            else:
+                d, _ = solve_shifted(coeffs, rhs, topology, **kw)
+            del rhs
+            x = x + s_safe * d.to(wide)
+            entry.update(inner_tol=pass_tol, inner_iters=inner["iters"],
+                         inner_stop=inner["stop"], inner_restarts=inner["restarts"],
+                         inner_end_rel=inner["end_rel"], inner_chunk_s=inner["chunk_s"])
+            this_pass.attrs.update(reverted=reverted, inner_iters=inner["iters"])
+        entry["wall_s"] = this_pass.seconds
     else:
         _, _, rel = _ir_defect(field, c_defect, x, b, extra_n, shift, bnorm_safe)
         if rel < best_rel:
@@ -1016,6 +1036,7 @@ def _steady_state(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: GridTopo
     return torch.where(wet, x, float("nan")), res
 
 
+@traced
 def ideal_age(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: GridTopology,
               surface_rate: float = 1.0, tol: float = 1e-8, refine: bool = False,
               stats: dict | None = None, algorithm: str = "bicgstab", grid=None):
@@ -1037,6 +1058,7 @@ def ideal_age(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: GridTopology
                          False, stats, grid)
 
 
+@traced
 def sequestration_time(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: GridTopology,
                        surface_rate: float = 1.0, tol: float = 1e-8, refine: bool = False,
                        stats: dict | None = None, algorithm: str = "bicgstab", grid=None):
@@ -1049,6 +1071,7 @@ def sequestration_time(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: Gri
                          True, stats, grid)
 
 
+@traced
 def solve_shifted_chunked_multi(coeffs: StencilCoeffs, bs: torch.Tensor,
                                 topology: GridTopology, shift: float = 0.0,
                                 extra_diag: torch.Tensor | None = None, tol: float = 1e-10,
@@ -1110,6 +1133,7 @@ def solve_shifted_chunked_multi(coeffs: StencilCoeffs, bs: torch.Tensor,
                                  max_diverge_restarts=max_diverge_restarts, grid=grid)
 
 
+@traced
 def solve_shifted_multi(coeffs: StencilCoeffs, bs: torch.Tensor, topology: GridTopology,
                         shift: float = 0.0, extra_diag: torch.Tensor | None = None,
                         tol: float = 1e-10, maxiter: int = 2000, transpose: bool = False,
@@ -1126,6 +1150,7 @@ def solve_shifted_multi(coeffs: StencilCoeffs, bs: torch.Tensor, topology: GridT
                                        stats=stats, max_diverge_restarts=0, grid=grid)
 
 
+@traced
 def water_mass_fractions(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: GridTopology,
                          region_masks, surface_rate: float = 1.0, tol: float = 1e-8,
                          preconditioner: str = "tridiag", algorithm: str = "bicgstab",

@@ -25,12 +25,8 @@ from ..config import KAPPA_H_DEFAULT, KAPPA_VDEEP_DEFAULT, KAPPA_VML_DEFAULT, RH
 from ..grid.geometry import GridMetrics
 from ..grid.topology import BIPOLAR, TRIPOLAR
 from ..models.transport import assemble_transport
+from ..utils.tracing import traced
 from .coeffs import StencilCoeffs
-
-#: Kernel launches made by this module's wrappers: K4; the prep entry (for
-#: K4 and for K8's `parallel.assemble_halo._prepare`).
-LAUNCHES = 0
-PREP_LAUNCHES = 0
 
 _ENTRY = {torch.float32: "otmb_assemble_f32", torch.float64: "otmb_assemble_f64"}
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_double, ctypes.c_void_p]
@@ -84,7 +80,6 @@ def _prep(gm: GridMetrics, ml: torch.Tensor, kappa_h: float, kappa_vml: float,
     """(`_residents`, `_levels`) of a grid (a whole one or a shard): one
     launch of the prep entry on a CUDA grid, equal to the plain versions
     bit for bit; the plain versions on a CPU one."""
-    global PREP_LAUNCHES
     if not ml.is_cuda:
         return _residents(gm, ml, kappa_h), _levels(gm.zt, kappa_vml, kappa_vdeep)
     el, dist = gm.edge_length, gm.distance_to_neighbour
@@ -103,10 +98,10 @@ def _prep(gm: GridMetrics, ml: torch.Tensor, kappa_h: float, kappa_vml: float,
     _build.launch(_PREP_ENTRY[ml.dtype], _PREP_ARGTYPES, ml.device,
                   ctypes.cast(table, ctypes.c_void_p), residents.data_ptr(), levels.data_ptr(),
                   nz, ny, nx, float(kappa_h), float(kappa_vml), float(kappa_vdeep))
-    PREP_LAUNCHES += 1
     return residents, levels
 
 
+@traced
 def assemble_T(umo, vmo, mlotst, gridmetrics: GridMetrics, wet3d=None,
                rho=RHO_DEFAULT, kappa_h=KAPPA_H_DEFAULT, kappa_vml=KAPPA_VML_DEFAULT,
                kappa_vdeep=KAPPA_VDEEP_DEFAULT, upwind: bool = True) -> StencilCoeffs:
@@ -115,7 +110,6 @@ def assemble_T(umo, vmo, mlotst, gridmetrics: GridMetrics, wet3d=None,
     (per-face masses from pair means, matrixbuilding.jl:221-225).
     `wet3d=None` means the NaN pattern of v3d; an explicit mask is folded
     into the volumes as NaN. Unknown topology raises."""
-    global LAUNCHES
     topo = gridmetrics.topology
     if topo.kind not in (BIPOLAR, TRIPOLAR):
         raise ValueError(f"assemble_T: no kernel for topology {topo.kind!r}")
@@ -168,5 +162,4 @@ def assemble_T(umo, vmo, mlotst, gridmetrics: GridMetrics, wet3d=None,
         nz, ny, nx, int(topo.is_tripolar), int(bool(upwind)),
         0.0 if rho3d is not None else 1.0 / float(rho),
     )
-    LAUNCHES += 1
     return StencilCoeffs(*out.unbind(0))

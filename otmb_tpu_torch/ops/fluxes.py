@@ -16,6 +16,7 @@ import torch
 from ..grid.geometry import GridMetrics
 from ..grid.indices import Indices
 from ..grid.topology import GridTopology, neighbor_valid, neighbor_values
+from ..utils.tracing import traced
 
 
 class FaceFluxes(NamedTuple):
@@ -67,6 +68,7 @@ def facefluxes(umo: torch.Tensor, vmo: torch.Tensor, wet3d: torch.Tensor,
                       south=phi_south, top=phi_top, bottom=phi_bottom)
 
 
+@traced
 def facefluxesfrommasstransport(*, umo, vmo, gridmetrics: GridMetrics,
                                 indices: Indices,
                                 fill_value: float | None = None) -> FaceFluxes:

@@ -45,9 +45,6 @@ from .coeffs import StencilCoeffs
 from .krylov_algebra import dot64
 from .tridiag import tridiag_factor, tridiag_solve_plain
 
-#: Kernel launches made by this module's wrappers.
-LAUNCHES = 0
-
 #: Owned columns of the kernel's narrowest tile along i (kOwnNarrow in
 #: csrc/krylov.cu; a strip is one row or more): the dot's partial sums are
 #: allocated for ceil(nx / MIN_OWN) * ny blocks, the most a launch makes.
@@ -143,7 +140,6 @@ def fused_krylov_step(a_coeffs: StencilCoeffs, m_lower: torch.Tensor, m_diag: to
     module docstring. `scratch`, from `krylov_scratch` on the same Thomas
     legs, carries M's factorization from step to step; without it the call
     factors M itself. The plain version ignores it."""
-    global LAUNCHES
     m_legs = (m_lower, m_diag, m_upper)
     _validate(a_coeffs, m_legs, x1, x2, rhat, topology, with_combine, with_dot)
     if not x1.is_cuda:
@@ -168,5 +164,4 @@ def fused_krylov_step(a_coeffs: StencilCoeffs, m_lower: torch.Tensor, m_diag: to
         scratch.partials.data_ptr(), ptr(d), scratch.partials.numel(), nz, ny, nx,
         int(topology.is_tripolar), int(with_combine), int(with_dot),
     )
-    LAUNCHES += 1
     return z, out, d

@@ -59,12 +59,6 @@ import torch
 
 from .. import _build
 
-#: Launches made by `polish_sums` (K11) and `polish_update` (K12), and by
-#: K13's four entries together.
-SUMS_LAUNCHES = 0
-UPDATE_LAUNCHES = 0
-BICG1_LAUNCHES = 0
-
 #: Cells a block takes at a time, and the most blocks a member gets
 #: (kAlgTile, kAlgMaxBlocks in csrc/krylov_algebra.cu); a block's threads,
 #: the cells a thread takes from a tile, and the finish kernel's threads
@@ -155,7 +149,6 @@ def polish_sums(r0: torch.Tensor, u1: torch.Tensor, r1: torch.Tensor, r2: torch.
                 alpha: torch.Tensor):
     """K11: (r0 - alpha u1, the polish sums (..., 5)); see the module
     docstring."""
-    global SUMS_LAUNCHES
     x = _check("polish_sums", dict(r0=r0, u1=u1, r1=r1, r2=r2), dict(alpha=alpha))
     if not x.is_cuda:
         return polish_sums_plain(r0, u1, r1, r2, alpha)
@@ -170,7 +163,6 @@ def polish_sums(r0: torch.Tensor, u1: torch.Tensor, r1: torch.Tensor, r2: torch.
                   r0.data_ptr(), u1.data_ptr(), r1.data_ptr(), r2.data_ptr(),
                   alpha.data_ptr(), r0_out.data_ptr(), partials.data_ptr(),
                   sums.data_ptr(), n, members, nblk)
-    SUMS_LAUNCHES += 1
     return r0_out, sums
 
 
@@ -179,7 +171,6 @@ def polish_update(y: torch.Tensor, u0: torch.Tensor, r0: torch.Tensor, r1: torch
                   w1: torch.Tensor, w2: torch.Tensor, rhat: torch.Tensor | None = None):
     """K12: (y', r0'', u0', <rhat, r0''> or None); see the module
     docstring."""
-    global UPDATE_LAUNCHES
     fields = dict(y=y, u0=u0, r0=r0, r1=r1, r2=r2, u1=u1, u2=u2)
     if rhat is not None:
         fields["rhat"] = rhat
@@ -202,7 +193,6 @@ def polish_update(y: torch.Tensor, u0: torch.Tensor, r0: torch.Tensor, r1: torch
                   w2.data_ptr(), y_out.data_ptr(),
                   r0_out.data_ptr(), u0_out.data_ptr(), ptr(partials), ptr(d), n, members,
                   nblk, int(dot))
-    UPDATE_LAUNCHES += 1
     return y_out, r0_out, u0_out, d
 
 
@@ -312,12 +302,10 @@ def _check13(what: str, fields: dict, scalars: dict) -> torch.Tensor:
 def _bicg1_launch(entry: str, x: torch.Tensor, *tensors, flag: int | None = None) -> None:
     """Launch K13's `entry` on the fields of `x`'s shape, with the tensors'
     pointers in the C entry's order (and `flag`, the sums' with_aa)."""
-    global BICG1_LAUNCHES
     n, members, nblk = _geometry(x)
     _build.launch(f"otmb_bicg1_{entry}_{_TYPES[x.dtype]}", _BICG1_ARGTYPES[entry], x.device,
                   *(t.data_ptr() for t in tensors), n, members, nblk,
                   *(() if flag is None else (flag,)))
-    BICG1_LAUNCHES += 1
 
 
 def _partials(x: torch.Tensor, width: int) -> torch.Tensor:

@@ -28,12 +28,9 @@ import torch
 
 from .. import _build
 from ..grid.topology import UNKNOWN, GridTopology
+from ..utils.tracing import traced
 from .apply import apply_stencil
 from .coeffs import StencilCoeffs
-
-#: Kernel launches made by this module's wrappers: K1 and K5.
-LAUNCHES = 0
-MULTI_LAUNCHES = 0
 
 _ENTRY = {
     (torch.float32, torch.float32): "otmb_stencil_f32_f32",
@@ -78,7 +75,6 @@ def _plain(coeffs, chi, topology, dt):
 
 def _launch(coeffs, chi, topology, dt, out):
     """K1 on a (nz, ny, nx) chi, K5 on a (B, nz, ny, nx) batch."""
-    global LAUNCHES, MULTI_LAUNCHES
     nz, ny, nx = topology.shape3d
     key = (coeffs.diag.dtype, chi.dtype)
     fields = (*(leg.data_ptr() for leg in coeffs), chi.data_ptr(), out.data_ptr())
@@ -87,10 +83,8 @@ def _launch(coeffs, chi, topology, dt, out):
     if chi.ndim == 4:
         _build.launch(_MULTI_ENTRY[key], _MULTI_ARGTYPES, chi.device, *fields, chi.shape[0],
                       *sizes)
-        MULTI_LAUNCHES += 1
     else:
         _build.launch(_ENTRY[key], _ARGTYPES, chi.device, *fields, *sizes)
-        LAUNCHES += 1
     return out
 
 
@@ -123,6 +117,7 @@ def _propagate(coeffs, chi, dt, nsteps, topology, batched):
     return chi
 
 
+@traced
 def euler_propagate(coeffs: StencilCoeffs, chi: torch.Tensor, dt: float, nsteps: int,
                     topology: GridTopology):
     """nsteps of chi - dt * T @ chi; on the card, one launch per step into
@@ -143,6 +138,7 @@ def euler_step_multi(coeffs: StencilCoeffs, chis: torch.Tensor, dt: float,
     return _run(coeffs, chis, topology, dt, batched=True)
 
 
+@traced
 def euler_propagate_multi(coeffs: StencilCoeffs, chis: torch.Tensor, dt: float, nsteps: int,
                           topology: GridTopology):
     """nsteps of the batched Euler step (`euler_propagate_pallas_multi`); on

@@ -26,9 +26,6 @@ import torch
 
 from .. import _build
 
-#: Kernel launches made by this module's wrappers (factor and solve).
-LAUNCHES = 0
-
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _FACTOR_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _SOLVE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -100,7 +97,6 @@ def tridiag_factor(lower: torch.Tensor, diag: torch.Tensor,
     """(cp, rden) of the legs (nz, ny, nx), f32 or f64: one launch on the
     card. Factor once per system and solve each right-hand side with
     `tridiag_solve_factored` (K3 takes the same factor)."""
-    global LAUNCHES
     _check("tridiag_factor", {"lower": lower, "diag": diag, "upper": upper})
     if not diag.is_cuda:
         return tridiag_factor_plain(lower, diag, upper)
@@ -109,7 +105,6 @@ def tridiag_factor(lower: torch.Tensor, diag: torch.Tensor,
     _build.launch(f"otmb_thomas_factor_{_SUFFIX[diag.dtype]}", _FACTOR_ARGTYPES, diag.device,
                   lower.data_ptr(), diag.data_ptr(), upper.data_ptr(), cp.data_ptr(),
                   rden.data_ptr(), nz, ny, nx)
-    LAUNCHES += 1
     return cp, rden
 
 
@@ -119,7 +114,6 @@ def tridiag_solve_factored(cp: torch.Tensor, rden: torch.Tensor, upper: torch.Te
     (nz, ny, nx) or a batch (B, nz, ny, nx) with B >= 1 (one launch, which
     reads the factor once for a group of members); all of one dtype on one
     device, contiguous."""
-    global LAUNCHES
     _check("tridiag_solve_factored", {"cp": cp, "rden": rden, "upper": upper}, b)
     if not b.is_cuda:
         return tridiag_solve_factored_plain(cp, rden, upper, b)
@@ -128,7 +122,6 @@ def tridiag_solve_factored(cp: torch.Tensor, rden: torch.Tensor, upper: torch.Te
     _build.launch(f"otmb_thomas_solve_{_SUFFIX[b.dtype]}", _SOLVE_ARGTYPES, b.device,
                   cp.data_ptr(), rden.data_ptr(), upper.data_ptr(), b.data_ptr(), x.data_ptr(),
                   nz, ny, nx, b.shape[0] if b.ndim == 4 else 1)
-    LAUNCHES += 1
     return x
 
 

@@ -35,9 +35,6 @@ from ..ops.coeffs import StencilCoeffs
 from .halo import _exchange
 from .mesh import ProcessGrid, all_reduce_sum
 
-#: Kernel launches made by this module's wrapper.
-LAUNCHES = 0
-
 _ENTRY = {torch.float32: "otmb_assemble_halo_f32", torch.float64: "otmb_assemble_halo_f64"}
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_double]
              + [ctypes.c_int] * 2 + [ctypes.c_void_p])
@@ -223,7 +220,6 @@ class _Shard(NamedTuple):
 
 def _launch(a: _Shard) -> StencilCoeffs:
     """One K8 launch on a prepared shard (no messages)."""
-    global LAUNCHES
     nz, ny, nx = a.v3dw.shape
     dtype, device = a.v3dw.dtype, a.v3dw.device
     keep = [t.contiguous() for t in (*a.lines[0], *a.lines[1])]
@@ -237,7 +233,6 @@ def _launch(a: _Shard) -> StencilCoeffs:
         ctypes.cast(table, ctypes.c_void_p), nz, ny, nx, int(a.tripolar), int(a.upwind),
         a.inv_rho, int(a.s_edge), int(a.n_interior),
     )
-    LAUNCHES += 1
     return StencilCoeffs(*out.unbind(0))
 
 

@@ -41,13 +41,6 @@ from ..ops.stencil import _ENTRY as _K1_ENTRY
 from .halo import HaloExchange, _boundary_patch, _local_stencil, _pack_plain, ready_event
 from .mesh import ProcessGrid
 
-#: Kernel launches made by this module's wrappers: K7 on one tracer, on a
-#: batch; its pack and edge entries (one tracer or a batch).
-LAUNCHES = 0
-MULTI_LAUNCHES = 0
-PACK_LAUNCHES = 0
-EDGE_LAUNCHES = 0
-
 _ENTRY = {key: name.replace("otmb_stencil_", "otmb_stencil_halo_")
           for key, name in _K1_ENTRY.items()}
 _ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
@@ -91,7 +84,6 @@ def _bulk(coeffs: StencilCoeffs, chi: torch.Tensor, halos, dt: float | None) -> 
     """T chi (or chi - dt T chi) on one shard from its halo lines (None:
     zeros), unchecked: one K7 launch on a CUDA tensor, `_local_stencil` on
     a CPU one."""
-    global LAUNCHES, MULTI_LAUNCHES
     if not chi.is_cuda:
         y = _local_stencil(coeffs, chi, halos)
         return y if dt is None else chi - dt * y
@@ -101,31 +93,24 @@ def _bulk(coeffs: StencilCoeffs, chi: torch.Tensor, halos, dt: float | None) -> 
     _build.launch(_ENTRY[(coeffs.diag.dtype, chi.dtype)], _ARGTYPES, chi.device,
                   *(leg.data_ptr() for leg in coeffs), chi.data_ptr(), out.data_ptr(),
                   *map(_ptr, halos), chi.shape[0] if batched else 0, nz, ny, nx,
-                  int(dt is not None), 0.0 if dt is None else float(dt))
-    if batched:
-        MULTI_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
+                  int(dt is not None), 0.0 if dt is None else float(dt), batch=batched)
     return out
 
 
 def _pack(plan: HaloExchange, chi: torch.Tensor, topology: GridTopology) -> None:
     """Write what the shard sends into `plan.send`: one launch on a CUDA
     tensor, `_pack_plain` on a CPU one."""
-    global PACK_LAUNCHES
     if not chi.is_cuda:
         _pack_plain(chi, topology, plan.lines)
         return
     nz, ny, nx = plan.shape
     _build.launch(_PACK_ENTRY[chi.dtype], _PACK_ARGTYPES, chi.device, chi.data_ptr(),
                   plan.send.data_ptr(), plan.members, nz, ny, nx, int(plan.fold))
-    PACK_LAUNCHES += 1
 
 
 def _edge(coeffs: StencilCoeffs, bulk: torch.Tensor, halos, scale: float) -> torch.Tensor:
     """Add the halo terms at the shard's edge cells to `bulk`, in place:
     one launch on a CUDA tensor, `_boundary_patch` on a CPU one."""
-    global EDGE_LAUNCHES
     if not bulk.is_cuda:
         return _boundary_patch(coeffs, bulk, halos, scale)
     nz, ny, nx = bulk.shape[-3:]
@@ -134,7 +119,6 @@ def _edge(coeffs: StencilCoeffs, bulk: torch.Tensor, halos, scale: float) -> tor
                   coeffs.east.data_ptr(), coeffs.west.data_ptr(), coeffs.north.data_ptr(),
                   coeffs.south.data_ptr(), bulk.data_ptr(), *map(_ptr, halos), members, nz,
                   ny, nx, float(scale))
-    EDGE_LAUNCHES += 1
     return bulk
 
 

@@ -37,9 +37,6 @@ from ..models.redi_kernel import _ENTRY as _K6_ENTRY
 from .halo import _exchange, _halo_exchange
 from .mesh import ProcessGrid
 
-#: Kernel launches made by this module's wrapper.
-LAUNCHES = 0
-
 _ENTRY = {key: name.replace("otmb_redi_", "otmb_redi_halo_") for key, name in _K6_ENTRY.items()}
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
@@ -142,7 +139,6 @@ def _redi_plain(rs: RediShard, chi: torch.Tensor, chi_halos) -> torch.Tensor:
 
 def _launch(rs: RediShard, chi: torch.Tensor, halos) -> torch.Tensor:
     """One K9 launch on a shard whose chi lines have landed (no messages)."""
-    global LAUNCHES
     o = rs.op
     nz, ny, nx = chi.shape
     out = torch.empty_like(chi)
@@ -154,7 +150,6 @@ def _launch(rs: RediShard, chi: torch.Tensor, halos) -> torch.Tensor:
                   ctypes.cast(fields, ctypes.c_void_p), o.wet.data_ptr(), chi.data_ptr(),
                   out.data_ptr(), ctypes.cast(lines, ctypes.c_void_p), nz, ny, nx,
                   int(rs.s_edge), int(rs.n_edge))
-    LAUNCHES += 1
     return out
 
 

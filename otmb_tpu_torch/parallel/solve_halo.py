@@ -38,7 +38,7 @@ import math
 import torch
 
 from ..grid.topology import GridTopology
-from ..models.solvers import _dot, _Field, solve_shifted_chunked
+from ..models.solvers import _dot, _Field, _read, solve_shifted_chunked
 from ..ops.coeffs import StencilCoeffs
 from .halo import HaloExchange, _exchange
 from .halo_kernel import _run
@@ -68,7 +68,7 @@ def halo_field(topology: GridTopology, grid: ProcessGrid, overlap: bool = True) 
     return _Field(
         apply=apply,
         dot=dot,
-        norm=lambda v: math.sqrt(float(dot(v, v))),
+        norm=lambda v: math.sqrt(_read(dot(v, v), "norm")[0]),
         reduce=lambda sums: all_reduce_sum(sums, grid),
         offset=grid.offset(topology.ny, topology.nx),
     )

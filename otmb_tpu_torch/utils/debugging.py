@@ -25,8 +25,9 @@ def enable_nan_debugging(enable: bool = True) -> None:
     non-finite residual (or GMRES Hessenberg entry) it reads. jax's
     `jax_debug_nans`, which the JAX package sets here, checks every jitted
     operation; torch has no such switch (`torch.autograd.detect_anomaly`
-    watches backward passes only), so this flag covers the engine's reads,
-    once per chunk or cycle, and costs nothing between them."""
+    watches backward passes only), so this flag covers the reads of the
+    engine and the refinement (`models/solvers.py:_read`: residuals, norms,
+    GMRES's Hessenberg matrix), and costs nothing between them."""
     global NAN_DEBUG
     NAN_DEBUG = bool(enable)
 

@@ -32,9 +32,6 @@ import torch
 from .. import _build
 from .device import default_device
 
-#: Kernel launches made by this module's wrapper.
-LAUNCHES = 0
-
 MAX_STREAMS = 16  # kProbeMaxStreams in csrc/probe.cu
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
 
@@ -50,7 +47,6 @@ def probe_sum_plain(streams) -> torch.Tensor:
 def probe_sum(streams) -> torch.Tensor:
     """The probe on f32 tensors of one shape and device, contiguous, at
     most MAX_STREAMS of them, their size a multiple of 4 elements."""
-    global LAUNCHES
     streams = list(streams)
     if not 1 <= len(streams) <= MAX_STREAMS:
         raise ValueError(f"probe_sum: {len(streams)} streams, expected 1..{MAX_STREAMS}")
@@ -70,7 +66,6 @@ def probe_sum(streams) -> torch.Tensor:
     _build.launch("otmb_probe_f32", _ARGTYPES, first.device,
                   ctypes.cast(ptrs, ctypes.c_void_p), len(streams), out.data_ptr(),
                   first.numel())
-    LAUNCHES += 1
     return out
 
 

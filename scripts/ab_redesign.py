@@ -243,8 +243,8 @@ def _sharded_rank(grid) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     import otmb_tpu_torch as P
+    from otmb_tpu_torch import _build
     from otmb_tpu_torch import parallel as Q
-    from otmb_tpu_torch.parallel import halo_kernel
 
     S = _smoke()
     ds, gm, idx = S.build_case(P, NX, NY, NZ, "tripolar", torch.float32, grid.device)
@@ -272,12 +272,12 @@ def _sharded_rank(grid) -> dict:
         fn()  # warm-up
         dist.barrier()
         torch.cuda.synchronize()
-        n7 = halo_kernel.LAUNCHES
+        n7 = _build.calls(_build.KERNELS["K7"])
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        nmv = halo_kernel.LAUNCHES - n7
+        nmv = _build.calls(_build.KERNELS["K7"]) - n7
         dist.barrier()
         prof_ctx = (profile(activities=[ProfilerActivity.CUDA]) if grid.rank == 0
                     else contextlib.nullcontext())

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 import otmb_tpu_torch as P
-from otmb_tpu_torch.models import redi_kernel
+from otmb_tpu_torch import _build
 from otmb_tpu_torch.ops import krylov, krylov_algebra, stencil, tridiag
 from otmb_tpu_torch.ops.krylov import fused_krylov_step_plain
 from otmb_tpu_torch.ops.coeffs import StencilCoeffs
@@ -28,6 +28,12 @@ from otmb_tpu_torch.parallel.mesh import ProcessGrid
 from otmb_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
+
+#: Each kernel's C entry calls as `_build.calls` reads them.
+K1, K2, K3, K4, K4_PREP, K5, K6, K6_MULTI, K7, K7_MULTI, K7_PACK, K7_EDGE, K8, K9, K10, K11, \
+    K12, K13 = (_build.KERNELS[name] for name in (
+        "K1", "K2", "K3", "K4", "K4 prep", "K5", "K6", "K6 multi", "K7", "K7 multi", "K7 pack",
+        "K7 edge", "K8", "K9", "K10", "K11", "K12", "K13"))
 
 
 @pytest.fixture(scope="module")
@@ -120,10 +126,10 @@ def test_k2_cut_shapes_equal_plain(device, nz, dtype, nmembers):
     diag = 4.0 + t(nz, 7, 45).abs()
     diag[:, 0, 0], upper[:, 0, 0] = 0.0, 0.0
     b = t(*(((nmembers,) if nmembers else ()) + (nz, 7, 45)))
-    n2 = tridiag.LAUNCHES
+    n2 = _build.calls(K2)
     cp, rden = P.tridiag_factor(lower, diag, upper)
     x = P.tridiag_solve_factored(cp, rden, upper, b)
-    assert tridiag.LAUNCHES == n2 + 2
+    assert _build.calls(K2) == n2 + 2
     pcp, prden = tridiag.tridiag_factor_plain(lower, diag, upper)
     torch.testing.assert_close(cp, pcp, rtol=0, atol=0)
     torch.testing.assert_close(rden, prden, rtol=0, atol=0)
@@ -151,11 +157,11 @@ def test_k4_matches_plain(case, variant):
 def test_refined_ideal_age_goes_through_the_kernels(case):
     ds, gm, idx, _, _ = case
     T = P.assemble_T(ds.umo, ds.vmo, ds.mlotst, gm).to(torch.float32)
-    k1, k2 = stencil.LAUNCHES, tridiag.LAUNCHES
+    k1, k2 = _build.calls(K1), _build.calls(K2)
     gamma, res = P.ideal_age(T, idx.wet3d, gm.topology, tol=1e-9, refine=True)
     assert res < 1e-9
     assert bool(torch.isfinite(gamma[idx.wet3d]).all())
-    assert stencil.LAUNCHES > k1 and tridiag.LAUNCHES > k2
+    assert _build.calls(K1) > k1 and _build.calls(K2) > k2
 
 
 def test_bf16_refined_ideal_age_runs_in_f32(case):
@@ -165,10 +171,10 @@ def test_bf16_refined_ideal_age_runs_in_f32(case):
     T = P.assemble_T(ds.umo, ds.vmo, ds.mlotst, gm).to(torch.float32)
     wet = idx.wet3d
     age32, _ = P.ideal_age(T, wet, gm.topology, tol=1e-9, refine=True)
-    k1, k2 = stencil.LAUNCHES, tridiag.LAUNCHES
+    k1, k2 = _build.calls(K1), _build.calls(K2)
     gamma, res = P.ideal_age(T.to(torch.bfloat16), wet, gm.topology, tol=1e-9, refine=True)
     assert res < 1e-9 and bool(torch.isfinite(gamma[wet]).all())
-    assert stencil.LAUNCHES > k1 and tridiag.LAUNCHES > k2
+    assert _build.calls(K1) > k1 and _build.calls(K2) > k2
     assert float((gamma[wet] / age32[wet]).mean()) == pytest.approx(1.0, abs=1e-2)
 
 
@@ -212,9 +218,9 @@ def test_k3_equals_composition(case, dtype, flags, transpose):
     c2 = torch.tensor(-0.37, dtype=dtype, device=x1.device)
     kw = dict(with_combine=combine, with_dot=dot)
     scratch = krylov.krylov_scratch(*m)
-    n0 = krylov.LAUNCHES
+    n0 = _build.calls(K3)
     z, out, d = P.fused_krylov_step(a, *m, x1, x2, c2, rhat, topo, scratch=scratch, **kw)
-    assert krylov.LAUNCHES == n0 + 1
+    assert _build.calls(K3) == n0 + 1
     want_z = x1 + c2 * x2 if combine else x1
     want_out = P.stencil_apply(a, P.tridiag_solve(*m, want_z), topo)
     torch.testing.assert_close(z, want_z, rtol=0, atol=0)
@@ -307,12 +313,12 @@ def test_k3_cut_shapes_equal_composition(device, nz, kind, dtype, path):
         m = (0.2 * r(), 2.0 + r().abs(), 0.2 * r())
         m[1][:, 0, :5] = 0.0
     scratch = krylov.krylov_scratch(*m)
-    n0 = krylov.LAUNCHES
+    n0 = _build.calls(K3)
     _k3_check(a, m, x1, x2, rhat, topo, dtype,
               lambda x1, x2, c2, rhat: P.fused_krylov_step(
                   a, *m, x1, x2, c2, rhat, topo, with_combine=x2 is not None,
                   with_dot=rhat is not None, scratch=scratch))
-    assert krylov.LAUNCHES == n0 + 6
+    assert _build.calls(K3) == n0 + 6
 
 
 # (dtype, nz, ny, nx, state in device memory): the launcher's choices,
@@ -379,9 +385,9 @@ def test_k10_equals_plain(device):
     assert nbytes == 8 * 8 * 1024 * 1024
     gen = torch.Generator(device=device).manual_seed(0)
     streams = [torch.randn((8, 512, 512), generator=gen, device=device) for _ in range(7)]
-    n0 = profiling.LAUNCHES
+    n0 = _build.calls(K10)
     got = thunk()
-    assert profiling.LAUNCHES == n0 + 1
+    assert _build.calls(K10) == n0 + 1
     torch.testing.assert_close(got, profiling.probe_sum_plain(streams), rtol=0, atol=0)
     torch.testing.assert_close(profiling.probe_sum(streams[:3]),
                                profiling.probe_sum_plain(streams[:3]), rtol=0, atol=0)
@@ -391,13 +397,13 @@ def test_k10_equals_plain(device):
 def test_refined_bicgstab2_goes_through_k3(case, workload):
     ds, gm, idx, _, _ = case
     T = P.assemble_T(ds.umo, ds.vmo, ds.mlotst, gm).to(torch.float32)
-    n3 = krylov.LAUNCHES
+    n3 = _build.calls(K3)
     stats = {}
     gamma, res = getattr(P, workload)(T, idx.wet3d, gm.topology, tol=1e-9, refine=True,
                                       algorithm="bicgstab2", stats=stats)
     assert res < 1e-9
     assert bool(torch.isfinite(gamma[idx.wet3d]).all())
-    assert krylov.LAUNCHES > n3
+    assert _build.calls(K3) > n3
     assert all(p["inner_stop"] in ("converged", "stall", "maxiter", "diverged")
                for p in stats["passes"])
 
@@ -429,10 +435,10 @@ def test_k5_equals_k1_per_member(case, types, nmembers):
                                                 device=chi.device), 0.0).to(vtype)
     dt = 0.25 / float(T.diag.abs().max())
     for c in (T.to(ctype), P.transpose_coeffs(T, topo).to(ctype)):
-        n5 = stencil.MULTI_LAUNCHES
+        n5 = _build.calls(K5)
         got = P.stencil_apply_multi(c, xs, topo)
         step = P.euler_step_multi(c, xs, dt, topo)
-        assert stencil.MULTI_LAUNCHES == n5 + 2
+        assert _build.calls(K5) == n5 + 2
         for m in range(nmembers):
             torch.testing.assert_close(got[m], P.stencil_apply(c, xs[m], topo), rtol=0, atol=0)
             torch.testing.assert_close(step[m], P.euler_step(c, xs[m], dt, topo), rtol=0, atol=0)
@@ -452,9 +458,9 @@ def test_batched_k2_equals_per_member(case, dtype):
     legs = (T.bottom.to(dtype), torch.where(shifted != 0, shifted, 1.0), T.top.to(dtype))
     rng = np.random.default_rng(8)
     bs = torch.as_tensor(rng.standard_normal((4,) + chi.shape), device=chi.device).to(dtype)
-    n2 = tridiag.LAUNCHES
+    n2 = _build.calls(K2)
     got = P.tridiag_solve(*legs, bs)
-    assert tridiag.LAUNCHES == n2 + 2  # the factor, then one solve for the batch
+    assert _build.calls(K2) == n2 + 2  # the factor, then one solve for the batch
     for m in range(4):
         torch.testing.assert_close(got[m], P.tridiag_solve(*legs, bs[m]), rtol=0, atol=0)
     torch.testing.assert_close(got, tridiag_solve_plain(*legs, bs), rtol=0, atol=0)
@@ -477,10 +483,10 @@ def test_water_mass_fractions_go_through_k5_and_k2(case, dtype, algorithm, tol):
     for r in range(nbands):
         masks[r, r * ny // nbands:(r + 1) * ny // nbands] = True
     c = T.to(dtype)
-    n1, n5, n2 = stencil.LAUNCHES, stencil.MULTI_LAUNCHES, tridiag.LAUNCHES
+    n1, n5, n2 = _build.calls(K1), _build.calls(K5), _build.calls(K2)
     fr, res = P.water_mass_fractions(c, idx.wet3d, gm.topology, masks, tol=tol,
                                      algorithm=algorithm)
-    assert stencil.MULTI_LAUNCHES > n5 and tridiag.LAUNCHES > n2 and stencil.LAUNCHES == n1
+    assert _build.calls(K5) > n5 and _build.calls(K2) > n2 and _build.calls(K1) == n1
     assert res.shape == (nbands,) and float(res.max()) <= tol
     wet = idx.wet3d
     assert bool(torch.isfinite(fr[:, wet]).all()) and bool(torch.isnan(fr[:, ~wet]).all())
@@ -541,10 +547,10 @@ def test_k5_cut_shapes_equal_k1_per_member(device, kind, types, dims):
     for nb in (1, 3, 5, 8, 9):
         xs = torch.as_tensor(rng.standard_normal((nb, nz, ny, nx)), device=device).to(vtype)
         for c in (legs.to(ctype), P.transpose_coeffs(legs, topo).to(ctype)):
-            n5 = stencil.MULTI_LAUNCHES
+            n5 = _build.calls(K5)
             got = P.stencil_apply_multi(c, xs, topo)
             step = P.euler_step_multi(c, xs, dt, topo)
-            assert stencil.MULTI_LAUNCHES == n5 + 2
+            assert _build.calls(K5) == n5 + 2
             for m in range(nb):
                 torch.testing.assert_close(got[m], P.stencil_apply(c, xs[m], topo), rtol=0,
                                            atol=0, msg=f"apply, B = {nb}, member {m}")
@@ -576,9 +582,9 @@ def test_k6_equals_plain(case, types):
     ctype, vtype = REDI_TYPES[types]
     op = _redi(case).to(ctype)
     x = torch.where(idx.wet3d, chi, torch.nan).to(vtype)
-    n6 = redi_kernel.LAUNCHES
+    n6 = _build.calls(K6)
     got = P.redi_apply_fused(op, x)
-    assert redi_kernel.LAUNCHES == n6 + 1
+    assert _build.calls(K6) == n6 + 1
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, P.redi_apply(op, x), rtol=0, atol=0)
 
@@ -592,9 +598,9 @@ def test_k6_multi_equals_k6_per_member(case, types, nmembers):
     rng = np.random.default_rng(9)
     xs = torch.where(idx.wet3d, torch.as_tensor(rng.standard_normal((nmembers,) + chi.shape),
                                                 device=chi.device), 0.0).to(vtype)
-    n6 = redi_kernel.MULTI_LAUNCHES
+    n6 = _build.calls(K6_MULTI)
     got = P.redi_apply_fused_multi(op, xs)
-    assert redi_kernel.MULTI_LAUNCHES == n6 + 1
+    assert _build.calls(K6_MULTI) == n6 + 1
     for m in range(nmembers):
         torch.testing.assert_close(got[m], P.redi_apply_fused(op, xs[m]), rtol=0, atol=0)
     torch.testing.assert_close(got, P.redi_apply(op, xs), rtol=0, atol=0)
@@ -717,12 +723,12 @@ def test_k7_equals_k1_and_k5_on_each_shard(case, types, shape):
             c_l = StencilCoeffs(*(sl(leg) for leg in c))
             h = tuple(_cut(x, g, topo, s) for s in SIDES)
             hb = tuple(_cut(xs, g, topo, s) for s in SIDES)
-            n7, n7m = halo_kernel.LAUNCHES, halo_kernel.MULTI_LAUNCHES
+            n7, n7m = _build.calls(K7), _build.calls(K7_MULTI)
             got = {"apply": halo_kernel.local_apply(c_l, sl(x), h),
                    "step": halo_kernel.local_apply(c_l, sl(x), h, dt),
                    "multi": halo_kernel.local_apply(c_l, sl(xs), hb),
                    "multi_step": halo_kernel.local_apply(c_l, sl(xs), hb, dt)}
-            assert (halo_kernel.LAUNCHES, halo_kernel.MULTI_LAUNCHES) == (n7 + 2, n7m + 2)
+            assert (_build.calls(K7), _build.calls(K7_MULTI)) == (n7 + 2, n7m + 2)
             for name, y in got.items():
                 torch.testing.assert_close(y, sl(whole[name]), rtol=0, atol=0, msg=name)
             torch.testing.assert_close(got["apply"], _local_stencil(c_l, sl(x), h), rtol=0,
@@ -752,7 +758,7 @@ def test_k7_pack_and_edge_equal_plain_on_each_shard(case, types, shape):
             x_l = sl(whole)
             lines = tuple(_cut(whole, g, topo, s) for s in SIDES)
             plan, plain = halo.HaloExchange(x_l, topo, g), halo.HaloExchange(x_l, topo, g)
-            n_pack, n_edge = halo_kernel.PACK_LAUNCHES, halo_kernel.EDGE_LAUNCHES
+            n_pack, n_edge = _build.calls(K7_PACK), _build.calls(K7_EDGE)
             halo_kernel._pack(plan, x_l, topo)
             halo._pack_plain(x_l, topo, plain.lines)
             torch.testing.assert_close(plan.send, plain.send, rtol=0, atol=0)
@@ -771,8 +777,7 @@ def test_k7_pack_and_edge_equal_plain_on_each_shard(case, types, shape):
                 delivered = tuple(z if h is None else h for h, z in zip(plan.halos, zeros))
                 torch.testing.assert_close(got, halo._boundary_patch(c_l, bulk.clone(), delivered,
                                                                      scale), rtol=0, atol=0)
-            assert (halo_kernel.PACK_LAUNCHES, halo_kernel.EDGE_LAUNCHES) == (n_pack + 1,
-                                                                            n_edge + 2)
+            assert (_build.calls(K7_PACK), _build.calls(K7_EDGE)) == (n_pack + 1, n_edge + 2)
 
 
 @pytest.mark.parametrize("nmembers", [3, 8])
@@ -799,11 +804,11 @@ def test_k7_multi_equals_k5_on_each_shard(case, types, shape, nmembers):
             c_l, x_l = StencilCoeffs(*(sl(leg) for leg in c)), sl(xs)
             lines = tuple(_cut(xs, g, topo, s) for s in SIDES)
             for step, want in whole.items():
-                n7m = halo_kernel.MULTI_LAUNCHES
+                n7m = _build.calls(K7_MULTI)
                 got = halo_kernel.local_apply(c_l, x_l, lines, step)
                 torch.testing.assert_close(got, sl(want), rtol=0, atol=0)
                 bulk = halo_kernel._bulk(c_l, x_l, halo_kernel._NO_HALOS, step)
-                assert halo_kernel.MULTI_LAUNCHES == n7m + 2
+                assert _build.calls(K7_MULTI) == n7m + 2
                 y = _local_stencil(c_l, x_l, halo_kernel._NO_HALOS)
                 torch.testing.assert_close(bulk, y if step is None else x_l - step * y, rtol=0,
                                            atol=0)
@@ -822,9 +827,9 @@ def test_k4_prep_equals_plain(case, dtype):
                            lat_vertices=ds.lat_vertices, dtype=dtype, device=case[1].v3d.device)
     ml = torch.as_tensor(ds.mlotst, dtype=dtype, device=gm.v3d.device)
     kappas = (P.KAPPA_H_DEFAULT, P.KAPPA_VML_DEFAULT, P.KAPPA_VDEEP_DEFAULT)
-    n = assemble.PREP_LAUNCHES
+    n = _build.calls(K4_PREP)
     res, lev = assemble._prep(gm, ml, *kappas)
-    assert assemble.PREP_LAUNCHES == n + 1
+    assert _build.calls(K4_PREP) == n + 1
     torch.testing.assert_close(res, assemble._residents(gm, ml, kappas[0]), rtol=0, atol=0,
                                equal_nan=True)
     torch.testing.assert_close(lev, assemble._levels(gm.zt, *kappas[1:]), rtol=0, atol=0)
@@ -842,10 +847,10 @@ def test_overlapped_step_launches_three_kernels(case):
     want = P.stencil_apply(c, x, topo)
     halo_kernel.stencil_apply_halo(c, x, topo, grid, overlap=True)  # warm-up
     torch.cuda.synchronize()
-    counts = (halo_kernel.PACK_LAUNCHES, halo_kernel.LAUNCHES, halo_kernel.EDGE_LAUNCHES)
+    counts = (_build.calls(K7_PACK), _build.calls(K7), _build.calls(K7_EDGE))
     y, events, tries = _cuda_events(lambda: halo_kernel.stencil_apply_halo(c, x, topo, grid,
                                                                            overlap=True))
-    assert (halo_kernel.PACK_LAUNCHES, halo_kernel.LAUNCHES, halo_kernel.EDGE_LAUNCHES) == \
+    assert (_build.calls(K7_PACK), _build.calls(K7), _build.calls(K7_EDGE)) == \
         tuple(n + tries for n in counts)
     kernels = [e.name for e in events if not e.name.startswith(("Memcpy", "Memset"))]
     assert len(kernels) == 3, kernels
@@ -903,9 +908,9 @@ def test_k8_equals_k4_on_each_shard(case, variant, dtype, shape):
                          upwind=upwind)
     for g, sl in _shards(shape, gm.v3d.device, topo.ny, topo.nx):
         a = _k8_shard(ds, gm, g, sl, topo, rho, upwind)
-        n8 = assemble_halo.LAUNCHES
+        n8 = _build.calls(K8)
         got = assemble_halo._launch(a)
-        assert assemble_halo.LAUNCHES == n8 + 1
+        assert _build.calls(K8) == n8 + 1
         plain = assemble_halo._assemble_plain(*a)
         for leg in got._fields:
             torch.testing.assert_close(got[leg], sl(whole[leg]), rtol=0, atol=0, msg=leg)
@@ -937,9 +942,9 @@ def test_k9_equals_k6_on_each_shard(case, types, shape):
             tuple(cut(op.wet, s) for s in SIDES), j0 > 0,
             j0 + ny_l < topo.ny or topo.is_tripolar)
         h = tuple(cut(x, s) for s in SIDES)
-        n9 = redi_halo.LAUNCHES
+        n9 = _build.calls(K9)
         got = redi_halo._launch(rs, sl(x), h)
-        assert redi_halo.LAUNCHES == n9 + 1
+        assert _build.calls(K9) == n9 + 1
         torch.testing.assert_close(got, sl(whole), rtol=0, atol=0)
         torch.testing.assert_close(got, redi_halo._redi_plain(rs, sl(x), h), rtol=0, atol=0)
 
@@ -996,12 +1001,12 @@ def test_autodiff_backward_runs_k1_on_the_transposed_legs(case, monkeypatch, op)
     monkeypatch.setattr(stencil, "_plain", no_plain)
     monkeypatch.setattr(stencil, "apply_stencil", no_plain)
     x = chi.clone().requires_grad_(True)
-    n0 = stencil.LAUNCHES
+    n0 = _build.calls(K1)
     y = (P.apply_stencil_ad(T, x, topo) if op == "apply"
          else P.euler_step_ad(T, x, 100.0, topo))
-    assert stencil.LAUNCHES == n0 + 1
+    assert _build.calls(K1) == n0 + 1
     y.sum().backward()
-    assert stencil.LAUNCHES == n0 + 2
+    assert _build.calls(K1) == n0 + 2
     tc = P.transpose_coeffs(T, topo)
     ones = torch.ones_like(chi)
     want = (P.stencil_apply(tc, ones, topo) if op == "apply"
@@ -1026,12 +1031,12 @@ def test_gmres_runs_on_k1_and_k2_and_matches_bicgstab(box, workload):
     gm, idx, T = box
     wet = idx.wet3d
     ref, res_b = getattr(P, workload)(T, wet, gm.topology, tol=1e-10)
-    n1, n2 = stencil.LAUNCHES, tridiag.LAUNCHES
+    n1, n2 = _build.calls(K1), _build.calls(K2)
     stats = {}
     out, res = getattr(P, workload)(T, wet, gm.topology, tol=1e-10, algorithm="gmres",
                                     stats=stats)
     assert res <= 1e-10 and res_b <= 1e-10 and stats["stop"] == "converged"
-    assert stencil.LAUNCHES - n1 >= stats["iters"] and tridiag.LAUNCHES - n2 >= stats["iters"]
+    assert _build.calls(K1) - n1 >= stats["iters"] and _build.calls(K2) - n2 >= stats["iters"]
     assert bool(torch.isfinite(out[wet]).all()) and bool((out[wet] > 0).all())
     assert _rel(out[wet], ref[wet]) <= 1e-6
 
@@ -1096,9 +1101,9 @@ def _check_sums(got, pairs, dtype):
 def test_k11_equals_plain(device, shape, members, dtype):
     (r0, u1, r1, r2), scalar = _algebra_inputs(device, shape, members, dtype, 4, 21)
     alpha = scalar()
-    n0 = krylov_algebra.SUMS_LAUNCHES
+    n0 = _build.calls(K11)
     got_r0, sums = krylov_algebra.polish_sums(r0, u1, r1, r2, alpha)
-    assert krylov_algebra.SUMS_LAUNCHES == n0 + 1
+    assert _build.calls(K11) == n0 + 1
     want_r0, _ = krylov_algebra.polish_sums_plain(r0, u1, r1, r2, alpha)
     torch.testing.assert_close(got_r0, want_r0, rtol=0, atol=0)
     assert sums.shape == r0.shape[:-3] + (krylov_algebra.NSUMS,) and sums.dtype == dtype
@@ -1114,9 +1119,9 @@ def test_k12_equals_plain(device, shape, members, dtype, with_dot):
     y, u0, r0, r1, r2, u1, u2, rhat = fields
     alpha, w1, w2 = scalar(), scalar(), scalar()
     rhat = rhat if with_dot else None
-    n0 = krylov_algebra.UPDATE_LAUNCHES
+    n0 = _build.calls(K12)
     got = krylov_algebra.polish_update(y, u0, r0, r1, r2, u1, u2, alpha, w1, w2, rhat)
-    assert krylov_algebra.UPDATE_LAUNCHES == n0 + 1
+    assert _build.calls(K12) == n0 + 1
     want = krylov_algebra.polish_update_plain(y, u0, r0, r1, r2, u1, u2, alpha, w1, w2, rhat)
     for g, w in zip(got[:3], want[:3]):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
@@ -1146,12 +1151,12 @@ def test_bicgstab2_cycle_runs_k11_and_k12(case, members):
     if members is not None:
         b = torch.stack([b * (m + 1) for m in range(members)])
     kw = dict(shift=1e-3, tol=1e-6, chunk=20, algorithm="bicgstab2", fused=members is None)
-    n11, n12 = krylov_algebra.SUMS_LAUNCHES, krylov_algebra.UPDATE_LAUNCHES
+    n11, n12 = _build.calls(K11), _build.calls(K12)
     stats = {}
     x1, r1 = P.solve_shifted_chunked(T.to(torch.float32), b, gm.topology, stats=stats, **kw)
     cycles = stats["iters"] // 2
-    assert krylov_algebra.SUMS_LAUNCHES - n11 == cycles
-    assert krylov_algebra.UPDATE_LAUNCHES - n12 == cycles
+    assert _build.calls(K11) - n11 == cycles
+    assert _build.calls(K12) - n12 == cycles
     x2, r2 = P.solve_shifted_chunked(T.to(torch.float32), b, gm.topology, **kw)
     torch.testing.assert_close(x1, x2, rtol=0, atol=0)
     assert (r1 == r2) if members is None else bool((r1 == r2).all())
@@ -1186,9 +1191,9 @@ def test_k13_equals_plain(device, shape, members, dtype):
     updates), chained as one iteration; five launches."""
     fields, scalar = _algebra_inputs(device, shape, members, dtype, 8, 24)
     rho = scalar()
-    n0 = krylov_algebra.BICG1_LAUNCHES
+    n0 = _build.calls(K13)
     got = _bicg1_iteration(fields, rho, plain=False)
-    assert krylov_algebra.BICG1_LAUNCHES == n0 + 5
+    assert _build.calls(K13) == n0 + 5
     want = _bicg1_iteration(fields, rho, plain=True)
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == dtype
@@ -1249,10 +1254,10 @@ def test_bicgstab1_solve_runs_k13(case, members):
     if members is not None:
         b = torch.stack([b * (m + 1) for m in range(members)])
     kw = dict(shift=1e-3, tol=1e-6, chunk=20, algorithm="bicgstab")
-    n0 = krylov_algebra.BICG1_LAUNCHES
+    n0 = _build.calls(K13)
     stats = {}
     x1, r1 = P.solve_shifted_chunked(T.to(torch.float32), b, gm.topology, stats=stats, **kw)
-    assert krylov_algebra.BICG1_LAUNCHES - n0 == 5 * stats["iters"]
+    assert _build.calls(K13) - n0 == 5 * stats["iters"]
     x2, r2 = P.solve_shifted_chunked(T.to(torch.float32), b, gm.topology, **kw)
     torch.testing.assert_close(x1, x2, rtol=0, atol=0)
     assert (r1 == r2) if members is None else bool((r1 == r2).all())
@@ -1267,3 +1272,42 @@ def test_k13_wrappers_raise_on_card(device):
         krylov_algebra.bicg1_s(f, f, s.cpu(), torch.zeros((1,), device=device))
     with pytest.raises(TypeError, match="float32 or float64"):
         krylov_algebra.bicg1_sums(f.half(), f.half())
+
+
+def test_a_span_holds_its_kernel_on_the_device_trace_clock(case):
+    """The program's spans and torch.profiler's device trace share one clock:
+    a span around a synchronised K1 launch holds the kernel's interval as
+    `otmb_bench.window.device_ops` reads it, and no device operation of the
+    trace is named after a program span (the spans never reach it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from otmb_bench.window import device_ops
+    from otmb_tpu_torch.utils import tracing
+
+    _, gm, _, T, chi = case
+    c, x, topo = T.to(torch.float32), chi.float(), gm.topology
+    dt = 0.25 / float(T.diag.abs().max())
+    P.euler_propagate(c, x, dt, 2, topo)  # warm-up
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        tracing.clear()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            with tracing.span("card.k1") as around:
+                P.stencil_apply(c, x, topo)
+                torch.cuda.synchronize()
+            P.euler_propagate(c, x, dt, 2, topo)
+            torch.cuda.synchronize()
+        ops = device_ops(prof)
+        if ops:
+            break
+    k1 = sorted((o for o in ops if "stencil_kernel" in o[0]), key=lambda o: o[1])
+    assert len(k1) == 3, ops
+    _, start, end = k1[0]
+    lead, lag = start - around.start_ns * 1e-9, around.end_ns * 1e-9 - end
+    print(f"span around K1: the kernel starts {lead * 1e6:.1f} us after the span opens and "
+          f"ends {lag * 1e6:.1f} us before it closes")
+    assert lead >= 0 and lag >= 0, (lead, lag)
+    names = {s.name for s in tracing.spans()}
+    assert names == {"card.k1", "euler_propagate"}
+    assert not [o for o in ops if o[0] in names]

@@ -20,6 +20,7 @@ import otmb_tpu_torch as P
 from otmb_tpu.grid.topology import GridTopology as JaxTopology
 from otmb_tpu.ops.coeffs import StencilCoeffs as JaxCoeffs
 from otmb_tpu.ops.krylov_pallas import fused_krylov_step as jax_fused_krylov_step
+from otmb_tpu_torch import _build
 from otmb_tpu_torch.ops import krylov
 from otmb_tpu_torch.ops.krylov import fused_krylov_step_plain, krylov_scratch
 from otmb_tpu_torch.ops.tridiag import tridiag_solve_plain
@@ -173,10 +174,10 @@ def test_wrapper_rejects_bad_inputs(name):
 
 def test_cpu_path_launches_nothing():
     legs, m, x1, x2, rhat = _case(3, 6, 8, "bipolar", np.float64, seed=4)
-    before = krylov.LAUNCHES
+    before = _build.calls(_build.KERNELS["K3"])
     P.fused_krylov_step(*_port(legs, m, x1, x2)[:6], 0.1, torch.from_numpy(rhat),
                         P.GridTopology("bipolar", 8, 6, 3))
-    assert krylov.LAUNCHES == before
+    assert _build.calls(_build.KERNELS["K3"]) == before
 
 
 def test_scratch_factors_the_thomas_legs():
@@ -240,9 +241,9 @@ def test_probe_plain_sum_and_traffic():
     ins = [torch.randn((2, 512, 512), generator=gen) for _ in range(3)]
     assert out.dtype == torch.float32 and out.shape == (2, 512, 512)
     assert torch.equal(out, (ins[0] * 0.999 + ins[1]) + ins[2])
-    before = profiling.LAUNCHES
+    before = _build.calls(_build.KERNELS["K10"])
     thunk()
-    assert profiling.LAUNCHES == before
+    assert _build.calls(_build.KERNELS["K10"]) == before
 
 
 @pytest.mark.parametrize("streams", ["none", "too_many", "f64", "mixed_shapes"])
