@@ -404,6 +404,10 @@ def phase_main_path(P, device, card):
     log(f"[launches] main path: {launches}")
     for name, n in launches.items():
         require(n > 0, f"{name} was not launched on the main path")
+    # eager or replayed in a CUDA graph, five K13 entry calls an iteration
+    iters = sum(p["inner_iters"] for p in stats["passes"])
+    require(launches["K13"] == 5 * iters,
+            f"K13 ran {launches['K13']} entry calls on the main path, not 5 x {iters} iterations")
     return ds, gm, idx, T, launches, mean_age
 
 
@@ -629,7 +633,8 @@ def time_pair(kernel, plain, calls_k: int, calls_p: int) -> tuple[float, float]:
 
 def reset_launches():
     """Start counting kernel launches here; returns a reader of each kernel's
-    C entry calls since (`_build.calls`, by `_build.KERNELS`)."""
+    C entry calls run since, eagerly or inside a CUDA graph's replay
+    (`_build.calls`, by `_build.KERNELS`)."""
     from otmb_tpu_torch import _build
 
     start = {name: _build.calls(prefixes) for name, prefixes in _build.KERNELS.items()}

@@ -16,6 +16,7 @@ kernel rounds exactly where its plain PyTorch version does.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -41,10 +42,14 @@ build_seconds: float | None = None
 
 _lib: ctypes.CDLL | None = None
 _functions: dict[str, ctypes._CFuncPtr] = {}
-# Calls of each C entry point made through `launch` (a batch through an
-# entry that also takes one field under "multi:" + the name), and their total.
+# Calls of the launch path: each C entry point's through `launch` (a batch
+# through an entry that also takes one field under "multi:" + the name),
+# each graph's replays through `replay` (under the graph's name) and the
+# entry calls a replay runs, and in `_total` the calls the host made.
 _calls: dict[str, int] = {}
 _total = 0
+# Per host thread: the tally of the CUDA graph being captured (`capturing`).
+_capture_tally = threading.local()
 # The device the library's own CUDA runtime has current, per host thread:
 # only this module changes it, so a launch selects a device only when it
 # differs from the last one selected on the thread.
@@ -127,22 +132,59 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def _count(key: str) -> None:
+    global _total
+    tally = getattr(_capture_tally, "tally", None)
+    if tally is not None:
+        tally[key] = tally.get(key, 0) + 1
+        key = "capture:" + key
+    _calls[key] = _calls.get(key, 0) + 1
+    _total += 1
+
+
 def launch(name: str, argtypes: list, device: torch.device, *args, batch: bool = False) -> None:
     """Call the C entry point `name` on `device`, on PyTorch's current
     stream there (appended as the last argument); raise on a CUDA error.
-    Each call that returns is counted (`calls`). `batch` marks a batch
-    passed to an entry that also takes one field (K6, K7): it is counted
-    under "multi:" + `name`, so the two count apart."""
-    global _total
+    Each call that returns is one call of the launch path (`calls`). One
+    made while a CUDA graph is captured (`capturing`) runs nothing: it is
+    counted under "capture:" + `name`, which no kernel of `KERNELS` names,
+    and in the graph's tally. `batch` marks a batch passed to an entry that
+    also takes one field (K6, K7): it is counted under "multi:" + `name`,
+    so the two count apart."""
     lib = library()
     if getattr(_selected, "index", None) != device.index:
         check(lib.otmb_set_device(device.index), "cudaSetDevice")
         _selected.index = device.index
     stream = torch.cuda.current_stream(device).cuda_stream
     check(function(name, argtypes)(*args, stream), name)
-    key = "multi:" + name if batch else name
-    _calls[key] = _calls.get(key, 0) + 1
+    _count("multi:" + name if batch else name)
+
+
+@contextlib.contextmanager
+def capturing():
+    """Count the entry calls made inside, on this thread, as a CUDA graph's
+    that is being captured (`launch`), and yield their tally (entry name ->
+    calls), for `replay`."""
+    _capture_tally.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _capture_tally.tally = None
+
+
+def replay(graph, tally: dict[str, int], name: str) -> None:
+    """Replay a captured CUDA graph (`torch.cuda.CUDAGraph`) on the current
+    stream: one call of the launch path, counted under `name` (the engine's
+    BiCGStab(1) iteration is "graph:bicg1"), however many kernels the graph
+    holds. The entry calls it runs, its `tally` from `capturing`, are
+    counted under their own names, as if each were called again, so
+    `KERNELS`' counts hold every run of a kernel's entries."""
+    global _total
+    graph.replay()
+    _calls[name] = _calls.get(name, 0) + 1
     _total += 1
+    for key, n in tally.items():
+        _calls[key] = _calls.get(key, 0) + n
 
 
 #: Each kernel's C entry calls as `calls` reads them: the prefixes of the
@@ -171,11 +213,15 @@ KERNELS: dict[str, tuple[str, ...]] = {
 
 
 def calls(prefix: str | tuple[str, ...] = "") -> int:
-    """Calls made through `launch` in this process counted under names that
+    """Calls of the launch path in this process counted under names that
     start with `prefix` (one prefix, or any of a tuple, such as a value of
-    `KERNELS`; "" counts every call). A call is one entry call, not one
-    kernel: an entry may launch two kernels (a sums kernel and its
-    `alg_finish`)."""
+    `KERNELS`); "" counts the calls the host made, each C entry call
+    through `launch`, eager or captured, and each graph replay through
+    `replay`. A call is not one kernel: an entry may launch two kernels (a
+    sums kernel and its `alg_finish`), and a replay of the BiCGStab(1)
+    iteration ("graph:bicg1") runs nine entry calls' twelve kernels. Under
+    their own names the entry calls count as run, eagerly or in a replay;
+    captured ones, which run nothing, count under "capture:" + the name."""
     if prefix == "":
         return _total
     return sum(n for name, n in _calls.items() if name.startswith(prefix))

@@ -22,6 +22,18 @@ and the extra diagonal are folded into the stencil diagonal, so a matvec
 is one K1 launch. Tracer fields are dense (nz, ny, nx) with zeros on
 land, and every operator application keeps them so.
 
+On one card BiCGStab(1) is issued as CUDA graphs: after one eager
+iteration, each iteration is one replay of a captured iteration (two K2,
+two K1 and K13's five entry calls) between two preallocated state sets,
+so the host issues an iteration in one launch-path call rather than nine
+and stays ahead of the device (`_graphed` says where, from the input
+alone: BiCGStab(1) on a CUDA tensor on the whole field; `_PingPong`).
+Each solve captures its own two graphs, on the system it solves (the
+passes of a refinement share one system and one loop, `_shared`), and
+frees their state sets when it returns (`_capture` says what stays).
+Shards (whose all-reduces cannot be captured), CPU tensors, BiCGStab(2)
+and GMRES issue every entry call eagerly.
+
 A batch of right-hand sides (B, nz, ny, nx) that share the operator runs
 through the same engine (`solve_shifted_chunked_multi`): the same algebra
 in lockstep, with per-member scalars as (B,) device tensors, the matvec
@@ -38,14 +50,17 @@ Krylov method, and the same engine runs at every size.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import sys
+import threading
 import warnings
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from .. import _build
 from ..grid.topology import GridTopology
 from ..ops.apply import transpose_coeffs
 from ..ops.coeffs import StencilCoeffs
@@ -148,6 +163,7 @@ class _Field(NamedTuple):
     norm: Callable[[torch.Tensor], float]
     reduce: Callable[[torch.Tensor], torch.Tensor]
     offset: tuple[int, int] = (0, 0)
+    whole: bool = False  # the whole field on one device: its reductions never leave it
 
 
 def _whole_field(topology: GridTopology) -> _Field:
@@ -160,7 +176,7 @@ def _whole_field(topology: GridTopology) -> _Field:
         return stencil_apply(c, x, topology)
 
     return _Field(apply, _dot, lambda v: _read(torch.linalg.vector_norm(v), "norm")[0],
-                  lambda s: s)
+                  lambda s: s, whole=True)
 
 
 class _System(NamedTuple):
@@ -206,9 +222,48 @@ def _field_for(coeffs: StencilCoeffs, topology: GridTopology, transpose: bool, g
         transpose_coeffs_halo(coeffs, topology, grid) if transpose else coeffs)
 
 
+#: Per host thread, while `solve_shifted_ir`'s passes run (`_shared`):
+#: `systems`, the whole-field systems made, by their arguments, and
+#: `loops`, the graphed loops captured, by system and state shape.
+_passes = threading.local()
+
+
+@contextlib.contextmanager
+def _shared():
+    """Inside, on this thread: `_system` gives one whole-field system for
+    the same arguments, so the refinement's passes share its Thomas factor,
+    and `_engine` binds each pass to the graphed loop the first captured on
+    it (`_loop`). Both go on exit, but for the graphs, which go at the
+    thread's next capture (`_capture`)."""
+    if getattr(_passes, "systems", None) is not None:
+        yield
+        return
+    _passes.systems, _passes.loops = {}, {}
+    try:
+        yield
+    finally:
+        _passes.systems = _passes.loops = None
+
+
 def _system(coeffs: StencilCoeffs, dtype: torch.dtype, topology: GridTopology, shift=0.0,
             extra_diag: torch.Tensor | None = None, transpose: bool = False,
             preconditioner: str = "tridiag", grid=None, overlap: bool = True) -> _System:
+    """`_make_system`'s system, or inside `_shared` the whole-field system
+    it made before for the same arguments (the same tensors)."""
+    systems = getattr(_passes, "systems", None)
+    if systems is None or grid is not None:
+        return _make_system(coeffs, dtype, topology, shift, extra_diag, transpose,
+                            preconditioner, grid, overlap)
+    key = (id(coeffs), dtype, topology, shift, id(extra_diag), transpose, preconditioner)
+    if key not in systems:  # the tensors are kept, so their ids stay theirs
+        systems[key] = (_make_system(coeffs, dtype, topology, shift, extra_diag, transpose,
+                                     preconditioner), coeffs, extra_diag)
+    return systems[key][0]
+
+
+def _make_system(coeffs: StencilCoeffs, dtype: torch.dtype, topology: GridTopology, shift=0.0,
+                 extra_diag: torch.Tensor | None = None, transpose: bool = False,
+                 preconditioner: str = "tridiag", grid=None, overlap: bool = True) -> _System:
     """The engine's system in `dtype`, on the whole field or (`grid`) on
     this rank's shard. For T' the stencil form of T' is built once; its
     vertical legs are the transposed operator's, so the Thomas M is built
@@ -312,27 +367,159 @@ def _restart_state(sys_: _System, algorithm: str, step, x: torch.Tensor, b: torc
                    torch.zeros_like(one), one)
 
 
-def _bicgstab_steps(sys_: _System, st: _State1, nsteps: int) -> _State1:
-    """`nsteps` iterations of right-preconditioned BiCGStab, with the
-    breakdown guards of the JAX package's `_sr_chunk1`. Around each
-    iteration's two M (K2) and two A (K1) applications its vector algebra
-    is K13's four entries (`ops/krylov_algebra.py`), the scalars on the
-    device; the sums are `sys_`'s, reduced over the field (on a shard, one
-    all-reduce each: <rhat, v>, then <t, s> with <t, t>, then <rhat, r>)."""
+def _bicgstab_iteration(sys_: _System, st: _State1, out: _State1 | None = None) -> _State1:
+    """One iteration of right-preconditioned BiCGStab, with the breakdown
+    guards of the JAX package's `_sr_chunk1`. Around its two M (K2) and two
+    A (K1) applications its vector algebra is K13's four entries
+    (`ops/krylov_algebra.py`), the scalars on the device; the sums are
+    `sys_`'s, reduced over the field (on a shard, one all-reduce each:
+    <rhat, v>, then <t, s> with <t, t>, then <rhat, r>). Nothing is read
+    back, so on a whole field the iteration can be captured as a CUDA graph
+    (`_PingPong`). `out`, a state set of a whole field, receives x', r', p'
+    and rho' (its rhat is st's); otherwise they are fresh tensors."""
     x, r, p, rhat, rho = st
     A, M, reduce = sys_.apply, sys_.M, sys_.field.reduce
+    phat = M(p)
+    v = A(phat)
+    s, alpha = bicg1_s(r, v, rho, reduce(bicg1_sums(v, rhat)))
+    shat = M(s)
+    t = A(shat)
+    to = _State1(*(None,) * 5) if out is None else out
+    x, r, omega, rho_new = bicg1_update(x, phat, shat, s, t, rhat, alpha,
+                                        reduce(bicg1_sums(t, s, with_aa=True)),
+                                        x_out=to.x, r_out=to.r, rho_out=to.rho)
+    rho_new = reduce(rho_new)
+    p = bicg1_p(r, p, v, rho, rho_new, alpha, omega, out=to.p)
+    return _State1(x, r, p, rhat, rho_new)
+
+
+def _bicgstab_steps(sys_: _System, st: _State1, nsteps: int) -> _State1:
+    """`nsteps` iterations (`_bicgstab_iteration`) issued one entry call at a
+    time, each into fresh tensors: the eager loop, which shards, CPU
+    tensors and the first part of a graphed solve take. Where `_graphed`
+    engages (BiCGStab(1) on the whole field of a CUDA tensor) the engine
+    issues the later iterations as replays of captured ones instead
+    (`_PingPong`), with the same bits."""
     for _ in range(nsteps):
-        phat = M(p)
-        v = A(phat)
-        s, alpha = bicg1_s(r, v, rho, reduce(bicg1_sums(v, rhat)))
-        shat = M(s)
-        t = A(shat)
-        x, r, omega, rho_new = bicg1_update(x, phat, shat, s, t, rhat, alpha,
-                                            reduce(bicg1_sums(t, s, with_aa=True)))
-        rho_new = reduce(rho_new)
-        p = bicg1_p(r, p, v, rho, rho_new, alpha, omega)
-        rho = rho_new
-    return _State1(x, r, p, rhat, rho)
+        st = _bicgstab_iteration(sys_, st)
+    return st
+
+
+def _graphed(sys_: _System, algorithm: str, b) -> bool:
+    """Whether the engine replays BiCGStab(1)'s iterations as CUDA graphs
+    (`_PingPong`), read from the solve's input alone: BiCGStab(1) on a CUDA
+    tensor (a field or a batch, f32 or f64, the bf16-narrow mode too) on the
+    whole field. A shard's all-reduces (gloo's are staged through the host)
+    cannot be captured, a CPU tensor has no graph, and BiCGStab(2) and GMRES
+    keep their own loops."""
+    return algorithm == "bicgstab" and b.is_cuda and sys_.field.whole
+
+
+#: Per host thread, per device: [the side stream on which the engine
+#: captures its graphs, the memory pool of their intermediates, the graphs
+#: captured last].
+_side = threading.local()
+
+
+def _capture(sys_: _System, sets: list[_State1]) -> list:
+    """Graphs AB and BA: one BiCGStab(1) iteration each, captured from
+    `_bicgstab_iteration` on set 0 into set 1 and on set 1 into set 0, each
+    with what its entry calls were counted (`_build.capturing`): [(graph,
+    tally), ...]. Captured on this thread's side stream, which first waits
+    on the current one, directly through `capture_begin`/`capture_end`:
+    `torch.cuda.graph` synchronises, empties the caching allocator and may
+    run a full garbage collection at every capture, each dearer than a
+    solve's gain. Nothing runs while capturing.
+
+    The intermediates (phat, v, s, shat, t, the scalars and partial sums)
+    come from one memory pool that every capture of this thread on this
+    device shares, through the same side stream (the caching allocator
+    hands a freed block only to the stream that freed it). Each is dead
+    when its iteration ends (the outputs are the state sets), so graphs
+    that share the pool may be replayed in any order on one stream. A pool
+    lives while a graph captured into it does, so the thread keeps the
+    graphs it captured last until the next capture has taken the pool's
+    blocks again: a fresh pool would allocate from the device at every
+    capture, and a pool whose graphs are all gone keeps its memory
+    reserved until an allocation fails. Between solves the pool holds the
+    intermediates of the largest iteration the thread captured."""
+    device = sets[0].x.device
+    held = _side.__dict__.setdefault("devices", {})
+    if device.index not in held:
+        held[device.index] = [torch.cuda.Stream(device), torch.cuda.graph_pool_handle(), None]
+    side, pool, _ = held[device.index]
+    current = torch.cuda.current_stream(device)
+    side.wait_stream(current)
+    graphs = []
+    with torch.cuda.stream(side):
+        for i in (0, 1):
+            graph = torch.cuda.CUDAGraph()
+            with _build.capturing() as tally:
+                graph.capture_begin(pool=pool)
+                try:
+                    _bicgstab_iteration(sys_, sets[i], out=sets[1 - i])
+                finally:
+                    graph.capture_end()
+            graphs.append((graph, tally))
+    current.wait_stream(side)
+    held[device.index][2] = graphs
+    return graphs
+
+
+class _PingPong:
+    """BiCGStab(1) as the replay of one captured CUDA graph an iteration,
+    for one `_engine` call, on two state sets A and B (x, r, p, rho each;
+    one rhat tensor that both read): graph AB runs an iteration from A into
+    B, graph BA one from B back into A, so no state is copied between
+    iterations. The graphs read the system's own tensors. `state` is the
+    set the next replay reads; its tensors are overwritten two replays
+    later, so whatever must outlive them (the engine's best iterate) is a
+    copy. The state sets go with the loop; the graphs at the thread's next
+    capture (`_capture`)."""
+
+    def __init__(self, sys_: _System, state: _State1):
+        rhat = torch.empty_like(state.rhat)
+        self.sets = [_State1(*(rhat if name == "rhat" else torch.empty_like(t)
+                               for name, t in zip(_State1._fields, state)))
+                     for _ in range(2)]
+        self.cur = 0
+        self.load(state)
+        with span("engine.capture"):
+            self.graphs = _capture(sys_, self.sets)
+
+    @property
+    def state(self) -> _State1:
+        return self.sets[self.cur]
+
+    def load(self, state: _State1) -> None:
+        """Copy `state` (rhat included) into the set the next replay reads."""
+        for dst, src in zip(self.state, state):
+            dst.copy_(src)
+
+    def steps(self, nsteps: int) -> _State1:
+        """`nsteps` replays, alternating AB and BA; one launch-path call
+        each (`_build.replay`, "graph:bicg1")."""
+        for _ in range(nsteps):
+            _build.replay(*self.graphs[self.cur], "graph:bicg1")
+            self.cur ^= 1
+        return self.state
+
+
+def _loop(sys_: _System, state: _State1) -> _PingPong:
+    """The graphed loop on `sys_` for `state`, loaded with it: inside
+    `_shared`, the one captured on `sys_` for the same shapes by an earlier
+    pass, kept until the passes end; else a new one, which goes with the
+    engine call."""
+    loops = getattr(_passes, "loops", None)
+    key = (id(sys_), state.x.shape, state.x.dtype)
+    if loops is None or key not in loops:
+        loop = _PingPong(sys_, state)
+        if loops is not None:
+            loops[key] = loop  # sys_ is kept by `_shared`, so its id stays its own
+        return loop
+    loop = loops[key]
+    loop.load(state)
+    return loop
 
 
 def _unfused_step(sys_: _System):
@@ -578,7 +765,19 @@ def _engine(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, chunk: int
     `solve_shifted_chunked_multi` document its rules). A field is one
     member whose state stays a field with 0-d scalars; GMRES takes fields
     only (`_gmres`). Returns (x, relative residuals ||A x - b|| / ||b||
-    recomputed from x, a list of one float per member)."""
+    recomputed from x, a list of one float per member).
+
+    Where `_graphed` engages (BiCGStab(1) on the whole field of a CUDA
+    tensor), the first part of the first chunk runs eagerly, as the warm-up;
+    then two iterations are captured as graphs (`_PingPong`, in an
+    `engine.capture` span; a later pass of `solve_shifted_ir` binds to the
+    loop the first captured, `_loop`) and every later iteration is one
+    replay, issued while the device works through the previous ones. The
+    reads stay outside the graphs; restarts are copied into the state the
+    next replay reads, and the best iterate is a copy. The state sets go
+    when the engine (or the refinement) returns, the graphs at the thread's
+    next capture. Shards, CPU tensors, BiCGStab(2) and GMRES issue every
+    entry call themselves. Both loops give the same bits."""
     if algorithm == "gmres":
         return _gmres(sys_, b, tol, maxiter, early_stop, stats, verbose)
     step = (_fused_step(sys_, krylov_scratch(*sys_.m_legs, factor=sys_.factor)) if fused
@@ -588,6 +787,8 @@ def _engine(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, chunk: int
     members = range(len(bnorm2))
     atol2 = [tol ** 2 * v for v in bnorm2]
     state = _initial_state(sys_, algorithm, b)
+    graphed = _graphed(sys_, algorithm, b)
+    loop = None  # the graphed loop, captured at the first part after the warm-up
     best_x, best_rn2 = state.x, list(bnorm2)  # the residual at x0 = 0 is b
     rn2 = list(bnorm2)
     pass_rn2 = list(bnorm2)  # per member, at the start of its current Krylov pass
@@ -612,6 +813,9 @@ def _engine(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, chunk: int
         restarts += 1 if not (batch and jitter) else 0
         with span("engine.restart", jitter=jitter):
             state = _restart_members(sys_, algorithm, step, state, best_x, b, mask, jitter)
+            if loop is not None:
+                loop.load(state)
+                state = loop.state
         for m in members:
             if mask[m]:
                 div_streak[m] = 0
@@ -622,9 +826,10 @@ def _engine(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, chunk: int
         nonlocal rn2, best_x
         rn2 = _read(sys_.dot(state.r, state.r), "recurrence residual")
         better = [v < w for v, w in zip(rn2, best_rn2)]  # False for NaN
-        # No copies: the loop never writes a tensor in place.
+        # The eager loop never writes a tensor in place; a graphed one
+        # overwrites its state two replays on, so its best iterate is a copy.
         if all(better):
-            best_x = state.x
+            best_x = state.x if loop is None else state.x.clone()
         elif any(better):
             best_x = torch.where(torch.tensor(better, device=b.device).view(-1, 1, 1, 1),
                                  state.x, best_x)
@@ -648,8 +853,13 @@ def _engine(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, chunk: int
                 pairs = n if algorithm == "bicgstab" else 2 * n
                 # issued without a read: the span's length is the host's
                 # issue time while the launch queue has room
-                with span("engine.steps", iters=pairs):
-                    if algorithm == "bicgstab":
+                replayed = graphed and iters > 0
+                with span("engine.steps", iters=pairs, graphed=replayed):
+                    if replayed:
+                        if loop is None:
+                            loop = _loop(sys_, state)
+                        state = loop.steps(n)
+                    elif algorithm == "bicgstab":
                         state = _bicgstab_steps(sys_, state, n)
                     else:
                         state = _bicgstab2_cycles(sys_, step, state, n)
@@ -728,7 +938,7 @@ def _engine(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, chunk: int
                     break
             window_rn2 = list(rn2)
 
-    del state
+    del state, loop
     x = sys_.M(best_x) if algorithm == "bicgstab2" else best_x  # y-space for BiCGStab(2)
     return _finish(sys_, b, x, best_rn2, bnorm2, stats,
                    dict(iters=iters, restarts=restarts, stop=stop,
@@ -872,6 +1082,7 @@ def _ir_defect(field: _Field, c_narrow: StencilCoeffs, x: torch.Tensor,
 
 
 @traced
+@_shared()
 def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopology,
                      shift: float = 0.0, extra_diag: torch.Tensor | None = None,
                      tol: float = 1e-9, inner_tol: float = 1e-4,
@@ -913,6 +1124,9 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
     from the same defect cannot help. Each pass asks its inner solve only
     for the contraction still needed, max(inner_tol, 0.5 * tol / rel), at
     most 0.9.
+
+    The passes share one system (the Thomas factor is made once) and, on
+    the card, one graphed BiCGStab(1) loop (`_shared`).
 
     `stats`, if a dict, receives ``passes`` (one dict per pass: rel_start,
     reverted, inner_tol, inner_iters, inner_stop, inner_restarts,

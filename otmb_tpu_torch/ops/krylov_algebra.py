@@ -47,8 +47,12 @@ guard(d) = d where d != 0, else 1. The scalars are formed in the fields'
 dtype from the reduced sums, on the device; sums, updates, batches and
 rounding are K11's and K12's. On a process grid the sums are the shard's,
 and the engine all-reduces them (three all-reduces an iteration). The
-plain versions are `bicg1_*_plain`. Every output is a fresh tensor: the
-engine keeps references to earlier iterates.
+plain versions are `bicg1_*_plain`. Every output is a fresh tensor,
+except where `bicg1_update` and `bicg1_p` are given tensors to write x',
+r', <rhat, r'> and p' into (`x_out`, `r_out`, `rho_out`, `out`): the
+engine's graphed BiCGStab(1) loop writes each iteration into the state set
+the previous one read (`models/solvers.py:_PingPong`). An output tensor
+must not be an input of the same call.
 """
 
 from __future__ import annotations
@@ -338,30 +342,53 @@ def bicg1_s(r: torch.Tensor, v: torch.Tensor, rho: torch.Tensor, dv: torch.Tenso
     return s, alpha
 
 
+def _outputs(what: str, fields: dict, scalars: dict, like: torch.Tensor) -> None:
+    """Check the given output tensors (None: a fresh one) as `_check` checks
+    the inputs, against the fields of `like`."""
+    given = lambda d: {name: t for name, t in d.items() if t is not None}
+    if given(fields) or given(scalars):
+        _check(what, dict(like=like, **given(fields)), given(scalars))
+
+
+def _into(out: torch.Tensor | None, value: torch.Tensor) -> torch.Tensor:
+    """`value`, copied into `out` where one is given."""
+    return value if out is None else out.copy_(value)
+
+
 def bicg1_update(x: torch.Tensor, phat: torch.Tensor, shat: torch.Tensor, s: torch.Tensor,
-                 t: torch.Tensor, rhat: torch.Tensor, alpha: torch.Tensor, ts: torch.Tensor):
-    """K13: (x', r', omega, <rhat, r'>); see the module docstring."""
+                 t: torch.Tensor, rhat: torch.Tensor, alpha: torch.Tensor, ts: torch.Tensor,
+                 x_out: torch.Tensor | None = None, r_out: torch.Tensor | None = None,
+                 rho_out: torch.Tensor | None = None):
+    """K13: (x', r', omega, <rhat, r'>), x', r' and <rhat, r'> written into
+    `x_out`, `r_out` and `rho_out` where given; see the module docstring."""
     f = _check13("bicg1_update", dict(x=x, phat=phat, shat=shat, s=s, t=t, rhat=rhat),
                dict(alpha=alpha))
     _check_sums("bicg1_update", "ts", ts, f, 2)
+    _outputs("bicg1_update", dict(x_out=x_out, r_out=r_out), dict(rho_out=rho_out), f)
     if not f.is_cuda:
-        return bicg1_update_plain(x, phat, shat, s, t, rhat, alpha, ts)
+        x_new, r_new, omega, rho = bicg1_update_plain(x, phat, shat, s, t, rhat, alpha, ts)
+        return _into(x_out, x_new), _into(r_out, r_new), omega, _into(rho_out, rho)
     alpha, ts = alpha.contiguous(), ts.contiguous()
-    x_new, r_new, omega = torch.empty_like(x), torch.empty_like(s), torch.empty_like(alpha)
-    rho = torch.empty_like(alpha)
+    x_new = torch.empty_like(x) if x_out is None else x_out
+    r_new = torch.empty_like(s) if r_out is None else r_out
+    rho = torch.empty_like(alpha) if rho_out is None else rho_out
+    omega = torch.empty_like(alpha)
     _bicg1_launch("update", f, x, phat, shat, s, t, rhat, alpha, ts, x_new, r_new, omega,
                   _partials(f, 1), rho)
     return x_new, r_new, omega, rho
 
 
 def bicg1_p(r: torch.Tensor, p: torch.Tensor, v: torch.Tensor, rho: torch.Tensor,
-            rho_new: torch.Tensor, alpha: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
-    """K13: p' = r + beta (p - omega v); see the module docstring."""
+            rho_new: torch.Tensor, alpha: torch.Tensor, omega: torch.Tensor,
+            out: torch.Tensor | None = None) -> torch.Tensor:
+    """K13: p' = r + beta (p - omega v), written into `out` where given; see
+    the module docstring."""
     x = _check13("bicg1_p", dict(r=r, p=p, v=v),
                dict(rho=rho, rho_new=rho_new, alpha=alpha, omega=omega))
+    _outputs("bicg1_p", dict(out=out), {}, x)
     if not x.is_cuda:
-        return bicg1_p_plain(r, p, v, rho, rho_new, alpha, omega)
+        return _into(out, bicg1_p_plain(r, p, v, rho, rho_new, alpha, omega))
     scalars = [t.contiguous() for t in (rho, rho_new, alpha, omega)]
-    p_new = torch.empty_like(p)
+    p_new = torch.empty_like(p) if out is None else out
     _bicg1_launch("p", x, r, p, v, *scalars, p_new)
     return p_new

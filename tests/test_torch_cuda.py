@@ -1244,23 +1244,136 @@ def test_bicgstab1_iteration_launches_only_k2_k1_k13(case):
     assert len(names) == 12, names
 
 
+def _surface(wet: torch.Tensor) -> torch.Tensor:
+    """The ideal age's surface restoring (1 on the wet top level), f32."""
+    surf = torch.zeros(wet.shape, dtype=torch.float32, device=wet.device)
+    surf[0] = 1.0
+    return torch.where(wet, surf, 0.0)
+
+
 @pytest.mark.parametrize("members", [None, 3])
 def test_bicgstab1_solve_runs_k13(case, members):
     """A BiCGStab(1) solve (a field on K1 + K2, a batch on K5 + batched K2)
-    launches K13's five entries every iteration, and two solves give the
-    same bits."""
+    runs K13's five entries every iteration, and two solves give the same
+    bits. The solve is graphed: its first iteration calls the entries, then
+    two iterations are captured (each entry called once, nothing run,
+    counted under "capture:"), and every later iteration is one replay
+    under "graph:bicg1", which counts the five entries it runs."""
     _, gm, idx, T, _ = case
     b = idx.wet3d.to(torch.float32)
     if members is not None:
         b = torch.stack([b * (m + 1) for m in range(members)])
-    kw = dict(shift=1e-3, tol=1e-6, chunk=20, algorithm="bicgstab")
-    n0 = _build.calls(K13)
-    stats = {}
-    x1, r1 = P.solve_shifted_chunked(T.to(torch.float32), b, gm.topology, stats=stats, **kw)
-    assert _build.calls(K13) - n0 == 5 * stats["iters"]
-    x2, r2 = P.solve_shifted_chunked(T.to(torch.float32), b, gm.topology, **kw)
+    # the age system, 15 iterations (a shifted one converges in one)
+    kw = dict(extra_diag=_surface(idx.wet3d), tol=1e-5, chunk=20, algorithm="bicgstab")
+    solves = []
+    for _ in range(2):
+        n0, g0, c0, stats = (_build.calls(K13), _build.calls("graph:bicg1"),
+                             _build.calls("capture:otmb_bicg1_"), {})
+        solves.append(P.solve_shifted_chunked(T.to(torch.float32), b, gm.topology, stats=stats,
+                                              **kw))
+        assert _build.calls(K13) - n0 == 5 * stats["iters"]
+        assert _build.calls("graph:bicg1") - g0 == stats["iters"] - 1 > 2
+        assert _build.calls("capture:otmb_bicg1_") - c0 == 5 * 2
+    (x1, r1), (x2, r2) = solves
     torch.testing.assert_close(x1, x2, rtol=0, atol=0)
     assert (r1 == r2) if members is None else bool((r1 == r2).all())
+
+
+@pytest.fixture(scope="module")
+def one_degree(device):
+    """The 1-degree synthetic case (360x300x50, tripolar): grid metrics, wet
+    mask, and T from K4 in f32."""
+    gm, wet, umo, vmo, ml = P.synthetic_device_case(360, 300, 50, device=device)
+    return gm, wet, P.assemble_T(umo, vmo, ml, gm)
+
+
+def _bands(gm, n: int = 4) -> np.ndarray:
+    ny, nx = gm.shape[1:]
+    masks = np.zeros((n, ny, nx), bool)
+    for r in range(n):
+        masks[r, r * ny // n:(r + 1) * ny // n] = True
+    return masks
+
+
+#: The solves that take the graphed BiCGStab(1) loop on the card: the
+#: refined 1-degree age on an f32 field (the benchmark's age), the water-mass
+#: fractions of 4 bands as one f64 batch (tol 1e-12), and the refined age in
+#: the bf16-narrow mode. Each returns (x, residuals, iterations by solve).
+GRAPHED_SOLVES = {
+    "field_f32": lambda gm, wet, T, st: P.ideal_age(T, wet, gm.topology, tol=1e-8, refine=True,
+                                                    stats=st),
+    "batch_f64": lambda gm, wet, T, st: P.water_mass_fractions(
+        T.to(torch.float64), wet, gm.topology, _bands(gm), tol=1e-12, stats=st),
+    "bf16_narrow": lambda gm, wet, T, st: P.ideal_age(T.to(torch.bfloat16), wet, gm.topology,
+                                                      tol=1e-8, refine=True, stats=st),
+    # on T', whose coefficients the solve forms
+    "field_f32_transposed": lambda gm, wet, T, st: P.sequestration_time(
+        T, wet, gm.topology, tol=1e-8, refine=True, stats=st),
+}
+
+
+def _iterations(stats: dict) -> list:
+    return [p.get("inner_iters") for p in stats["passes"]] if "passes" in stats \
+        else [stats["iters"]]
+
+
+@pytest.mark.parametrize("mode", sorted(GRAPHED_SOLVES))
+def test_graphed_bicgstab1_equals_eager(one_degree, monkeypatch, mode):
+    """The graphed loop (one replay an iteration) and the eager one (every
+    entry called) give the same bits: x, the residuals and the iterations,
+    on a 1-degree f32 field (T and, after it, T'), a B = 4 f64 batch and the
+    bf16-narrow mode."""
+    from otmb_tpu_torch.models import solvers as S
+
+    gm, wet, T = one_degree
+    runs = []
+    for graphed in (True, False):
+        if not graphed:
+            monkeypatch.setattr(S, "_graphed", lambda sys_, algorithm, b: False)
+        g0, stats = _build.calls("graph:bicg1"), {}
+        x, res = GRAPHED_SOLVES[mode](gm, wet, T, stats)
+        runs.append((x, res, _iterations(stats), _build.calls("graph:bicg1") - g0))
+    (xg, rg, ig, replays), (xe, re_, ie, none) = runs
+    assert replays > 0 and none == 0 and ig == ie
+    torch.testing.assert_close(xg, xe, rtol=0, atol=0, equal_nan=True)  # NaN on land
+    assert rg == re_ if isinstance(rg, float) else torch.equal(rg, re_)
+
+
+def test_graphed_solves_keep_memory_flat(one_degree):
+    """Twenty graphed solves in a row leave the allocated and the reserved
+    device memory where the first left them: each solve's state sets,
+    graphs and their pool are freed when it returns, the pool's memory
+    given back to the device."""
+    gm, wet, T = one_degree
+    b = wet.to(torch.float32)
+    allocated, reserved = [], []
+    for _ in range(20):
+        x, _ = P.solve_shifted_chunked(T, b, gm.topology, extra_diag=_surface(wet), tol=1e-6)
+        del x
+        torch.cuda.synchronize()
+        allocated.append(torch.cuda.memory_allocated())
+        reserved.append(torch.cuda.memory_reserved())
+    assert allocated == allocated[:1] * 20, allocated
+    assert reserved == reserved[:1] * 20, reserved
+
+
+def test_a_graphed_solve_shows_its_kernels_to_the_profiler(one_degree):
+    """torch.profiler sees the kernels inside the replays by name, as the
+    benchmark's `krylov_roofline.solve` reads them: K1, K2 and each K13
+    kernel, and at least one K1 kernel an iteration (two run in each, but
+    the profiler now and then drops a record)."""
+    gm, wet, T = one_degree
+    b = wet.to(torch.float32)
+    g0, stats = _build.calls("graph:bicg1"), {}
+    _, events, _ = _cuda_events(lambda: P.solve_shifted_chunked(
+        T, b, gm.topology, extra_diag=_surface(wet), tol=1e-6, stats=stats))
+    assert _build.calls("graph:bicg1") - g0 == stats["iters"] - 1
+    names = [e.name for e in events]
+    for kernel in ("stencil_kernel", "thomas_solve_kernel", "bicg1_sums_kernel",
+                   "bicg1_s_kernel", "bicg1_update_kernel", "bicg1_p_kernel",
+                   "alg_finish_kernel"):
+        assert any(kernel in n for n in names), kernel
+    assert sum("stencil_kernel" in n for n in names) >= stats["iters"]
 
 
 def test_k13_wrappers_raise_on_card(device):
