@@ -75,17 +75,23 @@ use, the coarsening's C++ labelling core with g++), then:
      reset before and read after: TEOS-10 density of the synthetic
      hydrography -> potential-density slopes -> GM bolus transports ->
      transportmatrix and assemble_T (K4, held against it) -> the Redi
-     operator R from the f32 density -> 200 steps of chi <- euler_step(T, chi)
-     + dt R chi (K1 + K6) and the same for 8 tracers (K5 + K6 on the batch,
-     each member equal to the single run bit for bit), with the tracer-mass
-     drift, and the bf16 R (K6 in (bf16, f32));
+     operator R from the f32 density -> 200 T + R steps, chi <- chi - dt T
+     chi + dt R chi, with the f32 R and its bf16 copy: euler_propagate_multi(
+     ..., redi=R) on 8 tracers (K5 + K6's accumulating entry a step, counts
+     reset just before: K5 = K6 multi = steps) and euler_propagate(...,
+     redi=R) on each of them (K1 + K6's accumulating entry: K1 = K6 = steps
+     a tracer), each member equal to its single run and the batch equal to
+     the plain composition stencil._plain + dt redi_apply, bit for bit, with
+     the tracer-mass drift, and the bf16 R against the exact apply;
  15. holds K6 against its plain version in (f64, f64), (f32, f32) and
      (bf16, f32) at 1 degree on both topologies, K6 on a batch of 4 and 8
      against K6 member by member and against plain, and R's invariants
      (conservation, constants in the null space) through the kernel; at
      0.25 degrees and 720x540x75, K6 and the batch of 2 in f32;
  16. times K6 and its plain version at 1 and 0.25 degrees, the bf16 K6, K6
-     on a batch of B = 1, 2, 4, 8 beside B launches of K6, and the library
+     on a batch of B = 1, 2, 4, 8 beside B launches of K6, K6's accumulating
+     entry on 8 tracers beside its plain version and a whole T + R step of
+     8 tracers (K5 + the accumulating entry), and the library
      calls of K1 and K5 (a CSR matrix of T times one vector and times 8);
      each kernel's bound (its compulsory bytes over the published 3.35 TB/s
      of the H100 SXM, or its operations over 67 TFLOP/s f32, whichever is
@@ -640,6 +646,19 @@ def reset_launches():
     start = {name: _build.calls(prefixes) for name, prefixes in _build.KERNELS.items()}
     return lambda: {name: _build.calls(prefixes) - start[name]
                     for name, prefixes in _build.KERNELS.items()}
+
+
+def reset_acc():
+    """Start counting the calls of K6's accumulating entries here; returns a
+    reader of them since, under "K6" (one tracer) and "K6 multi" (a batch),
+    as `_build.KERNELS` counts K6's."""
+    from otmb_tpu_torch import _build
+    from otmb_tpu_torch.models import redi_kernel
+
+    names = tuple(f"{entry}_acc" for entry in redi_kernel._ENTRY.values())
+    prefixes = {"K6": names, "K6 multi": tuple(f"multi:{n}" for n in names)}
+    start = {k: _build.calls(p) for k, p in prefixes.items()}
+    return lambda: {k: _build.calls(p) - start[k] for k, p in prefixes.items()}
 
 
 def surface_mask(wet: torch.Tensor, dtype) -> torch.Tensor:
@@ -1579,7 +1598,8 @@ def tracer_mass(chi: torch.Tensor, v: torch.Tensor) -> float:
 def phase_density(P, card):
     """The 1-degree density path through the public API, counts reset just
     before and read just after. Returns the f64 grid, indices, the f64 R,
-    the f32 T and R of the path, and the launches."""
+    the f32 T and R of the path, the launches, and those of K6's
+    accumulating entry among K6's."""
     read = reset_launches()
     t0 = time.perf_counter()
     ds = P.synthetic_dataset(nx=NX, ny=NY, nz=NZ, topology="tripolar", seed=SEED)
@@ -1620,8 +1640,13 @@ def phase_density(P, card):
         f"{tau_vol:.3e} Myr; set-up (grid, rho, slopes, bolus, T, R) {t_setup:.3f} s")
     del so, ct, s_i, s_j, phi, ops, T_ref, umo, vmo, rho, rho_w
 
-    # 200 f32 steps of chi <- chi - dt T chi + dt R chi: K1 + K6
+    # 200 f32 T + R steps, chi <- chi - dt T chi + dt R chi, through the
+    # public propagations with the f32 R and its bf16 copy: K5 (or K1) and
+    # K6's accumulating entry a step, held to the plain composition
+    from otmb_tpu_torch.ops import stencil
+
     T32, R32 = T.to(torch.float32), R.to(torch.float32)
+    Rb = P.redi_operator_to_bf16(R32)
     rate_t, rate_r = float(T.diag.abs().max()), P.redi_max_rate(R)
     dt = 0.25 / (rate_t + rate_r)
     v = torch.where(wet, gm.v3d, 0.0)
@@ -1630,49 +1655,62 @@ def phase_density(P, card):
     chis0 = torch.as_tensor(
         np.where(wet_np[None], 1.0 + 0.1 * rng.standard_normal((BATCH,) + wet_np.shape), 0.0),
         dtype=torch.float32, device=wet.device)
-    step = lambda x: P.euler_step(T32, x, dt, topo) + dt * P.redi_apply_fused(R32, x)
-    t0 = time.perf_counter()
-    singles = []
-    for m in range(BATCH):
-        chi = chis0[m]
+    t_only = P.euler_propagate_multi(T32, chis0, dt, DENSITY_STEPS, topo)
+    acc = {"K6": 0, "K6 multi": 0}
+    for rname, Rx in (("f32", R32), ("bf16", Rb)):
+        counts, acc_counts = reset_launches(), reset_acc()
+        t0 = time.perf_counter()
+        chis = P.euler_propagate_multi(T32, chis0, dt, DENSITY_STEPS, topo, redi=Rx)
+        torch.cuda.synchronize()
+        t_multi = time.perf_counter() - t0
+        n, n_acc = counts(), acc_counts()
+        require(n["K5"] == n["K6 multi"] == n_acc["K6 multi"] == DENSITY_STEPS
+                and n["K1"] == n["K6"] == 0,
+                f"euler_propagate_multi(redi={rname} R), {DENSITY_STEPS} steps: launches {n}, "
+                f"accumulating entries {n_acc}")
+        counts, acc_counts = reset_launches(), reset_acc()
+        t0 = time.perf_counter()
+        singles = [P.euler_propagate(T32, chis0[m], dt, DENSITY_STEPS, topo, redi=Rx)
+                   for m in range(BATCH)]
+        torch.cuda.synchronize()
+        t_single = (time.perf_counter() - t0) / BATCH
+        n1, n1_acc = counts(), acc_counts()
+        require(n1["K1"] == n1["K6"] == n1_acc["K6"] == BATCH * DENSITY_STEPS
+                and n1["K5"] == n1["K6 multi"] == 0,
+                f"euler_propagate(redi={rname} R) on {BATCH} tracers, {DENSITY_STEPS} steps: "
+                f"launches {n1}, accumulating entries {n1_acc}")
+        for key in acc:
+            acc[key] += n_acc[key] + n1_acc[key]
+        for m in range(BATCH):
+            require(torch.equal(chis[m], singles[m]), f"T + R ({rname} R): batched member {m} "
+                    f"differs from its euler_propagate run")
+        want = chis0
         for _ in range(DENSITY_STEPS):
-            chi = step(chi)
-        singles.append(chi)
-    torch.cuda.synchronize()
-    t_single = (time.perf_counter() - t0) / BATCH
-    chi = singles[0]
-    drift = abs(tracer_mass(chi, v) / tracer_mass(chis0[0], v) - 1.0)
-    moved = float((chi - P.euler_propagate(T32, chis0[0], dt, DENSITY_STEPS, topo)).abs().max())
-    require(bool(torch.isfinite(chi).all()), "T + R tracer not finite")
-    require(bool((chi[~wet] == 0).all()), "T + R tracer nonzero on land")
-    require(drift < TOL_MASS_F32, f"T + R mass drift {drift:.3e} >= {TOL_MASS_F32}")
-    require(moved > 0, "the Redi part did not change the tracer")
-    log(f"[density] {DENSITY_STEPS} f32 steps of chi - dt T chi + dt R chi (K1 + K6) at dt = "
-        f"0.25 / (max|diag T| {rate_t:.4e} + redi_max_rate(R) {rate_r:.4e}) = {dt:.6g} s: "
-        f"{t_single:.3f} s wall, relative tracer-mass drift {drift:.3e} (bound {TOL_MASS_F32}), "
-        f"max |with R - without R| {moved:.3e}")
+            want = stencil._plain(T32, want, topo, dt) + dt * P.redi_apply(Rx, want)
+        require(torch.equal(chis, want), f"T + R ({rname} R): euler_propagate_multi differs "
+                f"from stencil._plain + dt redi_apply, max abs "
+                f"{float((chis - want).abs().max()):.3e}")
+        drift = max(abs(tracer_mass(chis[m], v) / tracer_mass(chis0[m], v) - 1.0)
+                    for m in range(BATCH))
+        moved = float((chis - t_only).abs().max())
+        require(bool(torch.isfinite(chis).all()), f"T + R ({rname} R) tracers not finite")
+        require(bool((chis[:, ~wet] == 0).all()), f"T + R ({rname} R) tracers nonzero on land")
+        require(moved > 0, f"the {rname} Redi part did not change the tracers")
+        if rname == "f32":
+            require(drift < TOL_MASS_F32, f"T + R mass drift {drift:.3e} >= {TOL_MASS_F32}")
+        log(f"[density] {DENSITY_STEPS} T + R steps with the {rname} R at dt = 0.25 / (max|diag "
+            f"T| {rate_t:.4e} + redi_max_rate(R) {rate_r:.4e}) = {dt:.6g} s: "
+            f"euler_propagate_multi on {BATCH} f32 tracers {t_multi:.3f} s wall (K5 "
+            f"{n['K5']}, K6's accumulating entry on the batch {n_acc['K6 multi']}), "
+            f"euler_propagate {t_single:.3f} s a tracer (K1 {n1['K1']}, accumulating entry "
+            f"{n1_acc['K6']} for {BATCH}); every member equal to its single run and the batch "
+            f"to stencil._plain + dt redi_apply bit for bit; worst relative tracer-mass drift "
+            f"{drift:.3e}" + (f" (bound {TOL_MASS_F32})" if rname == "f32" else "")
+            + f"; max |with R - without R| {moved:.3e}")
+        del chis, singles, want
+    del t_only
 
-    stepm = lambda x: (P.euler_step_multi(T32, x, dt, topo)
-                       + dt * P.redi_apply_fused_multi(R32, x))
-    t0 = time.perf_counter()
-    chis = chis0
-    for _ in range(DENSITY_STEPS):
-        chis = stepm(chis)
-    torch.cuda.synchronize()
-    t_multi = time.perf_counter() - t0
-    for m in range(BATCH):
-        require(torch.equal(chis[m], singles[m]), f"batched T + R member {m} differs from the "
-                f"single-tracer run")
-    drift_b = max(abs(tracer_mass(chis[m], v) / tracer_mass(chis0[m], v) - 1.0)
-                  for m in range(BATCH))
-    require(drift_b < TOL_MASS_F32, f"batched T + R mass drift {drift_b:.3e}")
-    log(f"[density] {BATCH} f32 tracers x {DENSITY_STEPS} steps on K5 + K6 (batch): "
-        f"{t_multi:.3f} s wall ({BATCH} single runs: {t_single * BATCH:.3f} s); every member "
-        f"equal to its single-tracer run bit for bit; worst mass drift {drift_b:.3e}")
-    del chis, singles, chi
-
-    # the bf16 operator: K6 in (bf16, f32)
-    Rb = P.redi_operator_to_bf16(R32)
+    # the bf16 operator alone: K6 in (bf16, f32) against the exact apply
     x = chis0[0]
     got = P.redi_apply_fused(Rb, x)
     err = rel_err(got, P.redi_apply(Rb, x))[0]
@@ -1686,10 +1724,10 @@ def phase_density(P, card):
     del Rb, got, exact, chis0
 
     launches = read()
-    log(f"[launches] density path: {launches}")
+    log(f"[launches] density path: {launches}; of K6's, its accumulating entry's: {acc}")
     for name in ("K1", "K4", "K5", "K6", "K6 multi"):
         require(launches[name] > 0, f"{name} was not launched on the density path")
-    return gm, idx, R, T32, R32, launches
+    return gm, idx, R, T32, R32, launches, acc
 
 
 def phase_k6_checks(P, device, cases):
@@ -1738,10 +1776,15 @@ def phase_k6_checks(P, device, cases):
     return worst
 
 
-def phase_k6_times(P, card, R32, wet):
+def phase_k6_times(P, card, R32, wet, T32):
     """CUDA-event times at the density path's shape, f32: K6 and its plain
-    version, the bf16 K6 and its plain version, and K6 on a batch of B = 1,
-    2, 4, 8 beside B launches of K6."""
+    version, the bf16 K6 and its plain version, K6 on a batch of B = 1, 2,
+    4, 8 beside B launches of K6, K6's accumulating entry on B = 8 beside
+    its plain version (out + dt redi_apply), and a T + R step of 8 tracers
+    (`euler_propagate_multi(..., redi=R)`: K5 and the accumulating entry)
+    beside T's step alone."""
+    from otmb_tpu_torch.models import redi_kernel
+
     size = "x".join(map(str, R32.topology.shape3d[::-1]))
     gen = torch.Generator(device=wet.device).manual_seed(SEED + 10)
     x = torch.where(wet, torch.randn(wet.shape, generator=gen, device=wet.device), 0.0)
@@ -1770,7 +1813,23 @@ def phase_k6_times(P, card, R32, wet):
             + f" per call; per tracer {t['K6 batch'] / nb:.4f} ms against "
             f"{t['B x K6'] / nb:.4f} ms (card {card})")
         del xs
-    del Rb, x
+    xs = torch.where(wet, torch.randn((BATCH,) + tuple(wet.shape), generator=gen,
+                                      device=wet.device), 0.0)
+    out, topo = torch.zeros_like(xs), R32.topology
+    dt = 0.25 / (float(T32.diag.abs().max()) + P.redi_max_rate(R32))
+    times["K6 acc"] = time_pair(lambda: redi_kernel.accumulate(R32, xs, out, dt, True),
+                                lambda: out.add_(dt * P.redi_apply(R32, xs)), 50, 3)
+    steps = 10
+    step = time_set({"T + R": lambda: P.euler_propagate_multi(T32, xs, dt, steps, topo, redi=R32),
+                     "T": lambda: P.euler_propagate_multi(T32, xs, dt, steps, topo)},
+                    {"T + R": 5, "T": 5})
+    times["T + R step"], times["T step"] = step["T + R"] / steps, step["T"] / steps
+    log(f"[time] K6's accumulating entry (out += dt R chi) at {size} f32, B = {BATCH}: kernel "
+        f"{times['K6 acc'][0]:.4f} ms, plain {times['K6 acc'][1]:.4f} ms per call; a T + R step "
+        f"of {BATCH} tracers (euler_propagate_multi(..., redi=R), K5 + the accumulating entry) "
+        f"{times['T + R step']:.4f} ms, T's step alone (K5) {times['T step']:.4f} ms (CUDA "
+        f"events, {steps} steps a call; card {card})")
+    del Rb, x, xs, out
     return times
 
 
@@ -2876,7 +2935,7 @@ def main() -> int:
     ds, gm32, idx, T32, launches, mean_age = phase_main_path(P, device, card)
     phase_bf16_age(P, gm32, idx, T32, mean_age)
     # the density path; its f64 grid is also the tripolar grid of the checks
-    gm64, _, R64, dT32, dR32, dlaunches = phase_density(P, card)
+    gm64, _, R64, dT32, dR32, dlaunches, dacc = phase_density(P, card)
 
     # kernel checks at the main path's shapes, on both topologies
     bnx, bny, bnz = BIPOLAR_SHAPE
@@ -2895,9 +2954,12 @@ def main() -> int:
     k5_worst = phase_k5_checks(P, device, ops_cases, (("f64", "f64"), ("f32", "f64"),
                                                       ("f32", "f32"), ("bf16", "f32")),
                                (REGIONS, BATCH), plain=True)
-    k6_worst = phase_k6_checks(P, device, [
-        ("tripolar", R64, gm64, idx.wet3d),
-        ("bipolar", redi_of(P, bgm64, bidx.wet3d), bgm64, bidx.wet3d)])
+    k6_cases = [("tripolar", R64, gm64, idx.wet3d),
+                ("bipolar", redi_of(P, bgm64, bidx.wet3d), bgm64, bidx.wet3d)]
+    k6_read = reset_launches()
+    k6_worst = phase_k6_checks(P, device, k6_cases)
+    k6_launches = k6_read()
+    del k6_cases
     phase_golden(P, device)
     phase_device_case(P, device, gm32, idx)
     batched = phase_batched(P, device, gm32, idx, T32, T64)
@@ -2909,7 +2971,7 @@ def main() -> int:
     times = phase_times(P, card, T32, gm32, idx)
     k5_times, k5_err = phase_k5_times(P, card, T32, gm32.topology, idx.wet3d, plain_bmax=BATCH,
                                       k_calls=50)
-    k6_times = phase_k6_times(P, card, dR32, idx.wet3d)
+    k6_times = phase_k6_times(P, card, dR32, idx.wet3d, T32)
     library = phase_library(P, card, T32, idx, gm32.topology)
     mean_seq = phase_sequestration(P, gm32, idx, T32, mean_age)
     phase_gmres(P, card, gm32, idx, T32, mean_age, mean_seq)
@@ -2973,6 +3035,12 @@ def main() -> int:
                 k6_times["K6 bf16"][0]),
                *((f"K6 batch B = {nb}", f"{one} f32", redi_bytes(cells, plane, 4, nb, 4),
                   k6_times[nb]["K6 batch"]) for nb in (1, 2, 4, BATCH)),
+               (f"K6 accumulate B = {BATCH} (K6's bytes and out's read)", f"{one} f32",
+                redi_bytes(cells, plane, 4, BATCH, 4) + BATCH * cells * 4,
+                k6_times["K6 acc"][0]),
+               (f"T + R step B = {BATCH} (T's 7 legs, R's fields, each member read and "
+                f"written once)", f"{one} f32",
+                redi_bytes(cells, plane, 4, BATCH, 4) + 7 * cells * 4, k6_times["T + R step"]),
                ("K6", f"{quarter} f32", redi_bytes(qcells, qplane, 4, 1, 4), qk6_times[0]),
                ("K1's function as the CSR product (K1's bytes)", f"{one} f32", 9 * cells * 4,
                 library["K1"]),
@@ -3010,8 +3078,10 @@ def main() -> int:
                 s_times[name][0]) for name in s_bytes], gbps)
     log(f"[launches] K2 (factor and solve) {launches['K2']} on the 1-degree main path, "
         f"{batched['K2']} on the batched path, {qbatched['K2']} in the 0.25-degree batched "
-        f"solve; K6 {dlaunches['K6']} and K6 batch {dlaunches['K6 multi']} on the density "
-        f"path; K9 {s_launches('K9')} on the {SHARD_GRIDS[0]} sharded path")
+        f"solve; K6's accumulating entry {dacc['K6']} and on a batch {dacc['K6 multi']} on "
+        f"the density path's T + R steps; K6 {k6_launches['K6']} and K6 batch "
+        f"{k6_launches['K6 multi']} in the K6 checks; K9 {s_launches('K9')} on the "
+        f"{SHARD_GRIDS[0]} sharded path")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, nbytes, flops, library_ms):
         bound_ms, bound_by = bound(nbytes, flops)
@@ -3043,13 +3113,23 @@ def main() -> int:
               "otmb_tpu/ops/stencil_pallas.py:747", batched["K5"] + qbatched["K5"],
               max(k5_worst, k5_err), k5_times[BATCH]["K5"], k5_times[BATCH]["plain"],
               (7 + 2 * BATCH) * cells * 4, 15 * BATCH * cells, library["K5"]),
+        # K6's launches: the density path's, its accumulating entry's apart,
+        # and the K6 checks'
         entry("K6 redi_apply_fused", "redi.cu", "otmb_tpu/models/redi_pallas.py:46",
-              dlaunches["K6"], k6_worst, *k6_times["K6"], redi_bytes(cells, plane, 4, 1, 4),
-              REDI_FLOPS * cells, None),
+              dlaunches["K6"] - dacc["K6"] + k6_launches["K6"], k6_worst, *k6_times["K6"],
+              redi_bytes(cells, plane, 4, 1, 4), REDI_FLOPS * cells, None),
         entry("K6 redi_apply_fused_multi", "redi.cu", "otmb_tpu/models/redi_pallas.py:424",
-              dlaunches["K6 multi"], k6_worst, k6_times[BATCH]["K6 batch"],
-              k6_times[BATCH]["plain"], redi_bytes(cells, plane, 4, BATCH, 4),
-              REDI_FLOPS * BATCH * cells, None),
+              dlaunches["K6 multi"] - dacc["K6 multi"] + k6_launches["K6 multi"], k6_worst,
+              k6_times[BATCH]["K6 batch"], k6_times[BATCH]["plain"],
+              redi_bytes(cells, plane, 4, BATCH, 4), REDI_FLOPS * BATCH * cells, None),
+        # K6's accumulating entry, out += dt R chi, in each T + R step of
+        # euler_propagate(_multi)(..., redi=R): launches of both forms on the
+        # density path (held there to the plain composition bit for bit, so
+        # its error is 0); ms and bound on B = 8, K6's bytes and out's read
+        entry("K6 accumulate (euler_propagate*(redi=))", "redi.cu",
+              "otmb_tpu/models/redi_pallas.py:424", dacc["K6"] + dacc["K6 multi"], 0.0,
+              *k6_times["K6 acc"], redi_bytes(cells, plane, 4, BATCH, 4) + BATCH * cells * 4,
+              (REDI_FLOPS + 2) * BATCH * cells, None),
         entry("K10 dma_peak_probe", "probe.cu", "otmb_tpu/utils/profiling.py:214", k10_launches,
               k10_err, *k10_times, k10_bytes, 6 * k10_bytes // 32, None),
         # the sharded kernels: launches summed over the (2, 2) grid's four

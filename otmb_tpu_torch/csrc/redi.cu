@@ -21,6 +21,12 @@
 // steps above its chunk. A batch's members share each coefficient read, as
 // many as fit in half an SM per group.
 //
+// The accumulating entries (otmb_redi_*_acc) add alpha R chi into `out`
+// instead of writing R chi: the Redi half of an explicit T + R step, after
+// K5 has written chi - dt T chi there (ops/stencil.py, `redi=`). Each output
+// cell is read and written by the one thread that computes it, as
+// out + alpha * (R chi), two roundings as in the plain composition.
+//
 // Semantics are those of models/redi.py:redi_apply, the plain version: chi
 // is masked by wet; i is periodic; a missing neighbour (j-1 at the south
 // edge, j+1 at a bipolar north edge, k-1 at the surface, k+1 at the floor)
@@ -53,6 +59,7 @@ struct RediHalo {
 };
 
 constexpr int kTI = 32, kTJ = 8;        // owned columns along i and j
+constexpr int kMaxAccGroup = 8;         // members a block of an accumulating entry holds
 constexpr int kPI = kTI + 2;            // positions along i, with the ring
 constexpr int kPos = kPI * (kTJ + 2);   // positions of the tile and its ring
 constexpr int kThreads = kTI * kTJ, kPosPerThread = (kPos + kThreads - 1) / kThreads;
@@ -131,9 +138,10 @@ struct Level {
 
 // The shard mode is held to four blocks an SM (64 registers), as K6 in f32
 // compiles by itself, so that its chunks fill the SMs.
-template <typename C, typename V, bool kShard>
+template <typename C, typename V, bool kShard, bool kAcc>
 __global__ void __launch_bounds__(kThreads, kShard ? 4 : 0)
-redi_kernel(Reader<C, V, kShard> R, V* __restrict__ out, int nmembers, int group, int nchunks) {
+redi_kernel(Reader<C, V, kShard> R, V* __restrict__ out, int nmembers, int group, int nchunks,
+            V alpha) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nz = R.nz, t = threadIdx.x, tx = t % kTI, ty = t / kTI;
   const int i0 = blockIdx.x * kTI, j0 = blockIdx.y * kTJ, m0 = blockIdx.z / nchunks * group;
@@ -214,6 +222,16 @@ redi_kernel(Reader<C, V, kShard> R, V* __restrict__ out, int nmembers, int group
   // masked at the end; level k + 3's is staged.
   const V zero = V(0), half = V(0.5);
   auto step = [&](int k, const Level<V>& cur, bool first, bool fluxes) {
+    // the accumulating entries read each member's output cell as the step
+    // starts, so the load's latency hides behind the step's work
+    V prior[kAcc ? kMaxAccGroup : 1];
+    if constexpr (kAcc) {
+      if (fluxes && live) {
+#pragma unroll
+        for (int m = 0; m < kMaxAccGroup; ++m)
+          if (m < nm) prior[m] = out[(m0 + m) * member + k * R.plane + lc.h];
+      }
+    }
     if (fluxes) {  // dcz at level k on every position of the tile and its ring
 #pragma unroll
       for (int q = 0; q < kPosPerThread; ++q) {
@@ -264,14 +282,22 @@ redi_kernel(Reader<C, V, kShard> R, V* __restrict__ out, int nmembers, int group
     cp_async_wait<1>();  // level k + 2
     mask(k + 2, cur.wet);
     __syncthreads();
-    for (int m = 0; m < nm && live && fluxes; ++m) {
+    auto divergence = [&](int m) {
       const V* fe = fe_s + m * kPos;
       const V* fn = fn_s + m * kPos;
       const int slot = m * kThreads + t;
       const V ft_c = ft_s[(k & 1) * group * kThreads + slot];
       const V ft_b = ft_s[((k + 1) & 1) * group * kThreads + slot];
-      out[(m0 + m) * member + k * R.plane + lc.h] =
-          cur.invv * (((((fe[pc] - fe[pw]) + fn[pc]) - fn[ps]) + ft_c) - ft_b);
+      return cur.invv * (((((fe[pc] - fe[pw]) + fn[pc]) - fn[ps]) + ft_c) - ft_b);
+    };
+    if constexpr (kAcc) {  // unrolled, so that `prior` stays in registers
+#pragma unroll
+      for (int m = 0; m < kMaxAccGroup; ++m)
+        if (m < nm && live && fluxes)
+          out[(m0 + m) * member + k * R.plane + lc.h] = prior[m] + alpha * divergence(m);
+    } else {
+      for (int m = 0; m < nm && live && fluxes; ++m)
+        out[(m0 + m) * member + k * R.plane + lc.h] = divergence(m);
     }
   };
 
@@ -283,9 +309,10 @@ redi_kernel(Reader<C, V, kShard> R, V* __restrict__ out, int nmembers, int group
   for (int k = k_lo; k < k_hi; ++k) step(k, load(k), false, true);
 }
 
-template <typename C, typename V, bool kShard>
+template <typename C, typename V, bool kShard, bool kAcc = false>
 int launch_redi(const void* const* fields, const void* wet, const void* chi, void* out,
-                int nmembers, int nz, int ny, int nx, int north, RediHalo<C, V> h, void* stream) {
+                int nmembers, int nz, int ny, int nx, int north, RediHalo<C, V> h, void* stream,
+                double alpha = 0.0) {
   Reader<C, V, kShard> R{{}, static_cast<const unsigned char*>(wet), static_cast<const V*>(chi),
                          h, ny * nx, nz, ny, nx, north};
   for (int n = 0; n < kRediFields; ++n) R.f[n] = static_cast<const C*>(fields[n]);
@@ -293,8 +320,9 @@ int launch_redi(const void* const* fields, const void* wet, const void* chi, voi
   const size_t per_member = (7 * kPos + 4 * kThreads) * sizeof(V);
   int group = static_cast<int>(kMaxSharedBytes / 2 / per_member);
   group = group < nmembers ? group : nmembers;
+  if (kAcc) group = group < kMaxAccGroup ? group : kMaxAccGroup;
   const size_t bytes = group * per_member;
-  auto kernel = redi_kernel<C, V, kShard>;
+  auto kernel = redi_kernel<C, V, kShard, kAcc>;
   const dim3 grid((nx + kTI - 1) / kTI, (ny + kTJ - 1) / kTJ, (nmembers + group - 1) / group);
   long long slots = 0;
   const cudaError_t err = block_slots(kernel, kThreads, bytes, &slots);
@@ -304,7 +332,7 @@ int launch_redi(const void* const* fields, const void* wet, const void* chi, voi
   const int nchunks = static_cast<int>(std::max(1LL, std::min<long long>(fill, nz / kMinChunk)));
   kernel<<<dim3(grid.x, grid.y, grid.z * nchunks), kThreads, bytes,
            static_cast<cudaStream_t>(stream)>>>(
-      R, static_cast<V*>(out), nmembers, group, nchunks);
+      R, static_cast<V*>(out), nmembers, group, nchunks, static_cast<V>(alpha));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -334,6 +362,13 @@ int launch_redi_halo(const void* const* fields, const void* wet, const void* chi
                                      int nx, int tripolar, void* stream) {                     \
     return otmb::launch_redi<C, V, false>(fields, wet, chi, out, nmembers, nz, ny, nx,         \
                                           tripolar, {}, stream);                               \
+  }                                                                                            \
+  OTMB_EXPORT int otmb_redi_##SUFFIX##_acc(const void* const* fields, const void* wet,         \
+                                          const void* chi, void* out, int nmembers, int nz,    \
+                                          int ny, int nx, int tripolar, double alpha,          \
+                                          void* stream) {                                      \
+    return otmb::launch_redi<C, V, false, true>(fields, wet, chi, out, nmembers, nz, ny, nx,   \
+                                                tripolar, {}, stream, alpha);                  \
   }                                                                                            \
   OTMB_EXPORT int otmb_redi_halo_##SUFFIX(const void* const* fields, const void* wet,          \
                                           const void* chi, void* out, const void* const* lines, \

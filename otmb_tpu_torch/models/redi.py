@@ -19,9 +19,10 @@ orientation flips), and constants lie in the null space.
 `build_redi_operator` folds every mask, NaN guard and distance into 17
 chi-independent coefficient fields; `redi_apply` is then a branch-free
 19-point stencil of multiply-adds, and the plain version of the CUDA
-kernel K6 (`models/redi_kernel.py`). Compose with the 7-point operator as
-
-    dchi/dt = -stencil_apply(T, chi, topo) + redi_apply_fused(op, chi)
+kernel K6 (`models/redi_kernel.py`). The propagations compose it with the
+7-point operator, dchi/dt = -T chi + R chi, as
+`euler_propagate_multi(T, chis, dt, nsteps, topo, redi=R)` (and
+`euler_propagate`): two launches a step on the card (README, quick start).
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ import torch
 from ..config import KAPPA_GM_DEFAULT, MAXSLOPE_DEFAULT
 from ..grid.geometry import GridMetrics
 from ..grid.topology import GridTopology, neighbor_valid, neighbor_values
-from .redigm import _clamped_tapered, density_slopes
+from ..utils.tracing import traced
+from .redigm import _clamped_tapered, _slopes
 
 #: The 17 coefficient fields of the operator, in the order the kernel takes
 #: them: 15 of shape (nz, ny, nx), `inv_de` and `inv_dn` of (ny, nx). `wet`
@@ -87,12 +89,17 @@ class RediOperator:
         return dataclasses.replace(self, **fields, wet=self.wet.to(fields["ae"].device))
 
 
+@traced
 def build_redi_operator(rho, gridmetrics: GridMetrics, wet3d,
                         kappa_redi: float = KAPPA_GM_DEFAULT,
-                        maxslope: float = MAXSLOPE_DEFAULT) -> RediOperator:
-    """Precompute geometry and density slopes for the Redi operator. The
-    fields follow the device of the grid metrics and the promoted dtype of
-    `rho` and the metrics (`.to(dtype)` casts them)."""
+                        maxslope: float = MAXSLOPE_DEFAULT, slopes=None) -> RediOperator:
+    """Precompute geometry and density slopes for the Redi operator from
+    `rho` or from `slopes`, the other None: the unclamped triad slopes
+    (S_i, S_j) in `density_slopes`' convention, such as
+    `potential_density_slopes`', in place of `density_slopes(rho)`
+    (`add_bolus_transports` takes the same). The fields follow the device
+    of the grid metrics and the promoted dtype of the slopes and the
+    metrics (`.to(dtype)` casts them)."""
     gm = gridmetrics
     topo = gm.topology
     wet = torch.as_tensor(wet3d, device=gm.v3d.device).to(torch.bool)
@@ -102,7 +109,7 @@ def build_redi_operator(rho, gridmetrics: GridMetrics, wet3d,
     # Cell-centred isoneutral slopes, clamped and tapered (RediGM.jl:56-64).
     # The triad gives rho_x / rho_zeta; the slope of the rotated tensor is
     # S_x = -rho_x / rho_zeta.
-    s_i, s_j = (_safe(-s) for s in density_slopes(rho, gm, wet))
+    s_i, s_j = (_safe(-s) for s in _slopes(rho, gm, wet, slopes))
     s_i, s_j = _clamped_tapered(s_i, s_j, maxslope)
 
     def face_mean(x, direction):

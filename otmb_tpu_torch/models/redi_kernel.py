@@ -15,6 +15,11 @@ masked by the operator's wet mask inside the kernel.
 
 A CUDA tensor always goes to the kernel, for every B >= 1, and a failure
 raises. A CPU tensor takes the plain version.
+
+`validate` and `accumulate` (K6's accumulating entry, out += alpha R chi)
+are what `ops.stencil`'s propagations call with `redi=R`: the argument
+checks, and the Redi half of each T + R step added into K5's (or K1's)
+output.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import ctypes
 import torch
 
 from .. import _build
-from ..grid.topology import UNKNOWN
+from ..grid.topology import UNKNOWN, GridTopology
 from .redi import _COEF_FIELDS, RediOperator, redi_apply
 
 _ENTRY = {
@@ -33,11 +38,23 @@ _ENTRY = {
     (torch.float64, torch.float64): "otmb_redi_f64_f64",
 }
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ACC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_double, ctypes.c_void_p]
 _PLANES = ("inv_de", "inv_dn")
 
 
-def _validate(op: RediOperator, chi: torch.Tensor, batched: bool) -> None:
+def validate(op: RediOperator, chi: torch.Tensor, batched: bool,
+             topology: GridTopology | None = None) -> None:
+    """Raise unless K6 takes `op` and `chi` (one tracer, or a batch with
+    `batched`): a RediOperator whose fields match chi's shape and device, in
+    a (coefficients, values) type pair K6 has, contiguous; and, given
+    `topology` (a stencil's), on that grid."""
+    if not isinstance(op, RediOperator):
+        raise TypeError(f"redi: got a {type(op).__name__}, expected a RediOperator "
+                        f"(build_redi_operator)")
     topo = op.topology
+    if topology is not None and (topo.kind != topology.kind or topo.shape3d != topology.shape3d):
+        raise ValueError(f"redi: the operator is on a {topo.kind} grid of {topo.shape3d}, the "
+                         f"stencil on a {topology.kind} grid of {topology.shape3d}")
     if topo.kind == UNKNOWN:
         raise ValueError("redi: unknown grid topology")
     key = (op.ae.dtype, chi.dtype)
@@ -65,19 +82,35 @@ def _validate(op: RediOperator, chi: torch.Tensor, batched: bool) -> None:
             raise ValueError(f"redi: {name} is not contiguous")
 
 
-def _run(op: RediOperator, chi: torch.Tensor, batched: bool) -> torch.Tensor:
-    _validate(op, chi, batched)
-    if not chi.is_cuda:
-        return redi_apply(op, chi)
+def _args(op: RediOperator, chi: torch.Tensor, out: torch.Tensor, batched: bool) -> tuple:
+    """The entry's arguments before its scalars: the coefficient table, the
+    wet mask, chi, out, the members and the sizes."""
     nz, ny, nx = op.topology.shape3d
-    out = torch.empty_like(chi)
     fields = (ctypes.c_void_p * len(_COEF_FIELDS))(
         *(getattr(op, name).data_ptr() for name in _COEF_FIELDS))
+    return (ctypes.cast(fields, ctypes.c_void_p), op.wet.data_ptr(), chi.data_ptr(),
+            out.data_ptr(), chi.shape[0] if batched else 1, nz, ny, nx,
+            int(op.topology.is_tripolar))
+
+
+def _run(op: RediOperator, chi: torch.Tensor, batched: bool) -> torch.Tensor:
+    validate(op, chi, batched)
+    if not chi.is_cuda:
+        return redi_apply(op, chi)
+    out = torch.empty_like(chi)
     _build.launch(_ENTRY[(op.ae.dtype, chi.dtype)], _ARGTYPES, chi.device,
-                  ctypes.cast(fields, ctypes.c_void_p), op.wet.data_ptr(), chi.data_ptr(),
-                  out.data_ptr(), chi.shape[0] if batched else 1, nz, ny, nx,
-                  int(op.topology.is_tripolar), batch=batched)
+                  *_args(op, chi, out, batched), batch=batched)
     return out
+
+
+def accumulate(op: RediOperator, chi: torch.Tensor, out: torch.Tensor, alpha: float,
+               batched: bool) -> None:
+    """out += alpha * R chi on the card in one launch of K6's accumulating
+    entry (named after K6's, with "_acc", so `_build.KERNELS`' K6 and K6
+    multi count it). `validate(op, chi, batched)` is the caller's, and
+    `out` a CUDA tensor like chi that is not chi."""
+    _build.launch(_ENTRY[(op.ae.dtype, chi.dtype)] + "_acc", _ACC_ARGTYPES, chi.device,
+                  *_args(op, chi, out, batched), float(alpha), batch=batched)
 
 
 def redi_apply_fused(op: RediOperator, chi: torch.Tensor) -> torch.Tensor:

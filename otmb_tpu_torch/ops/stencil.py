@@ -18,6 +18,15 @@ defect from an f32 operator without a wide copy of the coefficients.
 A CUDA tensor always goes to the kernel, for every B >= 1, and a failure
 raises. A CPU tensor takes the plain version, `ops.apply.apply_stencil`,
 which broadcasts over a batch. `dt` is a run-time argument of the kernels.
+
+The propagations take the Redi operator R (`models.redi.build_redi_operator`)
+as `redi=`: each step is then chi <- chi - dt T chi + dt R chi (neutral
+physics: T from the GM-augmented transports, R the isoneutral diffusion).
+On the card a step is two launches, K1 or K5 into the step's buffer and
+K6's accumulating entry adding dt R chi into it; on the CPU, the plain
+versions composed. For that this module depends on `models.redi` and
+`models.redi_kernel` (their public `RediOperator`, `redi_apply`,
+`validate` and `accumulate`), which import nothing of `ops.stencil`.
 """
 
 from __future__ import annotations
@@ -28,7 +37,9 @@ import torch
 
 from .. import _build
 from ..grid.topology import UNKNOWN, GridTopology
-from ..utils.tracing import traced
+from ..models import redi_kernel
+from ..models.redi import RediOperator, redi_apply
+from ..utils.tracing import span
 from .apply import apply_stencil
 from .coeffs import StencilCoeffs
 
@@ -105,24 +116,32 @@ def euler_step(coeffs: StencilCoeffs, chi: torch.Tensor, dt: float, topology: Gr
     return _run(coeffs, chi, topology, dt)
 
 
-def _propagate(coeffs, chi, dt, nsteps, topology, batched):
+def _propagate(coeffs, chi, dt, nsteps, topology, batched, redi=None):
     _validate(coeffs, chi, topology, batched)
+    if redi is not None:
+        redi_kernel.validate(redi, chi, batched, topology)
     if not chi.is_cuda:
         for _ in range(int(nsteps)):
-            chi = _plain(coeffs, chi, topology, dt)
+            nxt = _plain(coeffs, chi, topology, dt)
+            chi = nxt if redi is None else nxt + dt * redi_apply(redi, chi)
         return chi
     buffers = [torch.empty_like(chi), torch.empty_like(chi) if nsteps > 1 else None]
     for step in range(int(nsteps)):
-        chi = _launch(coeffs, chi, topology, dt, buffers[step % 2])
+        out = _launch(coeffs, chi, topology, dt, buffers[step % 2])
+        if redi is not None:
+            redi_kernel.accumulate(redi, chi, out, dt, batched)
+        chi = out
     return chi
 
 
-@traced
 def euler_propagate(coeffs: StencilCoeffs, chi: torch.Tensor, dt: float, nsteps: int,
-                    topology: GridTopology):
+                    topology: GridTopology, redi: RediOperator | None = None):
     """nsteps of chi - dt * T @ chi; on the card, one launch per step into
-    two alternating buffers."""
-    return _propagate(coeffs, chi, dt, nsteps, topology, False)
+    two alternating buffers. With `redi` (a RediOperator on T's grid), each
+    step is chi - dt * T @ chi + dt * R chi: K1, then K6 adding dt R chi
+    into the step's buffer."""
+    with span("euler_propagate", redi=redi is not None, steps=int(nsteps)):
+        return _propagate(coeffs, chi, dt, nsteps, topology, False, redi)
 
 
 def stencil_apply_multi(coeffs: StencilCoeffs, chis: torch.Tensor, topology: GridTopology):
@@ -138,9 +157,11 @@ def euler_step_multi(coeffs: StencilCoeffs, chis: torch.Tensor, dt: float,
     return _run(coeffs, chis, topology, dt, batched=True)
 
 
-@traced
 def euler_propagate_multi(coeffs: StencilCoeffs, chis: torch.Tensor, dt: float, nsteps: int,
-                          topology: GridTopology):
+                          topology: GridTopology, redi: RediOperator | None = None):
     """nsteps of the batched Euler step (`euler_propagate_pallas_multi`); on
-    the card, one K5 launch per step into two alternating buffers."""
-    return _propagate(coeffs, chis, dt, nsteps, topology, True)
+    the card, one K5 launch per step into two alternating buffers. With
+    `redi`, each step adds dt * R chis[b] to every member: K5, then one K6
+    launch for the batch that reads R's coefficients once."""
+    with span("euler_propagate_multi", redi=redi is not None, steps=int(nsteps)):
+        return _propagate(coeffs, chis, dt, nsteps, topology, True, redi)

@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.tracing import traced
+
 # Reduction constants (Roquet et al. 2015, Appendix A.2).
 _SAU = 40.0 * 35.16504 / 35.0
 _CTU = 40.0
@@ -106,6 +108,7 @@ def _tensors(*xs):
                  else torch.as_tensor(x, dtype=ref.dtype, device=ref.device) for x in xs)
 
 
+@traced
 def rho_teos10(sa, ct, depth):
     """In-situ Boussinesq density rho(SA, CT, depth) [kg/m^3]
     (polyTEOS10-bsq, Roquet et al. 2015 eq. 8/Appendix A.2): the `eos`

@@ -667,6 +667,91 @@ def test_k6_wrapper_raises_on_card(case):
 
 
 # ----------------------------------------------------------------------------
+# T + R steps: euler_propagate(_multi)(..., redi=R), K1 or K5 then K6's
+# accumulating entry a step.
+
+
+@pytest.fixture(scope="module")
+def one_degree_redi(one_degree):
+    """R at 1 degree from a TEOS-10 density of a sloped hydrography (f64
+    build; the density path's slopes, `potential_density_slopes`)."""
+    gm, wet, T = one_degree
+    lat, lon = torch.deg2rad(gm.lat.double()), torch.deg2rad(gm.lon.double())
+    z = gm.z3d.double()
+    so = torch.where(wet, 35.0 + 0.3 * torch.cos(lat) * torch.sin(lon), torch.nan)
+    ct = torch.where(wet, 2.0 + 20.0 * torch.exp(-z / (300.0 + 400.0 * torch.sin(2 * lat) ** 2))
+                     * torch.cos(lat) ** 2, torch.nan)
+    slopes = P.potential_density_slopes(P.rho_teos10, so, ct, gm, wet)
+    return P.build_redi_operator(None, gm, wet, slopes=slopes)
+
+
+def _tr_dt(T, R) -> float:
+    return 0.5 / (float(T.diag.abs().max()) + P.redi_max_rate(R))
+
+
+@pytest.mark.parametrize("nmembers", [0, 1, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_t_plus_r_steps_equal_the_eager_path_at_1_degree(one_degree, one_degree_redi, dtype,
+                                                         nmembers):
+    """Three T + R steps at 1 degree on the card (one tracer, B = 1 and 8)
+    against the eager composition of the plain versions on the same card,
+    (chi - dt T chi) + dt R chi: K5/K1 and K6 each equal their plain version
+    bit for bit, and the accumulating entry adds in the same two roundings."""
+    gm, wet, T = one_degree
+    c, R, topo = T.to(dtype), one_degree_redi.to(dtype), gm.topology
+    dt = _tr_dt(T, one_degree_redi)
+    rng = np.random.default_rng(12)
+    shape = ((nmembers,) if nmembers else ()) + tuple(wet.shape)
+    x0 = torch.where(wet, torch.as_tensor(1.0 + 0.1 * rng.standard_normal(shape),
+                                          device=wet.device), 0.0).to(dtype)
+    go = P.euler_propagate_multi if nmembers else P.euler_propagate
+    got = go(c, x0, dt, 3, topo, redi=R)
+    want = x0
+    for _ in range(3):
+        want = stencil._plain(c, want, topo, dt) + dt * P.redi_apply(R, want)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    without = go(c, x0, dt, 3, topo)
+    assert float((got - without).abs().max()) > 0  # R moved the tracers
+
+
+@pytest.mark.parametrize("redi", [False, True])
+def test_t_plus_r_step_is_two_launch_path_calls(case, redi):
+    """A step issues one K5 call and, with redi=R, one of K6's accumulating
+    entry (under "K6 multi"), and the device runs those two kernels a step
+    and no elementwise kernel; without R, one K5 call a step as before."""
+    _, gm, idx, T, chi = case
+    topo, c = gm.topology, T.to(torch.float32)
+    R = _redi(case).to(torch.float32) if redi else None
+    xs = torch.stack([chi.float()] * 8)
+    dt, steps = 0.25 / float(T.diag.abs().max()), 5
+    P.euler_propagate_multi(c, xs, dt, 2, topo, redi=R)  # warm-up
+    n0, k5, k6 = _build.calls(), _build.calls(K5), _build.calls(K6_MULTI)
+    _, events, tries = _cuda_events(
+        lambda: P.euler_propagate_multi(c, xs, dt, steps, topo, redi=R))
+    calls = 2 if redi else 1
+    assert _build.calls() - n0 == tries * calls * steps
+    assert _build.calls(K5) - k5 == tries * steps
+    assert _build.calls(K6_MULTI) - k6 == (tries * steps if redi else 0)
+    kernels = sorted({e.name.split("(")[0] for e in events})
+    assert len(events) == calls * steps, kernels
+    assert all("stencil_multi_kernel" in k or "redi_kernel" in k for k in kernels), kernels
+
+
+def test_t_plus_r_arguments_are_checked_on_card(case):
+    _, gm, idx, T, chi = case
+    topo, R = gm.topology, _redi(case)
+    x = chi.double()
+    with pytest.raises(TypeError, match="no kernel"):
+        P.euler_propagate(T.to(torch.float32), x.float(), 1.0, 1, topo, redi=R.to(torch.float16))
+    with pytest.raises(ValueError, match="on cpu"):
+        P.euler_propagate(T, x, 1.0, 1, topo, redi=R.to("cpu"))
+    with pytest.raises(ValueError, match="contiguous"):
+        P.euler_propagate_multi(T, x[None], 1.0, 1, topo,
+                                redi=dataclasses.replace(R, ae=R.ae.transpose(1, 2)
+                                                         .contiguous().transpose(1, 2)))
+
+
+# ----------------------------------------------------------------------------
 # K7, K8 and K9 on shards, in one process: each shard's halo lines are cut
 # from the whole field (no exchange), so these test the kernels without the
 # transport (tests/test_torch_parallel.py tests the exchange on the CPU).
