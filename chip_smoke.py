@@ -82,16 +82,21 @@ use, the coarsening's C++ labelling core with g++), then:
      redi=R) on each of them (K1 + K6's accumulating entry: K1 = K6 = steps
      a tracer), each member equal to its single run and the batch equal to
      the plain composition stencil._plain + dt redi_apply, bit for bit, with
-     the tracer-mass drift, and the bf16 R against the exact apply;
+     the tracer-mass drift, every batched accumulating launch counted under
+     the member group of 8 (`redi_kernel.batch_groups`), and the bf16 R
+     against the exact apply;
  15. holds K6 against its plain version in (f64, f64), (f32, f32) and
      (bf16, f32) at 1 degree on both topologies, K6 on a batch of 4 and 8
      against K6 member by member and against plain, and R's invariants
      (conservation, constants in the null space) through the kernel; at
      0.25 degrees and 720x540x75, K6 and the batch of 2 in f32;
  16. times K6 and its plain version at 1 and 0.25 degrees, the bf16 K6, K6
-     on a batch of B = 1, 2, 4, 8 beside B launches of K6, K6's accumulating
-     entry on 8 tracers beside its plain version and a whole T + R step of
-     8 tracers (K5 + the accumulating entry), and the library
+     on a batch of B = 1, 2, 4, 8 beside B launches of K6 (with each
+     batch's member group, blocks an SM and chunks of levels), K6's
+     accumulating entry on 8 tracers beside its plain version and a whole
+     T + R step of 8 tracers (K5 + the accumulating entry), holds K6 on one
+     tracer (f32, bf16 coefficients) to K6_SINGLE_MS + 2 % and K9's device
+     time to K9_DEVICE_MS + 2 %, and the library
      calls of K1 and K5 (a CSR matrix of T times one vector and times 8);
      each kernel's bound (its compulsory bytes over the published 3.35 TB/s
      of the H100 SXM, or its operations over 67 TFLOP/s f32, whichever is
@@ -261,6 +266,16 @@ QUARTER_PAIRS = 150  # matvec pairs of the fixed-work 0.25-degree solves
 # built without FMA contraction: equal to redi_apply bit for bit, in every
 # type pair (bf16 coefficients widen exactly to f32).
 TOL_K6 = 0.0
+# K6 on one tracer (f32, bf16 coefficients), ms a call at 1 degree, and K9
+# on rank 0's 150x180x50 shard, before the batched design of csrc/redi.cu
+# (PERF.md's kernel table, an H100 80GB HBM3 at 700 W): one tracer may take
+# at most 2 % longer on the design the batches run. K9 runs about as long
+# as its wrapper's host work, so its back-to-back time follows the host
+# (0.066-0.087 ms on one card); it is held on its device time under
+# torch.profiler instead, 0.0696-0.0698 ms (0.0729 ms a call).
+K6_SINGLE_MS = {"K6": 0.1727, "K6 bf16": 0.2124, "K9": 0.0729}
+K9_DEVICE_MS = 0.0698
+K6_SINGLE_SLACK = 1.02
 REDI_TYPES = (("f64", "f64"), ("f32", "f32"), ("bf16", "f32"))
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "f64": torch.float64}
 # The bf16 coefficients' rounding against the exact (f64) apply, relative
@@ -327,6 +342,29 @@ def density(ds, rng: np.random.Generator) -> np.ndarray:
     """A 3D density field about 1035 kg/m^3, NaN on land."""
     rho = 1025.0 + 20.0 * rng.random(ds.umo.shape)
     return np.where(ds.wet3d, rho, np.nan)
+
+
+def device_ms(fn, launches: int) -> float:
+    """Per-call device time (ms): the CUDA kernels' durations under
+    torch.profiler over `launches` back-to-back calls after one warm-up; a
+    window that reports no CUDA event is taken again (tests/test_torch_cuda.py,
+    PROFILE_TRIES)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            break
+    require(us > 0, "torch.profiler recorded no CUDA event in three windows")
+    return us / 1e3 / launches
 
 
 def cuda_ms(fn, launches: int, repeats: int = 5) -> float:
@@ -1643,6 +1681,7 @@ def phase_density(P, card):
     # 200 f32 T + R steps, chi <- chi - dt T chi + dt R chi, through the
     # public propagations with the f32 R and its bf16 copy: K5 (or K1) and
     # K6's accumulating entry a step, held to the plain composition
+    from otmb_tpu_torch.models import redi_kernel
     from otmb_tpu_torch.ops import stencil
 
     T32, R32 = T.to(torch.float32), R.to(torch.float32)
@@ -1659,15 +1698,19 @@ def phase_density(P, card):
     acc = {"K6": 0, "K6 multi": 0}
     for rname, Rx in (("f32", R32), ("bf16", Rb)):
         counts, acc_counts = reset_launches(), reset_acc()
+        redi_kernel.batch_groups.clear()
         t0 = time.perf_counter()
         chis = P.euler_propagate_multi(T32, chis0, dt, DENSITY_STEPS, topo, redi=Rx)
         torch.cuda.synchronize()
         t_multi = time.perf_counter() - t0
-        n, n_acc = counts(), acc_counts()
+        n, n_acc, groups = counts(), acc_counts(), dict(redi_kernel.batch_groups)
         require(n["K5"] == n["K6 multi"] == n_acc["K6 multi"] == DENSITY_STEPS
                 and n["K1"] == n["K6"] == 0,
                 f"euler_propagate_multi(redi={rname} R), {DENSITY_STEPS} steps: launches {n}, "
                 f"accumulating entries {n_acc}")
+        require(groups == {BATCH: DENSITY_STEPS}, f"euler_propagate_multi(redi={rname} R): "
+                f"batched K6 launches by member group {groups}, expected all "
+                f"{DENSITY_STEPS} in groups of {BATCH}")
         counts, acc_counts = reset_launches(), reset_acc()
         t0 = time.perf_counter()
         singles = [P.euler_propagate(T32, chis0[m], dt, DENSITY_STEPS, topo, redi=Rx)
@@ -1701,7 +1744,8 @@ def phase_density(P, card):
         log(f"[density] {DENSITY_STEPS} T + R steps with the {rname} R at dt = 0.25 / (max|diag "
             f"T| {rate_t:.4e} + redi_max_rate(R) {rate_r:.4e}) = {dt:.6g} s: "
             f"euler_propagate_multi on {BATCH} f32 tracers {t_multi:.3f} s wall (K5 "
-            f"{n['K5']}, K6's accumulating entry on the batch {n_acc['K6 multi']}), "
+            f"{n['K5']}, K6's accumulating entry on the batch {n_acc['K6 multi']}, by "
+            f"member group {groups}), "
             f"euler_propagate {t_single:.3f} s a tracer (K1 {n1['K1']}, accumulating entry "
             f"{n1_acc['K6']} for {BATCH}); every member equal to its single run and the batch "
             f"to stencil._plain + dt redi_apply bit for bit; worst relative tracer-mass drift "
@@ -1795,12 +1839,20 @@ def phase_k6_times(P, card, R32, wet, T32):
                              50, 5),
     }
     for name in ("K6", "K6 bf16"):
-        log(f"[time] {name} at {size} f32 values: kernel {times[name][0]:.4f} ms, plain "
+        log(f"[time] {name} at {size} f32 values: kernel {times[name][0]:.4f} ms "
+            f"[{K6_SINGLE_MS[name]:.4f} before the batched design], plain "
             f"{times[name][1]:.4f} ms per call (CUDA events over back-to-back calls, median "
             f"of 5; card {card})")
+        require(times[name][0] <= K6_SINGLE_MS[name] * K6_SINGLE_SLACK,
+                f"{name} {times[name][0]:.4f} ms > {K6_SINGLE_MS[name]} ms + 2 %")
     for nb in (1, 2, 4, BATCH):
         xs = torch.where(wet, torch.randn((nb,) + tuple(wet.shape), generator=gen,
                                           device=wet.device), 0.0)
+        plans = {kind: redi_kernel.plan(R32, xs, True, acc=acc)
+                 for kind, acc in (("K6", False), ("accumulating", True))}
+        log(f"[K6] B = {nb} at {size} f32: " + "; ".join(
+            f"{kind} member group {p['group']}, {p['per_sm']} blocks an SM, {p['chunks']} "
+            f"chunks of levels" for kind, p in plans.items()))
         fns = {"K6 batch": lambda: P.redi_apply_fused_multi(R32, xs),
                "B x K6": lambda: [P.redi_apply_fused(R32, y) for y in xs]}
         calls = {"K6 batch": 20, "B x K6": 20}
@@ -2745,6 +2797,7 @@ def _shard_rank(grid, with_solves: bool) -> dict:
             "K9": time_pair(lambda: redi_halo._launch(rs32, chi_l, halos),
                             lambda: redi_halo._redi_plain(rs32, chi_l, halos), 50, 5),
         }
+        out["k9_device_ms"] = device_ms(lambda: redi_halo._launch(rs32, chi_l, halos), 50)
         # K7's pack and edge entries on this shard (the edge adds in place)
         plan, plain = halo.HaloExchange(chi_l, topo, grid), halo.HaloExchange(chi_l, topo, grid)
         bulk = halo_kernel._bulk(T_l, chi_l, halo_kernel._NO_HALOS, None)
@@ -3076,6 +3129,12 @@ def main() -> int:
     s_bytes["K7 edge"] = NZ * (s_perimeter + s_terms) * 2 * 4
     log_rates([(f"{name} on one {ny_l}x{nx_l}x{NZ} shard", "f32", s_bytes[name],
                 s_times[name][0]) for name in s_bytes], gbps)
+    k9_dev = ranks0[0]["k9_device_ms"]
+    log(f"[time] K9 on one {ny_l}x{nx_l}x{NZ} shard: {s_times['K9'][0]:.4f} ms a call "
+        f"[{K6_SINGLE_MS['K9']:.4f} before the batched design], device {k9_dev:.4f} ms "
+        f"[{K9_DEVICE_MS:.4f}] (torch.profiler; card {card})")
+    require(k9_dev <= K9_DEVICE_MS * K6_SINGLE_SLACK,
+            f"K9 device {k9_dev:.4f} ms > {K9_DEVICE_MS} ms + 2 %")
     log(f"[launches] K2 (factor and solve) {launches['K2']} on the 1-degree main path, "
         f"{batched['K2']} on the batched path, {qbatched['K2']} in the 0.25-degree batched "
         f"solve; K6's accumulating entry {dacc['K6']} and on a batch {dacc['K6 multi']} on "

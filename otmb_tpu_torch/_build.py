@@ -151,13 +151,25 @@ def launch(name: str, argtypes: list, device: torch.device, *args, batch: bool =
     and in the graph's tally. `batch` marks a batch passed to an entry that
     also takes one field (K6, K7): it is counted under "multi:" + `name`,
     so the two count apart."""
+    _select(device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    check(function(name, argtypes)(*args, stream), name)
+    _count("multi:" + name if batch else name)
+
+
+def query(name: str, argtypes: list, device: torch.device, *args) -> None:
+    """Call the C entry point `name`, which launches nothing (a launch's
+    plan), with `device` current; raise on a CUDA error. Not a call of the
+    launch path: `calls` does not count it."""
+    _select(device)
+    check(function(name, argtypes)(*args), name)
+
+
+def _select(device: torch.device) -> None:
     lib = library()
     if getattr(_selected, "index", None) != device.index:
         check(lib.otmb_set_device(device.index), "cudaSetDevice")
         _selected.index = device.index
-    stream = torch.cuda.current_stream(device).cuda_stream
-    check(function(name, argtypes)(*args, stream), name)
-    _count("multi:" + name if batch else name)
 
 
 @contextlib.contextmanager

@@ -56,12 +56,13 @@ inline cudaError_t allow_shared(Kernel kernel, size_t bytes) {
 
 // Opt a k-marching kernel (K5, K6: a block walks its columns' levels down)
 // in to `bytes` of shared memory a block of `threads`, and count the blocks
-// the card holds at once (`slots`). Its walk may be split into chunks of
-// kMinChunk levels or more where the tiles are few.
+// the card holds at once (`slots`; `per_sm` of them on each SM). Its walk may
+// be split into chunks of kMinChunk levels or more where the tiles are few.
 constexpr int kMinChunk = 4;
 
 template <typename Kernel>
-inline cudaError_t block_slots(Kernel kernel, int threads, size_t bytes, long long* slots) {
+inline cudaError_t block_slots(Kernel kernel, int threads, size_t bytes, long long* slots,
+                               int* per_sm_out = nullptr) {
   cudaError_t err = allow_shared(kernel, bytes);
   int device = 0, sms = 0, per_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&device);
@@ -70,8 +71,32 @@ inline cudaError_t block_slots(Kernel kernel, int threads, size_t bytes, long lo
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes);
   *slots = static_cast<long long>(sms) * per_sm;
+  if (per_sm_out != nullptr) *per_sm_out = per_sm;
   if (err == cudaSuccess && *slots < 1) err = cudaErrorInvalidConfiguration;
   return err;
+}
+
+// The chunks of levels a k-marching kernel's `blocks` tiles split their
+// walk of nz levels into, `slots` blocks running at once: the count that
+// ends soonest, each wave of blocks costing its chunk's levels plus kFill
+// steps to fill the walk's pipeline. One chunk can leave a last wave of few
+// blocks that walks all the levels alone (1 degree: 456 tiles, 396 slots).
+// With `per_sm` > 1, where the tiles overfill the card, waves count in
+// parts of per_sm: a block that has its SM to itself walks that much faster
+// (K6 in groups of 8, two blocks an SM: 456 tiles on 264 slots end sooner
+// in two chunks, as measured, than in one).
+constexpr int kFill = 2;
+
+inline int pick_chunks(long long blocks, long long slots, int nz, int per_sm = 1) {
+  const long long parts = blocks > slots ? per_sm : 1;
+  int best = 1;
+  long long best_cost = -1;
+  for (int n = 1; n <= nz / kMinChunk; ++n) {
+    const int span = (nz + n - 1) / n, used = (nz + span - 1) / span;
+    const long long cost = (blocks * used * parts + slots - 1) / slots * (span + kFill);
+    if (best_cost < 0 || cost < best_cost) best = n, best_cost = cost;
+  }
+  return best;
 }
 
 }  // namespace otmb

@@ -6,20 +6,37 @@
 //
 // Bound on the H100: device-memory bandwidth. Per cell it must read the 15
 // coefficient fields, chi and the wet mask and write out: in f32, 68 bytes
-// and one, against ~111 flops; bf16 coefficients take 38 + 1.
+// and one, against ~111 flops; bf16 coefficients take 38 + 1; each further
+// member 8 bytes (12 in the accumulating entries, which also read out).
 //
-// Design: k-marching tiles. A block owns kTJ x kTI columns and a one-cell
-// ring and walks k down, with four levels of chi in shared memory (staged by
-// cp.async three levels ahead, masked once landed). Each quantity is computed
-// once: dcz on tile and ring, the east and north face fluxes on the tile and
-// its west and south ring, dcx, dcy and the top flux carried to the next
-// level. A thread loads its column's coefficients into registers as its step
-// starts; the other blocks of the SM (four at 64 registers in f32) hide the
-// latency (measured: staging them through shared memory, or carrying a second
-// register set, costs that occupancy and is slower). Where the tiles leave SMs
-// idle (a shard), blocks split the levels into chunks, each walk starting two
-// steps above its chunk. A batch's members share each coefficient read, as
-// many as fit in half an SM per group.
+// Design: k-marching tiles. A block of 256 threads owns kTJ x kTI = 8 x 32
+// columns of a group of G members, G = 1, 2, 4 or 8 fixed at compile time
+// (the launch picks it from the batch and the value type, with_group), so
+// that every member loop unrolls. It walks k down with four levels of each
+// member's chi on the tile and its one-cell ring in shared memory (staged by
+// cp.async three levels ahead, masked once landed) and dcz by the level's
+// parity: the only values other threads read. A thread stages, masks and
+// takes dcz at its own column and, below kRing, at one ring position, so
+// one barrier a step makes them visible. What only its thread reads stays in
+// registers: dcx, dcy and the top flux carried to the next level, and the
+// outputs a step adds to. The west face is lane tx - 1's east face, passed
+// by shuffle (a warp is a row of the tile); the south face, the north face
+// of the row below, is taken again by this row. The steps are branch-free:
+// missing neighbours, levels and members are computed and 0 selected, so
+// the loads of a step issue together.
+//
+// What bounds it is latency. At G = 8 (f32; G = 2 in f64) a thread needs
+// 128 registers, so two blocks (16 warps) share an SM; there the step's
+// coefficients are staged in shared memory a step ahead (kBundle, `staged`)
+// and the 456 tiles of the 1-degree grid fill 264 slots in two chunks of
+// levels (pick_chunks). On an H100 80GB HBM3 at 700 W (scripts/k6_probe.py)
+// the accumulating entry at B = 8 takes 0.488 ms against a 0.254 ms byte
+// bound; its 1,339 instructions a warp and step would issue in about
+// 0.26 ms. The design before this one (a runtime member count, carries in
+// shared memory, two barriers a step) took 0.820 ms there. One tracer
+// (G = 1, four blocks an SM) takes 0.149 ms (0.246 before) and K9 on a
+// 150 x 180 x 50 shard 0.066 ms (0.074), each tile's walk split into chunks
+// where the tiles leave SMs idle.
 //
 // The accumulating entries (otmb_redi_*_acc) add alpha R chi into `out`
 // instead of writing R chi: the Redi half of an explicit T + R step, after
@@ -34,7 +51,7 @@
 // is (k, ny-1, nx-1-i). Each value is the plain version's expression on the
 // same operands in the same order, in the value type V, built without FMA
 // contraction: equal bit for bit, and member b of a batch equals a single run.
-#include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -59,10 +76,18 @@ struct RediHalo {
 };
 
 constexpr int kTI = 32, kTJ = 8;        // owned columns along i and j
-constexpr int kMaxAccGroup = 8;         // members a block of an accumulating entry holds
 constexpr int kPI = kTI + 2;            // positions along i, with the ring
 constexpr int kPos = kPI * (kTJ + 2);   // positions of the tile and its ring
-constexpr int kThreads = kTI * kTJ, kPosPerThread = (kPos + kThreads - 1) / kThreads;
+constexpr int kThreads = kTI * kTJ;
+constexpr int kRing = 2 * kPI + 2 * kTJ;  // the ring's positions, one each on threads below
+
+// Ring position r: the south row, the north row, the west and the east column.
+__device__ __forceinline__ int ring_position(int r) {
+  if (r < kPI) return r;
+  if (r < 2 * kPI) return (kTJ + 1) * kPI + r - kPI;
+  if (r < 2 * kPI + kTJ) return (r - 2 * kPI + 1) * kPI;
+  return (r - 2 * kPI - kTJ + 1) * kPI + kPI - 1;
+}
 
 // Where a position reads: offset h in a level of the field (side 0), in a
 // shard's line (sides 1..4: east, west, north, south), or nothing (side -1).
@@ -100,11 +125,16 @@ struct Reader {
   }
   __device__ bool has(const Loc& L, int k) const { return L.side >= 0 && k >= 0 && k < nz; }
   __device__ int line(const Loc& L, int k) const { return k * (L.side <= 2 ? ny : nx) + L.h; }
+  // The reads below are branch-free, so a step's loads issue back to back:
+  // where there is nothing to read they load the first element and select
+  // 0 (or false) instead.
   __device__ bool wet_at(const Loc& L, int k) const {
-    if (!has(L, k)) return false;
+    const bool ok = has(L, k);
+    const unsigned char* p = wet + (ok ? k * plane + L.h : 0);
     if (kShard && L.side > 0)
-      return side_of(L.side, h.wet_e, h.wet_w, h.wet_n, h.wet_s)[line(L, k)] != 0;
-    return wet[k * plane + L.h] != 0;
+      p = side_of(L.side, h.wet_e, h.wet_w, h.wet_n, h.wet_s) + (ok ? line(L, k) : 0);
+    const bool w = *p != 0;
+    return ok && w;
   }
   // chi of the member at offset m at level k
   __device__ const V* chi_at(const Loc& L, int k, long long m) const {
@@ -113,79 +143,114 @@ struct Reader {
     return chi + m + k * plane + L.h;
   }
   // field `fi` at level k, or field `slot` of the side's coefficient lines
+  // (written out rather than through coef_at: that form spilled, measured)
   __device__ V coef(const Loc& L, int fi, int slot, int k) const {
-    if (!has(L, k)) return V(0);
+    const bool ok = has(L, k);
+    const C* p = f[fi] + (ok ? k * plane + L.h : 0);
     if (kShard && L.side > 0)
-      return widen(side_of(L.side, h.east, h.west, h.north, h.south)[line(L, slot * nz + k)]);
-    return widen(f[fi][k * plane + L.h]);
+      p = side_of(L.side, h.east, h.west, h.north, h.south) + (ok ? line(L, slot * nz + k) : 0);
+    const V v = widen(*p);
+    return ok ? v : V(0);
+  }
+  // where coef() reads (has(L, k) must hold)
+  __device__ const C* coef_at(const Loc& L, int fi, int slot, int k) const {
+    if (kShard && L.side > 0)
+      return side_of(L.side, h.east, h.west, h.north, h.south) + line(L, slot * nz + k);
+    return f[fi] + (k * plane + L.h);
   }
   // inv_de or inv_dn, (ny, nx); beyond a shard's west or south edge its line
   __device__ V plane_coef(const Loc& L, int fi) const {
-    if (L.side < 0) return V(0);
-    if (kShard && L.side > 0) return widen((fi == kInvDe ? h.inv_de_w : h.inv_dn_s)[L.h]);
-    return widen(f[fi][L.h]);
+    const bool ok = L.side >= 0;
+    const C* p = f[fi] + (ok ? L.h : 0);
+    if (kShard && L.side > 0) p = (fi == kInvDe ? h.inv_de_w : h.inv_dn_s) + L.h;
+    const V v = widen(*p);
+    return ok ? v : V(0);
   }
 };
 
-// A thread's reads for step k: dcz weights and face coefficients at level k,
-// dcx, dcy and top-face weights at k + 1, wet flags that mask level k + 2.
+// A thread's coefficients for step k: dcz weights of its two positions and
+// its column's face coefficients at level k (with its south neighbour's
+// north face and, in lane 0, its west neighbour's east face), and dcx, dcy
+// and top-face weights at k + 1.
 template <typename V>
 struct Level {
-  V czu[kPosPerThread], czd[kPosPerThread], ae, se, an, sn, invv, cxe, cxw, cyn, cys, at, sti,
-      stj, gt, ae_w, se_w, an_s, sn_s;
-  bool wet[kPosPerThread];
+  V czu[2], czd[2], ae, se, an, sn, invv, cxe, cxw, cyn, cys, at, sti, stj, gt, ae_w, se_w, an_s,
+      sn_s;
 };
 
-// The shard mode is held to four blocks an SM (64 registers), as K6 in f32
-// compiles by itself, so that its chunks fill the SMs.
-template <typename C, typename V, bool kShard, bool kAcc>
-__global__ void __launch_bounds__(kThreads, kShard ? 4 : 0)
-redi_kernel(Reader<C, V, kShard> R, V* __restrict__ out, int nmembers, int group, int nchunks,
-            V alpha) {
+// Those reads, staged in shared memory a step ahead by cp.async (where the
+// coefficients take 4 or 8 bytes): the column's 15 fields (slot f, inv_v
+// in slot 14), then the ring's cz_u and cz_d, row 0's south neighbours' an
+// and s_n, and lane 0's west neighbours' ae and s_e. A field's level: k,
+// or k + 1 for the top face's weights and dcx's and dcy's.
+constexpr int kOwn = 15, kRimAt = kOwn * kThreads, kSouthAt = kRimAt + 2 * kRing;
+constexpr int kWestAt = kSouthAt + 2 * kTI, kBundle = kWestAt + 2 * kTJ;
+__device__ __forceinline__ int own_slot(int f) { return f == kInvV ? 14 : f; }
+__device__ __forceinline__ bool next_level(int f) {
+  return (f >= kAt && f <= kGt) || (f >= kCxe && f <= kCys);
+}
+
+// Blocks an SM the register budget is set for: four for one or two f32
+// members, three for four, two for eight (128 registers) and for f64.
+template <typename V, int G>
+constexpr int kMinBlocks = sizeof(V) == 4 ? (G <= 2 ? 4 : G == 4 ? 3 : 2) : 2;
+
+// Where registers hold a block to two an SM and its step carries several
+// members, the step's coefficients are staged (kBundle), if two blocks
+// still fit: f32 in groups of 8, f64 in groups of 2. There a step's work
+// hides the copies, and the loads' latency is what two blocks cannot hide;
+// elsewhere the copies cost more than they save. Measured at 1 degree (the
+// accumulating entry at B = 8, the others plain; scripts/k6_probe.py):
+// f32 G = 8 0.550 -> 0.516 ms, f64 G = 2 0.385 -> 0.347 ms; but f32 G = 1
+// 0.160 -> 0.202, f32 G = 4 0.296 -> 0.309 and f64 G = 1 0.311 -> 0.330 ms.
+template <typename C, typename V, int G>
+constexpr bool staged =
+    sizeof(C) >= 4 && G >= 2 && kMinBlocks<V, G> == 2 &&
+    2 * (6 * G * kPos * sizeof(V) + 2 * kBundle * sizeof(C) + 1024) <= 228 * 1024;
+
+// G members at compile time (the last group of a batch may hold fewer, nm).
+template <typename C, typename V, bool kShard, int G, bool kAcc>
+__global__ void __launch_bounds__(kThreads, (kMinBlocks<V, G>))
+redi_kernel(Reader<C, V, kShard> R, V* __restrict__ out, int nmembers, int nchunks, V alpha) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nz = R.nz, t = threadIdx.x, tx = t % kTI, ty = t / kTI;
-  const int i0 = blockIdx.x * kTI, j0 = blockIdx.y * kTJ, m0 = blockIdx.z / nchunks * group;
-  const int nm = nmembers - m0 < group ? nmembers - m0 : group;
+  // a batch's groups of one tile are neighbours in the grid, so they run
+  // together and share each coefficient read through the L2
+  const int ngroups = (nmembers + G - 1) / G;
+  const int i0 = blockIdx.x / ngroups * kTI, j0 = blockIdx.y * kTJ, m0 = blockIdx.x % ngroups * G;
+  const int nm = nmembers - m0 < G ? nmembers - m0 : G;
   // this block's levels [k_lo, k_hi); its walk starts two steps above (or at
   // the surface, k_s = -1) to carry in dcx, dcy and the top flux
-  const int span = (nz + nchunks - 1) / nchunks, k_lo = blockIdx.z % nchunks * span;
+  const int span = (nz + nchunks - 1) / nchunks, k_lo = blockIdx.z * span;
   const int k_hi = k_lo + span < nz ? k_lo + span : nz, k_s = k_lo > 0 ? k_lo - 2 : -1;
   if (k_lo >= nz) return;
   const long long member = static_cast<long long>(R.plane) * nz;
-  // shared: chi [4][group][kPos]; dcz, fe, fn [group][kPos]; dcx, dcy, 2 ft [group][kThreads]
+  // shared: chi [4][G][kPos]; dcz [2][G][kPos] by the parity of the level;
+  // the staged coefficients [2][kBundle] by the step's parity
+  constexpr bool kStaged = staged<C, V, G>;
   V* const chi_s = reinterpret_cast<V*>(smem_raw);
-  V *const dcz_s = chi_s + 4 * group * kPos, *const fe_s = dcz_s + group * kPos;
-  V *const fn_s = fe_s + group * kPos, *const dcx_s = fn_s + group * kPos;
-  V *const dcy_s = dcx_s + group * kThreads, *const ft_s = dcy_s + group * kThreads;
+  V* const dcz_s = chi_s + 4 * G * kPos;
+  C* const coef_s = reinterpret_cast<C*>(dcz_s + 2 * G * kPos);
 
-  // this thread's column, its neighbours' positions, its staging positions
+  // this thread's column; its two positions, which it stages, masks and
+  // takes dcz at: its own, read live or not (a dead column can be a live
+  // one's neighbour), and below kRing one of the ring's
   const int i = i0 + tx, j = j0 + ty;
   const bool live = i < R.nx && j < R.ny;
   const bool has_s = j > 0 || (kShard && R.h.s_edge);
+  const bool ring = t < kRing;
   const int pc = (ty + 1) * kPI + tx + 1, pe = pc + 1, pw = pc - 1, pn = pc + kPI, ps = pc - kPI;
-  const Loc none{0, -1}, lc = live ? R.locate(j, i) : none;
-  const Loc lw = live && tx == 0 ? R.locate(j, i - 1) : none;
-  const Loc ls = live && ty == 0 && has_s ? R.locate(j - 1, i) : none;
-  int pos[kPosPerThread];
-  Loc lp[kPosPerThread];
-#pragma unroll
-  for (int q = 0; q < kPosPerThread; ++q) {
-    pos[q] = t + q * kThreads < kPos ? t + q * kThreads : -1;
-    lp[q] = pos[q] < 0 ? none : R.locate(j0 - 1 + pos[q] / kPI, i0 - 1 + pos[q] % kPI);
-  }
+  const int pr = ring ? ring_position(t) : pc;
+  const Loc none{0, -1}, lo = R.locate(j, i);
+  const Loc lr = ring ? R.locate(j0 - 1 + pr / kPI, i0 - 1 + pr % kPI) : none;
+  const Loc lc = live ? lo : none, lw = live && tx == 0 ? R.locate(j, i - 1) : none;
+  const Loc ls = live && has_s ? R.locate(j - 1, i) : none;
   const V ide = R.plane_coef(lc, kInvDe), idn = R.plane_coef(lc, kInvDn);
   const V ide_w = R.plane_coef(lw, kInvDe), idn_s = R.plane_coef(ls, kInvDn);
-  auto read_wet = [&](int k, bool* w) {
-#pragma unroll
-    for (int q = 0; q < kPosPerThread; ++q) w[q] = R.wet_at(lp[q], k);
-  };
-  auto load = [&](int k) {
+  auto load = [&](int k) {  // read directly
     Level<V> c;
-#pragma unroll
-    for (int q = 0; q < kPosPerThread; ++q) {
-      c.czu[q] = R.coef(lp[q], kCzu, 0, k);
-      c.czd[q] = R.coef(lp[q], kCzd, 1, k);
-    }
+    c.czu[0] = R.coef(lo, kCzu, 0, k), c.czd[0] = R.coef(lo, kCzd, 1, k);
+    c.czu[1] = R.coef(lr, kCzu, 0, k), c.czd[1] = R.coef(lr, kCzd, 1, k);
     auto own = [&](int f, int lev) { return R.coef(lc, f, 0, lev); };
     c.ae = own(kAe, k), c.se = own(kSe, k), c.an = own(kAn, k), c.sn = own(kSn, k);
     c.invv = own(kInvV, k), c.cxe = own(kCxe, k + 1), c.cxw = own(kCxw, k + 1);
@@ -193,120 +258,257 @@ redi_kernel(Reader<C, V, kShard> R, V* __restrict__ out, int nmembers, int group
     c.sti = own(kSti, k + 1), c.stj = own(kStj, k + 1), c.gt = own(kGt, k + 1);
     c.ae_w = R.coef(lw, kAe, 2, k), c.se_w = R.coef(lw, kSe, 3, k);
     c.an_s = R.coef(ls, kAn, 2, k), c.sn_s = R.coef(ls, kSn, 3, k);
-    read_wet(k + 2, c.wet);
     return c;
   };
-  auto buf = [](int k) { return (k + 4) & 3; };  // level k's chi buffer (k >= -1)
-  auto chi_m = [&](int k, int m, int p) -> V { return chi_s[(buf(k) * group + m) * kPos + p]; };
-  auto stage = [&](int k) {  // level k's chi, as read
+  // stage step k's coefficients into its buffer, each by the thread that
+  // reads it; rows 1 to 7 read their south neighbours' an and s_n from the
+  // row below's own, row 0 stages them from the ring
+  auto stage_coef = [&](int k) {
+    if constexpr (kStaged) {
+      C* const b = coef_s + (k & 1) * kBundle;
+      auto put = [&](C* dst, const Loc& L, int f, int slot, int lev) {
+        if (R.has(L, lev)) {
+          cp_async(dst, R.coef_at(L, f, slot, lev));
+        } else {
+          *dst = C(0);
+        }
+      };
 #pragma unroll
-    for (int q = 0; q < kPosPerThread; ++q)
-      for (int m = 0; m < nm && pos[q] >= 0 && R.has(lp[q], k); ++m)
-        cp_async(chi_s + (buf(k) * group + m) * kPos + pos[q],
-                 R.chi_at(lp[q], k, (m0 + m) * member));
-    cp_async_commit();
-  };
-  auto mask = [&](int k, const bool* wet_k) {  // zero dry chi once landed: own positions
-#pragma unroll
-    for (int q = 0; q < kPosPerThread; ++q)
-      for (int m = 0; m < nm && pos[q] >= 0 && !wet_k[q]; ++m)
-        chi_s[(buf(k) * group + m) * kPos + pos[q]] = V(0);
-  };
-  bool wet1[kPosPerThread];  // level k_s + 1's flags, for its mask in step k_s
-  read_wet(k_s + 1, wet1);
-
-  // Step k: dcz and face fluxes of level k, dcx, dcy and the top flux of
-  // level k + 1, and level k's divergence; without `fluxes` (above k_lo) only
-  // dcx, dcy and the top flux, from dcx, dcy of 0 in the `first` step (exact
-  // at the surface, not read below it). Level k + 2's chi lands and is
-  // masked at the end; level k + 3's is staged.
-  const V zero = V(0), half = V(0.5);
-  auto step = [&](int k, const Level<V>& cur, bool first, bool fluxes) {
-    // the accumulating entries read each member's output cell as the step
-    // starts, so the load's latency hides behind the step's work
-    V prior[kAcc ? kMaxAccGroup : 1];
-    if constexpr (kAcc) {
-      if (fluxes && live) {
-#pragma unroll
-        for (int m = 0; m < kMaxAccGroup; ++m)
-          if (m < nm) prior[m] = out[(m0 + m) * member + k * R.plane + lc.h];
+      for (int f = 0; f < kRediFields; ++f)
+        if (f != kInvDe && f != kInvDn)
+          put(b + own_slot(f) * kThreads + t, f == kCzu || f == kCzd ? lo : lc, f,
+              f == kCzd ? 1 : 0, next_level(f) ? k + 1 : k);
+      if (ring) {
+        put(b + kRimAt + t, lr, kCzu, 0, k);
+        put(b + kRimAt + kRing + t, lr, kCzd, 1, k);
+      }
+      if (ty == 0) {
+        put(b + kSouthAt + tx, ls, kAn, 2, k);
+        put(b + kSouthAt + kTI + tx, ls, kSn, 3, k);
+      }
+      if (tx == 0) {
+        put(b + kWestAt + ty, lw, kAe, 2, k);
+        put(b + kWestAt + kTJ + ty, lw, kSe, 3, k);
       }
     }
-    if (fluxes) {  // dcz at level k on every position of the tile and its ring
+  };
+  // step k's staged reads: the dcz weights (this thread's own copies) as
+  // the step starts, the rest after its barrier
+  auto read_dz = [&](int k, Level<V>& c) {
+    const C* const b = coef_s + (k & 1) * kBundle;
+    c.czu[0] = widen(b[kCzu * kThreads + t]), c.czd[0] = widen(b[kCzd * kThreads + t]);
+    const int r = ring ? t : 0;
+    c.czu[1] = widen(b[kRimAt + r]), c.czd[1] = widen(b[kRimAt + kRing + r]);
+  };
+  auto read_rest = [&](int k, Level<V>& c) {
+    const C* const b = coef_s + (k & 1) * kBundle;
+    auto own = [&](int f) { return widen(b[own_slot(f) * kThreads + t]); };
+    c.ae = own(kAe), c.se = own(kSe), c.an = own(kAn), c.sn = own(kSn), c.invv = own(kInvV);
+    c.cxe = own(kCxe), c.cxw = own(kCxw), c.cyn = own(kCyn), c.cys = own(kCys);
+    c.at = own(kAt), c.sti = own(kSti), c.stj = own(kStj), c.gt = own(kGt);
+    c.ae_w = widen(b[kWestAt + ty]), c.se_w = widen(b[kWestAt + kTJ + ty]);
+    c.an_s = widen(ty > 0 ? b[kAn * kThreads + t - kTI] : b[kSouthAt + tx]);
+    c.sn_s = widen(ty > 0 ? b[kSn * kThreads + t - kTI] : b[kSouthAt + kTI + tx]);
+  };
+  auto buf = [](int k) { return (k + 4) & 3; };  // level k's chi buffer (k >= -1)
+  auto x = [&](int k, int m, int p) -> V& { return chi_s[(buf(k) * G + m) * kPos + p]; };
+  auto stage = [&](int k) {  // level k's chi at this thread's positions, as read
+    const bool own = R.has(lo, k), rim = ring && R.has(lr, k);
+    const V* src_o = R.chi_at(lo, k, m0 * member);
+    const V* src_r = R.chi_at(lr, k, m0 * member);
+    V *dst_o = &x(k, 0, pc), *dst_r = &x(k, 0, pr);
+#pragma unroll 1
+    for (int m = 0; m < nm; ++m, src_o += member, src_r += member, dst_o += kPos, dst_r += kPos) {
+      if (own) cp_async(dst_o, src_o);
+      if (rim) cp_async(dst_r, src_r);
+    }
+    cp_async_commit();
+  };
+  auto mask = [&](int k, const bool* wet_k) {  // zero dry chi once landed, at the same positions
+    const bool own = !wet_k[0], rim = ring && !wet_k[1];
+#pragma unroll 1
+    for (int m = 0; m < nm && (own || rim); ++m) {
+      if (own) x(k, m, pc) = V(0);
+      if (rim) x(k, m, pr) = V(0);
+    }
+  };
+  const bool wet1[2] = {R.wet_at(lo, k_s + 1), R.wet_at(lr, k_s + 1)};  // for step k_s
+
+  // Step k: dcz of level k; level k's face fluxes and divergence; dcx, dcy
+  // and the top flux of level k + 1, carried in registers to the next step.
+  // Without `fluxes` (above k_lo) only dcx, dcy and the top flux, from dcx,
+  // dcy of 0 in the `first` step (exact at the surface, not read below it).
+  // Each thread takes dcz at the positions it staged and masked, so one
+  // barrier a step makes dcz (by level parity) and chi visible. Level k + 2
+  // lands and is masked at the end; level k + 3 is staged, and step k + 1's
+  // coefficients, which land by the step's end. The members are
+  // unrolled and branch-free: a group's missing members (m >= nm) compute on
+  // whatever their buffers hold and store nothing; where a face or level is
+  // missing its value is computed and 0 selected, as the plain version reads.
+  const V zero = V(0), half = V(0.5);
+  V dcx[G], dcy[G], ft[G];
 #pragma unroll
-      for (int q = 0; q < kPosPerThread; ++q) {
-        for (int m = 0; m < nm && pos[q] >= 0; ++m) {
-          const int p = pos[q];
-          const V xc = chi_m(k, m, p);
-          dcz_s[m * kPos + p] = lp[q].side < 0 ? zero
-              : cur.czu[q] * (chi_m(k - 1, m, p) - xc) + cur.czd[q] * (xc - chi_m(k + 1, m, p));
+  for (int m = 0; m < G; ++m) dcx[m] = dcy[m] = ft[m] = zero;
+  // each member's output cell: 32-bit offsets within the group (the launch
+  // keeps G * member below 2^32)
+  V* const out_g = out + m0 * member;
+  const unsigned member32 = static_cast<unsigned>(member);
+  auto step = [&](int k, bool first, bool fluxes) {
+    Level<V> cur;
+    if constexpr (kStaged) {
+      if (fluxes) read_dz(k, cur);
+    } else {
+      cur = load(k);
+    }
+    const bool wet2[2] = {R.wet_at(lo, k + 2), R.wet_at(lr, k + 2)};
+    const unsigned cell = static_cast<unsigned>(k * R.plane + lc.h);
+    // the accumulating entries read each member's output cell as the step
+    // starts, so the load's latency hides behind the step's work
+    V prior[kAcc ? G : 1];
+    if constexpr (kAcc) {
+#pragma unroll
+      for (int m = 0; m < G; ++m)
+        if (fluxes && live && m < nm) prior[m] = out_g[m * member32 + cell];
+    }
+    const V* const xu = chi_s + buf(k - 1) * G * kPos;
+    const V* const x0 = chi_s + buf(k) * G * kPos;
+    const V* const x1 = chi_s + buf(k + 1) * G * kPos;
+    V* const dz = dcz_s + (k & 1) * G * kPos;
+    if (fluxes) {  // dcz at level k on this thread's positions
+#pragma unroll
+      for (int m = 0; m < G; ++m) {
+        const int o = m * kPos;
+        const V xo = x0[o + pc];
+        const V d_o = cur.czu[0] * (xu[o + pc] - xo) + cur.czd[0] * (xo - x1[o + pc]);
+        dz[o + pc] = lo.side < 0 ? zero : d_o;
+        if (ring) {
+          const V xr = x0[o + pr];
+          const V d_r = cur.czu[1] * (xu[o + pr] - xr) + cur.czd[1] * (xr - x1[o + pr]);
+          dz[o + pr] = lr.side < 0 ? zero : d_r;
         }
       }
     } else if (first) {
-      cp_async_wait<2>();  // level k_s + 1
+      cp_async_wait<2>();  // its coefficients and level k_s + 1
       mask(k_s + 1, wet1);
     }
     __syncthreads();
-    if (!first) stage(k + 3);  // into level k - 1's buffer, read no more
-    for (int m = 0; m < nm && live; ++m) {
-      const V* dcz = dcz_s + m * kPos;
-      const int slot = m * kThreads + t;
-      const V xc = chi_m(k, m, pc);
-      if (fluxes) {  // face fluxes: east and north of this cell, of the west / south ring
-        const V xe = chi_m(k, m, pe), xn = chi_m(k, m, pn);
-        fe_s[m * kPos + pc] = cur.ae * (ide * (xe - xc) + cur.se * (half * (dcz[pc] + dcz[pe])));
-        fn_s[m * kPos + pc] = cur.an * (idn * (xn - xc) + cur.sn * (half * (dcz[pc] + dcz[pn])));
-        if (tx == 0)
-          fe_s[m * kPos + pw] = cur.ae_w * (ide_w * (xc - chi_m(k, m, pw)) +
-                                            cur.se_w * (half * (dcz[pw] + dcz[pc])));
-        if (ty == 0)
-          fn_s[m * kPos + ps] = has_s ? cur.an_s * (idn_s * (xc - chi_m(k, m, ps)) +
-                                                   cur.sn_s * (half * (dcz[ps] + dcz[pc])))
-                                      : zero;
+    if constexpr (kStaged) {
+      read_rest(k, cur);
+      stage_coef(k + 1);  // into step k - 1's buffer, read no more
+    }
+    cp_async_commit();
+    if (!first) {
+      stage(k + 3);  // into level k - 1's buffer, read no more
+    } else {
+      cp_async_commit();
+    }
+    const bool below = k + 1 < nz;
+#pragma unroll
+    for (int m = 0; m < G; ++m) {
+      const int o = m * kPos;
+      const V xc = x0[o + pc];
+      // the east and north faces of this cell; its west face is lane tx - 1's
+      // east face (lane 0 takes it here), its south face is taken here
+      V fe = zero, fw = zero, fn = zero, fs = zero;
+      if (fluxes) {
+        const V* const d = dz + o;
+        fe = cur.ae * (ide * (x0[o + pe] - xc) + cur.se * (half * (d[pc] + d[pe])));
+        fn = cur.an * (idn * (x0[o + pn] - xc) + cur.sn * (half * (d[pc] + d[pn])));
+        const V f_s = cur.an_s * (idn_s * (xc - x0[o + ps]) + cur.sn_s * (half * (d[ps] + d[pc])));
+        const V f_w = cur.ae_w * (ide_w * (xc - x0[o + pw]) + cur.se_w * (half * (d[pw] + d[pc])));
+        const V f_up = __shfl_up_sync(0xffffffffu, fe, 1);
+        fs = has_s ? f_s : zero;
+        fw = tx == 0 ? f_w : f_up;
       }
       // dcx, dcy and the top face flux of level k + 1, from the carried
-      // dcx, dcy of level k (0 above the surface); ft in slot (k + 1) & 1
-      V ft = zero;
-      if (k + 1 < nz) {
-        const V xb = chi_m(k + 1, m, pc);
-        const V dcx_c = first ? zero : dcx_s[slot], dcy_c = first ? zero : dcy_s[slot];
-        const V dcx_b = cur.cxe * (chi_m(k + 1, m, pe) - xb) + cur.cxw * (xb - chi_m(k + 1, m, pw));
-        const V dcy_b = cur.cyn * (chi_m(k + 1, m, pn) - xb) + cur.cys * (xb - chi_m(k + 1, m, ps));
-        ft = cur.at * ((cur.sti * (half * (dcx_b + dcx_c)) + cur.stj * (half * (dcy_b + dcy_c))) +
-                       cur.gt * (xc - xb));
-        dcx_s[slot] = dcx_b;
-        dcy_s[slot] = dcy_b;
+      // dcx, dcy of level k (0 above the surface); none below the floor
+      const V xb = x1[o + pc];
+      const V dcx_b = cur.cxe * (x1[o + pe] - xb) + cur.cxw * (xb - x1[o + pw]);
+      const V dcy_b = cur.cyn * (x1[o + pn] - xb) + cur.cys * (xb - x1[o + ps]);
+      const V f_b = cur.at * ((cur.sti * (half * (dcx_b + dcx[m])) +
+                               cur.stj * (half * (dcy_b + dcy[m]))) +
+                              cur.gt * (xc - xb));
+      const V ft_b = below ? f_b : zero;
+      dcx[m] = dcx_b;
+      dcy[m] = dcy_b;
+      if (fluxes) {
+        const V div = cur.invv * (((((fe - fw) + fn) - fs) + ft[m]) - ft_b);
+        V* const o_m = out_g + (m * member32 + cell);
+        if constexpr (kAcc) {
+          if (live && m < nm) *o_m = prior[m] + alpha * div;
+        } else {
+          if (live && m < nm) *o_m = div;
+        }
       }
-      ft_s[((k + 1) & 1) * group * kThreads + slot] = ft;
+      ft[m] = ft_b;
     }
-    cp_async_wait<1>();  // level k + 2
-    mask(k + 2, cur.wet);
-    __syncthreads();
-    auto divergence = [&](int m) {
-      const V* fe = fe_s + m * kPos;
-      const V* fn = fn_s + m * kPos;
-      const int slot = m * kThreads + t;
-      const V ft_c = ft_s[(k & 1) * group * kThreads + slot];
-      const V ft_b = ft_s[((k + 1) & 1) * group * kThreads + slot];
-      return cur.invv * (((((fe[pc] - fe[pw]) + fn[pc]) - fn[ps]) + ft_c) - ft_b);
-    };
-    if constexpr (kAcc) {  // unrolled, so that `prior` stays in registers
-#pragma unroll
-      for (int m = 0; m < kMaxAccGroup; ++m)
-        if (m < nm && live && fluxes)
-          out[(m0 + m) * member + k * R.plane + lc.h] = prior[m] + alpha * divergence(m);
-    } else {
-      for (int m = 0; m < nm && live && fluxes; ++m)
-        out[(m0 + m) * member + k * R.plane + lc.h] = divergence(m);
-    }
+    cp_async_wait<1>();  // level k + 2 and step k + 1's coefficients
+    mask(k + 2, wet2);
   };
 
-  // level k_s reads 0 (level -1: above the surface); k_s + 1 .. k_s + 3 go ahead
-  for (int p = t; p < group * kPos; p += kThreads) chi_s[buf(k_s) * group * kPos + p] = zero;
+  // level k_s reads 0 (level -1: above the surface); step k_s's coefficients
+  // and levels k_s + 1 .. k_s + 3 go ahead
+  for (int p = t; p < G * kPos; p += kThreads) chi_s[buf(k_s) * G * kPos + p] = zero;
+  if constexpr (kStaged) stage_coef(k_s);
+  cp_async_commit();
   for (int k = k_s + 1; k < k_s + 4; ++k) stage(k);
-  step(k_s, load(k_s), true, false);
-  if (k_s < k_lo - 1) step(k_lo - 1, load(k_lo - 1), false, false);
-  for (int k = k_lo; k < k_hi; ++k) step(k, load(k), false, true);
+  step(k_s, true, false);
+  if (k_s < k_lo - 1) step(k_lo - 1, false, false);
+  for (int k = k_lo; k < k_hi; ++k) step(k, false, true);
+}
+
+// What a launch takes: its member group, blocks an SM, chunks of levels,
+// grid and shared memory.
+struct RediPlan {
+  int group, per_sm, nchunks;
+  dim3 grid;
+  size_t bytes;
+};
+
+template <typename C, typename V, bool kShard, int G, bool kAcc>
+cudaError_t plan_group(int nmembers, int nz, int ny, int nx, RediPlan* p) {
+  p->group = G;
+  p->bytes = 6 * G * kPos * sizeof(V) + (staged<C, V, G> ? 2 * kBundle * sizeof(C) : 0);
+  p->grid = dim3((nx + kTI - 1) / kTI * ((nmembers + G - 1) / G), (ny + kTJ - 1) / kTJ);
+  long long slots = 0;
+  const cudaError_t err =
+      block_slots(redi_kernel<C, V, kShard, G, kAcc>, kThreads, p->bytes, &slots, &p->per_sm);
+  if (err != cudaSuccess) return err;
+  // a staged walk alone on its SM runs faster than beside another; the
+  // others stay bound by their loads' latency (measured: f32 G = 8 in two
+  // chunks 0.512 -> 0.488 ms; f32 G = 4 0.290 -> 0.302 ms, f64 G = 4 0.537
+  // -> 0.552 ms)
+  p->nchunks = pick_chunks(static_cast<long long>(p->grid.x) * p->grid.y * p->grid.z, slots, nz,
+                           staged<C, V, G> ? p->per_sm : 1);
+  return cudaSuccess;
+}
+
+// The member group: the whole batch in one group up to 8 f32 members (4 in
+// f64), rounded up to a power of two; groups of 8 (4) beyond; smaller where
+// G members of nz * ny * nx cells would pass 2^32 (the kernel's offsets
+// within a group). A shard takes one tracer.
+template <typename V, bool kShard, typename F>
+int with_group(int nmembers, long long cells, F&& f) {
+  auto fits = [&](int g) { return g * cells < (1LL << 32); };
+  if constexpr (!kShard) {
+    if constexpr (sizeof(V) == 4) {
+      if (nmembers > 4 && fits(8)) return f(std::integral_constant<int, 8>{});
+    }
+    if (nmembers > 2 && fits(4)) return f(std::integral_constant<int, 4>{});
+    if (nmembers > 1 && fits(2)) return f(std::integral_constant<int, 2>{});
+  }
+  return f(std::integral_constant<int, 1>{});
+}
+
+template <typename C, typename V, bool kAcc>
+int plan_redi(int nmembers, int nz, int ny, int nx, int* out) {
+  RediPlan p{};
+  const int err = with_group<V, false>(nmembers, static_cast<long long>(nz) * ny * nx, [&](auto g) {
+    return static_cast<int>(plan_group<C, V, false, decltype(g)::value, kAcc>(nmembers, nz, ny,
+                                                                              nx, &p));
+  });
+  out[0] = p.group, out[1] = p.per_sm, out[2] = p.nchunks;
+  return err;
 }
 
 template <typename C, typename V, bool kShard, bool kAcc = false>
@@ -317,23 +519,17 @@ int launch_redi(const void* const* fields, const void* wet, const void* chi, voi
                          h, ny * nx, nz, ny, nx, north};
   for (int n = 0; n < kRediFields; ++n) R.f[n] = static_cast<const C*>(fields[n]);
   if (static_cast<long long>(nz) * ny * nx >= (1LL << 31)) return cudaErrorInvalidValue;
-  const size_t per_member = (7 * kPos + 4 * kThreads) * sizeof(V);
-  int group = static_cast<int>(kMaxSharedBytes / 2 / per_member);
-  group = group < nmembers ? group : nmembers;
-  if (kAcc) group = group < kMaxAccGroup ? group : kMaxAccGroup;
-  const size_t bytes = group * per_member;
-  auto kernel = redi_kernel<C, V, kShard, kAcc>;
-  const dim3 grid((nx + kTI - 1) / kTI, (ny + kTJ - 1) / kTJ, (nmembers + group - 1) / group);
-  long long slots = 0;
-  const cudaError_t err = block_slots(kernel, kThreads, bytes, &slots);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // as many chunks of the levels as the SMs hold tiles beyond one each
-  const long long fill = slots / (grid.x * grid.y * grid.z);
-  const int nchunks = static_cast<int>(std::max(1LL, std::min<long long>(fill, nz / kMinChunk)));
-  kernel<<<dim3(grid.x, grid.y, grid.z * nchunks), kThreads, bytes,
-           static_cast<cudaStream_t>(stream)>>>(
-      R, static_cast<V*>(out), nmembers, group, nchunks, static_cast<V>(alpha));
-  return static_cast<int>(cudaGetLastError());
+  return with_group<V, kShard>(nmembers, static_cast<long long>(nz) * ny * nx, [&](auto g) {
+    constexpr int G = decltype(g)::value;
+    RediPlan p{};
+    const cudaError_t err = plan_group<C, V, kShard, G, kAcc>(nmembers, nz, ny, nx, &p);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    redi_kernel<C, V, kShard, G, kAcc>
+        <<<dim3(p.grid.x, p.grid.y, p.nchunks), kThreads, p.bytes,
+           static_cast<cudaStream_t>(stream)>>>(R, static_cast<V*>(out), nmembers, p.nchunks,
+                                                static_cast<V>(alpha));
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // K9: K6 on one shard, one tracer (kShard), its edge neighbours in `lines`
@@ -369,6 +565,11 @@ int launch_redi_halo(const void* const* fields, const void* wet, const void* chi
                                           void* stream) {                                      \
     return otmb::launch_redi<C, V, false, true>(fields, wet, chi, out, nmembers, nz, ny, nx,   \
                                                 tripolar, {}, stream, alpha);                  \
+  }                                                                                            \
+  OTMB_EXPORT int otmb_redi_plan_##SUFFIX(int nmembers, int nz, int ny, int nx, int acc,     \
+                                          int* plan) {                                         \
+    return acc ? otmb::plan_redi<C, V, true>(nmembers, nz, ny, nx, plan)                       \
+               : otmb::plan_redi<C, V, false>(nmembers, nz, ny, nx, plan);                     \
   }                                                                                            \
   OTMB_EXPORT int otmb_redi_halo_##SUFFIX(const void* const* fields, const void* wet,          \
                                           const void* chi, void* out, const void* const* lines, \

@@ -291,24 +291,6 @@ stencil_multi_kernel(const C* __restrict__ diag, const C* __restrict__ east,
   }
 }
 
-// The chunks of levels K5's `blocks` tiles split their walk of nz levels
-// into, `slots` blocks running at once: the count that ends soonest, each
-// wave of blocks costing its chunk's levels plus kFill steps to fill the
-// pipeline. One chunk can leave a last wave of few blocks that walks all
-// the levels alone (1 degree: 456 tiles, 396 slots at G = 4).
-constexpr int kFill = 2;
-
-inline int pick_chunks(long long blocks, long long slots, int nz) {
-  int best = 1;
-  long long best_cost = -1;
-  for (int n = 1; n <= nz / kMinChunk; ++n) {
-    const int span = (nz + n - 1) / n, used = (nz + span - 1) / span;
-    const long long cost = (blocks * used + slots - 1) / slots * (span + kFill);
-    if (best_cost < 0 || cost < best_cost) best = n, best_cost = cost;
-  }
-  return best;
-}
-
 template <typename C, typename V, bool kHalo, int G>
 int launch_multi_group(const void* diag, const void* east, const void* west, const void* north,
                        const void* south, const void* top, const void* bottom, const void* chi,

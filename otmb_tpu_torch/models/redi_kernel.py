@@ -5,9 +5,17 @@ Replaces `otmb_tpu/models/redi_pallas.py` (`redi_apply_pallas`,
 walks k down a tile of columns with four levels of chi in shared memory
 and computes each derivative and face flux once. A batch is (B, nz, ny,
 nx), batch-major as in the JAX package; the block reads the coefficients
-once for a group of members, so member b of `redi_apply_fused_multi`
-equals `redi_apply_fused` on member b, bit for bit, and both equal the
-plain version `models.redi.redi_apply` on the card.
+once for a group of G members, G = 1, 2, 4 or 8 fixed when the kernel is
+built (the batch rounded up to a power of two, at most 8 in f32 and 4 in
+f64; `plan` reports it), so that each member's carried derivatives and
+fluxes stay in registers. Where that holds a block to two an SM (f32 at
+G = 8, f64 at G = 2) the step's coefficients come through shared memory a
+step ahead, and the walk is split into level chunks so that the last wave
+of tiles fills the card; the kernel is then bound by latency
+(csrc/redi.cu's note has the numbers).
+Member b of `redi_apply_fused_multi` equals `redi_apply_fused` on member
+b, bit for bit, and both equal the plain version `models.redi.redi_apply`
+on the card. `batch_groups` counts the batched launches by their group.
 
 Coefficient and value types (C, V) are one of (f32, f32), (bf16, f32)
 (`redi_operator_to_bf16`) and (f64, f64); the arithmetic runs in V. chi is
@@ -39,7 +47,13 @@ _ENTRY = {
 }
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _ACC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_double, ctypes.c_void_p]
+_PLAN_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _PLANES = ("inv_de", "inv_dn")
+
+#: Batched launches on the card (`redi_apply_fused_multi` and the batched
+#: accumulating entry) by the member group G the launch took.
+batch_groups: dict[int, int] = {}
+_plans: dict[tuple, dict[str, int]] = {}
 
 
 def validate(op: RediOperator, chi: torch.Tensor, batched: bool,
@@ -93,6 +107,29 @@ def _args(op: RediOperator, chi: torch.Tensor, out: torch.Tensor, batched: bool)
             int(op.topology.is_tripolar))
 
 
+def plan(op: RediOperator, chi: torch.Tensor, batched: bool, acc: bool = False) -> dict[str, int]:
+    """How K6 launches on `chi`'s card for this operator and batch (the
+    accumulating entry with `acc`): the member group G its kernel was built
+    for ("group"), the blocks an SM holds ("per_sm") and the chunks of
+    levels each tile's walk is split into ("chunks"). The kernel's own rule,
+    asked once per shape."""
+    nz, ny, nx = op.topology.shape3d
+    b = chi.shape[0] if batched else 1
+    key = (op.ae.dtype, chi.dtype, b, nz, ny, nx, acc, chi.device.index)
+    if key not in _plans:
+        got = (ctypes.c_int * 3)()
+        _build.query("otmb_redi_plan_" + _ENTRY[(op.ae.dtype, chi.dtype)][len("otmb_redi_"):],
+                     _PLAN_ARGTYPES, chi.device, b, nz, ny, nx, int(acc), ctypes.addressof(got))
+        _plans[key] = dict(zip(("group", "per_sm", "chunks"), got))
+    return _plans[key]
+
+
+def _tally(op: RediOperator, chi: torch.Tensor, batched: bool, acc: bool) -> None:
+    if batched:
+        g = plan(op, chi, batched, acc)["group"]
+        batch_groups[g] = batch_groups.get(g, 0) + 1
+
+
 def _run(op: RediOperator, chi: torch.Tensor, batched: bool) -> torch.Tensor:
     validate(op, chi, batched)
     if not chi.is_cuda:
@@ -100,6 +137,7 @@ def _run(op: RediOperator, chi: torch.Tensor, batched: bool) -> torch.Tensor:
     out = torch.empty_like(chi)
     _build.launch(_ENTRY[(op.ae.dtype, chi.dtype)], _ARGTYPES, chi.device,
                   *_args(op, chi, out, batched), batch=batched)
+    _tally(op, chi, batched, acc=False)
     return out
 
 
@@ -111,6 +149,7 @@ def accumulate(op: RediOperator, chi: torch.Tensor, out: torch.Tensor, alpha: fl
     `out` a CUDA tensor like chi that is not chi."""
     _build.launch(_ENTRY[(op.ae.dtype, chi.dtype)] + "_acc", _ACC_ARGTYPES, chi.device,
                   *_args(op, chi, out, batched), float(alpha), batch=batched)
+    _tally(op, chi, batched, acc=True)
 
 
 def redi_apply_fused(op: RediOperator, chi: torch.Tensor) -> torch.Tensor:

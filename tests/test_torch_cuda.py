@@ -589,21 +589,54 @@ def test_k6_equals_plain(case, types):
     torch.testing.assert_close(got, P.redi_apply(op, x), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("nmembers", [1, 3, 8])
+def _k6_group(nmembers: int, vtype: torch.dtype) -> int:
+    """The member group K6's batched launch takes: the batch rounded up to
+    a power of two, at most 8 f32 members or 4 f64 ones."""
+    return min(1 << (nmembers - 1).bit_length(), 4 if vtype == torch.float64 else 8)
+
+
+def _k6_batch_equals(op, xs, alpha):
+    """K6 on the batch `xs` (one launch, under its group) and its
+    accumulating entry on it, each against the plain version and member by
+    member against one-tracer launches, bit for bit."""
+    from otmb_tpu_torch.models import redi_kernel
+
+    nb, group = xs.shape[0], _k6_group(xs.shape[0], xs.dtype)
+    tally = lambda: redi_kernel.batch_groups.get(group, 0)
+    n6, g6 = _build.calls(K6_MULTI), tally()
+    got = P.redi_apply_fused_multi(op, xs)
+    assert _build.calls(K6_MULTI) == n6 + 1 and tally() == g6 + 1
+    assert redi_kernel.plan(op, xs, True)["group"] == group
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, P.redi_apply(op, xs), rtol=0, atol=0)
+    rng = np.random.default_rng(nb)
+    out0 = torch.as_tensor(rng.standard_normal(tuple(xs.shape)), device=xs.device).to(xs.dtype)
+    acc = out0.clone()
+    redi_kernel.accumulate(op, xs, acc, alpha, True)
+    assert _build.calls(K6_MULTI) == n6 + 2 and tally() == g6 + 2
+    assert redi_kernel.plan(op, xs, True, acc=True)["group"] == group
+    torch.testing.assert_close(acc, out0 + alpha * P.redi_apply(op, xs), rtol=0, atol=0)
+    for m in range(nb):
+        torch.testing.assert_close(got[m], P.redi_apply_fused(op, xs[m]), rtol=0, atol=0)
+        one = out0[m].clone()
+        redi_kernel.accumulate(op, xs[m], one, alpha, False)
+        torch.testing.assert_close(acc[m], one, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("nmembers", [1, 3, 5, 8, 9, 16])
 @pytest.mark.parametrize("types", list(REDI_TYPES))
 def test_k6_multi_equals_k6_per_member(case, types, nmembers):
+    """K6 and its accumulating entry on a batch (full and ragged member
+    groups, and more than one group) equal one-tracer launches member by
+    member and the plain version, bit for bit; each batched launch is
+    counted under the member group it took."""
     _, _, idx, _, chi = case
     ctype, vtype = REDI_TYPES[types]
     op = _redi(case).to(ctype)
     rng = np.random.default_rng(9)
     xs = torch.where(idx.wet3d, torch.as_tensor(rng.standard_normal((nmembers,) + chi.shape),
-                                                device=chi.device), 0.0).to(vtype)
-    n6 = _build.calls(K6_MULTI)
-    got = P.redi_apply_fused_multi(op, xs)
-    assert _build.calls(K6_MULTI) == n6 + 1
-    for m in range(nmembers):
-        torch.testing.assert_close(got[m], P.redi_apply_fused(op, xs[m]), rtol=0, atol=0)
-    torch.testing.assert_close(got, P.redi_apply(op, xs), rtol=0, atol=0)
+                                                device=chi.device), torch.nan).to(vtype)
+    _k6_batch_equals(op, xs, 0.25 / P.redi_max_rate(op.to(torch.float64)))
 
 
 def _random_redi(kind, nz, ny, nx, device, seed):
@@ -626,17 +659,22 @@ def _random_redi(kind, nz, ny, nx, device, seed):
 def test_k6_cut_shapes_equal_plain(device, kind, types, dims):
     """K6 on shapes that cut its 32 x 8 tile on every side (ny = 1, nz of 1
     and 2, i wrapping inside one tile) and its walk into uneven chunks of
-    levels (nz = 13), one tracer and B = 1, 4 and 8: bit for bit against
-    the plain version, NaN on land masked."""
+    levels (nz = 13), one tracer and B = 1, 3, 4, 5, 8, 9 and 16 (full,
+    ragged and several member groups), with the accumulating entry: bit for
+    bit against the plain version and member by member against one-tracer
+    launches, NaN on land masked."""
     ctype, vtype = REDI_TYPES[types]
     nz, ny, nx = dims
     op = _random_redi(kind, nz, ny, nx, device, seed=nz + ny + nx).to(ctype)
     rng = np.random.default_rng(nx)
-    for nb in (0, 1, 4, 8):
+    for nb in (0, 1, 3, 4, 5, 8, 9, 16):
         x = torch.as_tensor(rng.standard_normal(((nb,) if nb else ()) + (nz, ny, nx)),
                             device=device).to(vtype)
         x = torch.where(op.wet, x, torch.nan)
-        got = P.redi_apply_fused_multi(op, x) if nb else P.redi_apply_fused(op, x)
+        if nb:
+            _k6_batch_equals(op, x, 0.375)
+            continue
+        got = P.redi_apply_fused(op, x)
         assert bool(torch.isfinite(got).all())
         torch.testing.assert_close(got, P.redi_apply(op, x), rtol=0, atol=0)
 

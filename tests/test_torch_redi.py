@@ -96,6 +96,20 @@ def test_coef_fields_are_the_jax_packages():
     assert redi_kernel._PLANES == ("inv_de", "inv_dn")
 
 
+def test_batch_group_tally_counts_card_launches_only(pop, wet):
+    """`redi_kernel.batch_groups` counts K6's batched launches on the card by
+    member group; a CPU batch takes the plain version and is not counted."""
+    before = dict(redi_kernel.batch_groups)
+    xs = torch.from_numpy(random_chi(wet, 5, (3,)))
+    no_flow = P.StencilCoeffs(*(torch.zeros(wet.shape, dtype=torch.float64)
+                                for _ in P.StencilCoeffs._fields))
+    got = P.redi_apply_fused_multi(pop, xs)
+    step = P.euler_propagate_multi(no_flow, xs, 1.0, 1, pop.topology, redi=pop)
+    assert_close(got, P.redi_apply(pop, xs), 0.0, what="CPU batch")
+    assert_close(step, xs + P.redi_apply(pop, xs), 0.0, what="CPU T + R step without flow")
+    assert redi_kernel.batch_groups == before
+
+
 @pytest.mark.parametrize("name", _COEF_FIELDS + ("wet",))
 def test_operator_field_matches_jax(jop, pop, name):
     """Each field within 1e-12 of its largest value. The slopes are ratios
