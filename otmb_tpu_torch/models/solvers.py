@@ -28,9 +28,10 @@ two K1 and K13's five entry calls) between two preallocated state sets,
 so the host issues an iteration in one launch-path call rather than nine
 and stays ahead of the device (`_graphed` says where, from the input
 alone: BiCGStab(1) on a CUDA tensor on the whole field; `_PingPong`).
-Each solve captures its own two graphs, on the system it solves (the
-passes of a refinement share one system and one loop, `_shared`), and
-frees their state sets when it returns (`_capture` says what stays).
+Each public solve builds one system (`_system`) and hands it to `_solve`;
+the system keeps the two graphs' loop captured on it, so the passes of a
+refinement, which share its system, capture once, and the state sets go
+when the public call returns (`_capture` says what stays).
 Shards (whose all-reduces cannot be captured), CPU tensors, BiCGStab(2)
 and GMRES issue every entry call eagerly.
 
@@ -50,7 +51,6 @@ Krylov method, and the same engine runs at every size.
 
 from __future__ import annotations
 
-import contextlib
 import math
 import sys
 import threading
@@ -184,18 +184,23 @@ class _System(NamedTuple):
     form: `a` is A with shift + extra folded into its diagonal, `M` the
     preconditioner, `m_legs` the Thomas legs (lower, guarded diagonal,
     upper) and `factor` their (cp, rden) when M is the tridiagonal one,
-    `field` the whole field or a shard. With bf16 coefficients and f32
-    vectors (`solve_shifted_ir`'s bf16-narrow mode) `a` keeps the bf16
-    coefficients and `outside` holds (shift, extra), applied beside the
-    kernel as the JAX package's matvec applies them."""
+    `field` the whole field or a shard, `coeffs` A's own coefficients (T'
+    formed), which the refinement's defects read. With bf16 coefficients
+    and f32 vectors (`solve_shifted_ir`'s bf16-narrow mode) `a` keeps the
+    bf16 coefficients and `outside` holds (shift, extra), applied beside the
+    kernel as the JAX package's matvec applies them. `loops` holds the
+    graphed BiCGStab(1) loops captured on the system (`_loop`): whoever
+    shares the system shares them, and they go with it."""
 
     a: StencilCoeffs
     topology: GridTopology
     M: Callable[[torch.Tensor], torch.Tensor]
     m_legs: tuple | None
     field: _Field
-    factor: tuple | None = None
-    outside: tuple | None = None
+    factor: tuple | None
+    outside: tuple | None
+    coeffs: StencilCoeffs
+    loops: dict
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         """(shift * I + D_extra + A) x."""
@@ -208,71 +213,26 @@ class _System(NamedTuple):
         return self.field.dot(a, b)
 
 
-def _field_for(coeffs: StencilCoeffs, topology: GridTopology, transpose: bool, grid=None,
-               overlap: bool = True) -> tuple[_Field, StencilCoeffs]:
-    """The field operations, and A's coefficients with T' formed once when
-    `transpose`: the whole field on one device, or this rank's shard on a
-    process grid (`parallel.solve_halo`)."""
-    if grid is None:
-        return _whole_field(topology), (transpose_coeffs(coeffs, topology) if transpose
-                                        else coeffs)
-    from ..parallel.solve_halo import halo_field, transpose_coeffs_halo
-
-    return halo_field(topology, grid, overlap), (
-        transpose_coeffs_halo(coeffs, topology, grid) if transpose else coeffs)
-
-
-#: Per host thread, while `solve_shifted_ir`'s passes run (`_shared`):
-#: `systems`, the whole-field systems made, by their arguments, and
-#: `loops`, the graphed loops captured, by system and state shape.
-_passes = threading.local()
-
-
-@contextlib.contextmanager
-def _shared():
-    """Inside, on this thread: `_system` gives one whole-field system for
-    the same arguments, so the refinement's passes share its Thomas factor,
-    and `_engine` binds each pass to the graphed loop the first captured on
-    it (`_loop`). Both go on exit, but for the graphs, which go at the
-    thread's next capture (`_capture`)."""
-    if getattr(_passes, "systems", None) is not None:
-        yield
-        return
-    _passes.systems, _passes.loops = {}, {}
-    try:
-        yield
-    finally:
-        _passes.systems = _passes.loops = None
-
-
 def _system(coeffs: StencilCoeffs, dtype: torch.dtype, topology: GridTopology, shift=0.0,
             extra_diag: torch.Tensor | None = None, transpose: bool = False,
             preconditioner: str = "tridiag", grid=None, overlap: bool = True) -> _System:
-    """`_make_system`'s system, or inside `_shared` the whole-field system
-    it made before for the same arguments (the same tensors)."""
-    systems = getattr(_passes, "systems", None)
-    if systems is None or grid is not None:
-        return _make_system(coeffs, dtype, topology, shift, extra_diag, transpose,
-                            preconditioner, grid, overlap)
-    key = (id(coeffs), dtype, topology, shift, id(extra_diag), transpose, preconditioner)
-    if key not in systems:  # the tensors are kept, so their ids stay theirs
-        systems[key] = (_make_system(coeffs, dtype, topology, shift, extra_diag, transpose,
-                                     preconditioner), coeffs, extra_diag)
-    return systems[key][0]
-
-
-def _make_system(coeffs: StencilCoeffs, dtype: torch.dtype, topology: GridTopology, shift=0.0,
-                 extra_diag: torch.Tensor | None = None, transpose: bool = False,
-                 preconditioner: str = "tridiag", grid=None, overlap: bool = True) -> _System:
     """The engine's system in `dtype`, on the whole field or (`grid`) on
-    this rank's shard. For T' the stencil form of T' is built once; its
-    vertical legs are the transposed operator's, so the Thomas M is built
-    from them too, and factored once. On a shard the Thomas solve needs no
-    neighbours, since k is never sharded. bf16 coefficients with f32
-    vectors stay bf16 in A (K1's (bf16, f32) kernel) and are widened to f32
+    this rank's shard; each public solve builds one and hands it on. For
+    T' the stencil form of T' is built once; its vertical legs are the
+    transposed operator's, so the Thomas M is built from them too, and
+    factored once. On a shard the Thomas solve needs no neighbours, since k
+    is never sharded. bf16 coefficients with f32 vectors (the bf16-narrow
+    mode) stay bf16 in A (K1's (bf16, f32) kernel) and are widened to f32
     in M."""
-    field, coeffs = _field_for(coeffs, topology, transpose, grid, overlap)
-    narrow = _narrow(coeffs, dtype)
+    if grid is None:
+        field = _whole_field(topology)
+        coeffs = transpose_coeffs(coeffs, topology) if transpose else coeffs
+    else:
+        from ..parallel.solve_halo import halo_field, transpose_coeffs_halo
+
+        field = halo_field(topology, grid, overlap)
+        coeffs = transpose_coeffs_halo(coeffs, topology, grid) if transpose else coeffs
+    narrow = coeffs.diag.dtype == torch.bfloat16 and dtype == torch.float32
     if not narrow:
         coeffs = coeffs.to(dtype)
     extra = 0.0 if extra_diag is None else extra_diag.to(dtype)
@@ -281,16 +241,12 @@ def _make_system(coeffs: StencilCoeffs, dtype: torch.dtype, topology: GridTopolo
     outside = (shift, extra) if narrow else None
     if preconditioner == "tridiag":
         m_legs, (cp, rden) = _thomas(coeffs, shifted)
-        return _System(a, topology, lambda v: tridiag_solve_factored(cp, rden, m_legs[2], v),
-                       m_legs, field, (cp, rden), outside)
-    if preconditioner == "jacobi":
-        return _System(a, topology, _jacobi_preconditioner(shifted), None, field, None, outside)
-    raise ValueError(f"unknown preconditioner {preconditioner!r}")
-
-
-def _narrow(coeffs: StencilCoeffs, dtype: torch.dtype) -> bool:
-    """bf16 coefficients under f32 vectors: the bf16-narrow mode."""
-    return coeffs.diag.dtype == torch.bfloat16 and dtype == torch.float32
+        M, factor = (lambda v: tridiag_solve_factored(cp, rden, m_legs[2], v)), (cp, rden)
+    elif preconditioner == "jacobi":
+        M, m_legs, factor = _jacobi_preconditioner(shifted), None, None
+    else:
+        raise ValueError(f"unknown preconditioner {preconditioner!r}")
+    return _System(a, topology, M, m_legs, field, factor, outside, coeffs, {})
 
 
 class _State1(NamedTuple):
@@ -506,20 +462,15 @@ class _PingPong:
 
 
 def _loop(sys_: _System, state: _State1) -> _PingPong:
-    """The graphed loop on `sys_` for `state`, loaded with it: inside
-    `_shared`, the one captured on `sys_` for the same shapes by an earlier
-    pass, kept until the passes end; else a new one, which goes with the
-    engine call."""
-    loops = getattr(_passes, "loops", None)
-    key = (id(sys_), state.x.shape, state.x.dtype)
-    if loops is None or key not in loops:
-        loop = _PingPong(sys_, state)
-        if loops is not None:
-            loops[key] = loop  # sys_ is kept by `_shared`, so its id stays its own
-        return loop
-    loop = loops[key]
-    loop.load(state)
-    return loop
+    """The graphed loop on `sys_` for `state`'s shape and dtype, loaded with
+    it: the one an earlier engine call on the system captured (a pass of
+    `solve_shifted_ir` before), or a new one, which the system keeps."""
+    key = (state.x.shape, state.x.dtype)
+    if key not in sys_.loops:
+        sys_.loops[key] = _PingPong(sys_, state)
+    else:
+        sys_.loops[key].load(state)
+    return sys_.loops[key]
 
 
 def _unfused_step(sys_: _System):
@@ -729,7 +680,7 @@ def _gmres(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, early_stop:
                         f"{math.sqrt(start_rn2 / bnorm2):.3e} after {iters} Arnoldi steps "
                         f"improved <2% over the last 3 cycles — likely the rounding floor of "
                         f"{b.dtype}; wrap in solve_shifted_ir for tighter residuals, or pass "
-                        f"early_stop=False to keep iterating.", stacklevel=4)
+                        f"early_stop=False to keep iterating.", stacklevel=5)
                     stop = "stall"
                 window_rn2 = start_rn2
             if est2 <= atol2 or iters >= maxiter or stop != "maxiter":
@@ -770,14 +721,15 @@ def _engine(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, chunk: int
     Where `_graphed` engages (BiCGStab(1) on the whole field of a CUDA
     tensor), the first part of the first chunk runs eagerly, as the warm-up;
     then two iterations are captured as graphs (`_PingPong`, in an
-    `engine.capture` span; a later pass of `solve_shifted_ir` binds to the
-    loop the first captured, `_loop`) and every later iteration is one
-    replay, issued while the device works through the previous ones. The
-    reads stay outside the graphs; restarts are copied into the state the
-    next replay reads, and the best iterate is a copy. The state sets go
-    when the engine (or the refinement) returns, the graphs at the thread's
-    next capture. Shards, CPU tensors, BiCGStab(2) and GMRES issue every
-    entry call themselves. Both loops give the same bits."""
+    `engine.capture` span; a later engine call on the same system, a later
+    pass of `solve_shifted_ir`, takes the loop the system keeps, `_loop`)
+    and every later iteration is one replay, issued while the device works
+    through the previous ones. The reads stay outside the graphs; restarts
+    are copied into the state the next replay reads, and the best iterate
+    is a copy. The state sets go with the system, when the public call that
+    built it returns; the graphs at the thread's next capture. Shards, CPU
+    tensors, BiCGStab(2) and GMRES issue every entry call themselves. Both
+    loops give the same bits."""
     if algorithm == "gmres":
         return _gmres(sys_, b, tol, maxiter, early_stop, stats, verbose)
     step = (_fused_step(sys_, krylov_scratch(*sys_.m_legs, factor=sys_.factor)) if fused
@@ -932,7 +884,7 @@ def _engine(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, chunk: int
                         f"{restarts} restart(s)) — likely the rounding floor of {b.dtype}; "
                         + ("" if batch else "wrap in solve_shifted_ir for tighter residuals, ")
                         + "or pass early_stop=False to keep iterating.",
-                        stacklevel=3,
+                        stacklevel=4,
                     )
                     stop = "stall"
                     break
@@ -943,6 +895,43 @@ def _engine(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, chunk: int
     return _finish(sys_, b, x, best_rn2, bnorm2, stats,
                    dict(iters=iters, restarts=restarts, stop=stop,
                         diverge_restarts=div_restarts, chunk_s=chunk_s))
+
+
+def _check(algorithm: str, b: torch.Tensor, batch: bool = False) -> None:
+    """A public solve's `algorithm` and right-hand side: a field or a
+    batch; `batch`, the batched solves' (B, nz, ny, nx) with B >= 1,
+    which have no GMRES."""
+    if algorithm not in (MULTI_ALGORITHMS if batch else ALGORITHMS):
+        raise ValueError(f"unknown algorithm {algorithm!r}")
+    if batch and (b.ndim != 4 or b.shape[0] < 1):
+        raise ValueError(f"bs must be (B, nz, ny, nx) with B >= 1; got {tuple(b.shape)}")
+    if algorithm == "gmres" and b.ndim != 3:
+        raise ValueError("gmres takes one field (nz, ny, nx); the batched solves have no GMRES")
+
+
+def _solve(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, algorithm: str,
+           early_stop: bool, max_restarts: int, max_diverge_restarts: int, stats: dict | None,
+           chunk: int = CHUNK, fused: bool | None = None, verbose: bool = False):
+    """Every solve's way to the engine, in an `engine` span: `_engine` on
+    `sys_` for b, under the caller's rules. Returns (x, the relative
+    residual: a float for a field, the (B,) float64 host tensor for a
+    batch). `fused`, unless the caller says, runs BiCGStab(2) on K3 where
+    K3 can: the Thomas M, the whole field, coefficients of b's dtype and b
+    a single field."""
+    thomas, whole, narrow = sys_.m_legs is not None, sys_.field.whole, sys_.outside is not None
+    if fused is None:
+        fused = algorithm == "bicgstab2" and thomas and whole and not narrow and b.ndim == 3
+    if fused and not thomas:
+        raise ValueError("fused=True needs the tridiag preconditioner (K3 is its Thomas solve)")
+    if fused and narrow:
+        raise ValueError("fused=True needs coefficients of b's dtype (K3 has no bf16 entry)")
+    if fused and not whole:
+        raise ValueError("on a process grid the solve runs unfused (K3 has no halo mode)")
+    with span("engine", algorithm=algorithm, batch=b.shape[0] if b.ndim == 4 else 0):
+        x, res = _engine(sys_, b, tol, maxiter, chunk, algorithm,
+                         fused and algorithm == "bicgstab2", early_stop, max_restarts,
+                         max_diverge_restarts, stats, verbose)
+    return x, (res[0] if b.ndim == 3 else torch.tensor(res, dtype=torch.float64))
 
 
 @traced
@@ -1005,27 +994,11 @@ def solve_shifted_chunked(coeffs: StencilCoeffs, b: torch.Tensor, topology: Grid
       (one all-reduce of the (B,) sums for a batch), and the solve runs
       unfused (K3 has no halo mode). Returns the rank's shard of x and the
       whole field's residual."""
-    if algorithm not in ALGORITHMS:
-        raise ValueError(f"unknown algorithm {algorithm!r}")
-    if algorithm == "gmres" and b.ndim != 3:
-        raise ValueError("gmres takes one field (nz, ny, nx); the batched solves have no GMRES")
-    narrow = _narrow(coeffs, b.dtype)
-    if fused is None:
-        fused = (algorithm == "bicgstab2" and preconditioner == "tridiag" and grid is None
-                 and not narrow)
-    if fused and preconditioner != "tridiag":
-        raise ValueError("fused=True needs the tridiag preconditioner (K3 is its Thomas solve)")
-    if fused and narrow:
-        raise ValueError("fused=True needs coefficients of b's dtype (K3 has no bf16 entry)")
-    if grid is not None and fused:
-        raise ValueError("on a process grid the solve runs unfused (K3 has no halo mode)")
+    _check(algorithm, b)
     sys_ = _system(coeffs, b.dtype, topology, shift, extra_diag, transpose, preconditioner,
                    grid, overlap)
-    with span("engine", algorithm=algorithm, batch=b.shape[0] if b.ndim == 4 else 0):
-        x, res = _engine(sys_, b, tol, maxiter, chunk, algorithm,
-                         fused and algorithm == "bicgstab2", early_stop, max_restarts,
-                         max_diverge_restarts, stats, verbose)
-    return x, (res[0] if b.ndim == 3 else torch.tensor(res, dtype=torch.float64))
+    return _solve(sys_, b, tol, maxiter, algorithm, early_stop, max_restarts,
+                  max_diverge_restarts, stats, chunk, fused, verbose)
 
 
 @traced
@@ -1047,11 +1020,11 @@ def solve_shifted(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopology
     `solve_shifted_chunked` without stall stops or restarts. A solve that
     stops at maxiter is not an error; the residual says so.
     `stats`, if a dict, receives the engine's stats (``iters`` first)."""
-    return solve_shifted_chunked(coeffs, b, topology, shift=shift, extra_diag=extra_diag,
-                                 tol=tol, maxiter=maxiter, transpose=transpose,
-                                 preconditioner=preconditioner, early_stop=False,
-                                 max_restarts=0, algorithm=algorithm, stats=stats,
-                                 max_diverge_restarts=0, grid=grid)
+    _check(algorithm, b)
+    sys_ = _system(coeffs, b.dtype, topology, shift, extra_diag, transpose, preconditioner,
+                   grid)
+    return _solve(sys_, b, tol, maxiter, algorithm, early_stop=False, max_restarts=0,
+                  max_diverge_restarts=0, stats=stats)
 
 
 def implicit_euler_step(coeffs: StencilCoeffs, chi: torch.Tensor, dt: float,
@@ -1082,7 +1055,6 @@ def _ir_defect(field: _Field, c_narrow: StencilCoeffs, x: torch.Tensor,
 
 
 @traced
-@_shared()
 def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopology,
                      shift: float = 0.0, extra_diag: torch.Tensor | None = None,
                      tol: float = 1e-9, inner_tol: float = 1e-4,
@@ -1105,14 +1077,14 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
     inner solves and the f64 defects go through the halo exchange and K7
     (`parallel.solve_halo`). Returns the rank's shard of x.
 
-    `inner_algorithm`: "bicgstab" runs each pass through `solve_shifted`;
-    "bicgstab2" through `solve_shifted_chunked(algorithm="bicgstab2",
-    max_restarts=0)` (the outer loop is the restart), with a pass budget of
-    min(maxiter, 600) matvec pairs unless `inner_maxiter` says otherwise;
-    "gmres" through `solve_shifted_chunked(algorithm="gmres")` (GMRES(30)
-    with its stall stop), with a budget of min(maxiter, 1200) Arnoldi
-    steps, the matvecs of 600 BiCGStab(2) pairs. In the bf16-narrow mode
-    every algorithm keeps f32 vectors.
+    `inner_algorithm`: "bicgstab" runs each pass under `solve_shifted`'s
+    rules (no stall stop, no restarts); "bicgstab2" under
+    `solve_shifted_chunked`'s with max_restarts=0 (the outer loop is the
+    restart), with a pass budget of min(maxiter, 600) matvec pairs unless
+    `inner_maxiter` says otherwise; "gmres" under `solve_shifted_chunked`'s
+    (GMRES(30) with its stall stop), with a budget of min(maxiter, 1200)
+    Arnoldi steps, the matvecs of 600 BiCGStab(2) pairs. In the bf16-narrow
+    mode every algorithm keeps f32 vectors.
 
     The best iterate is kept (narrow) and restored after a pass that left
     the defect more than 1/0.9x the best (or not finite); that reverted
@@ -1125,8 +1097,10 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
     for the contraction still needed, max(inner_tol, 0.5 * tol / rel), at
     most 0.9.
 
-    The passes share one system (the Thomas factor is made once) and, on
-    the card, one graphed BiCGStab(1) loop (`_shared`).
+    The solve builds one system, which its passes and defects share: T'
+    formed once, the Thomas factor made once, one graphed BiCGStab(1) loop
+    on the card (`_System.loops`), and on a process grid one set of halo
+    plans.
 
     `stats`, if a dict, receives ``passes`` (one dict per pass: rel_start,
     reverted, inner_tol, inner_iters, inner_stop, inner_restarts,
@@ -1135,14 +1109,17 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
     clock (`time.time_ns()`, which a clock step moves)."""
     if inner_algorithm not in ALGORITHMS:
         raise ValueError(f"unknown inner_algorithm {inner_algorithm!r}")
-    field, coeffs = _field_for(coeffs, topology, transpose, grid)
     wide = torch.float64
-    narrow = coeffs.diag.dtype
     # bf16-narrow mode (the JAX package's `narrow_vec`): bf16 coefficients
     # stream into the inner matvecs, while b, the Krylov vectors and M stay
     # f32; the f64 defect reads the coefficients widened to f32 (exactly).
-    narrow_vec = torch.float32 if narrow == torch.bfloat16 else narrow
-    c_defect = coeffs.to(narrow_vec)
+    narrow_vec = torch.float32 if coeffs.diag.dtype == torch.bfloat16 else coeffs.diag.dtype
+    sys_ = _system(coeffs, narrow_vec, topology, shift, extra_diag, transpose, preconditioner,
+                   grid)
+    field, c_defect = sys_.field, sys_.coeffs.to(narrow_vec)
+    # a pass's rules: `solve_shifted`'s for BiCGStab(1), else those of
+    # `solve_shifted_chunked` (stall stop, jittered restarts)
+    chunked = inner_algorithm != "bicgstab"
     if inner_maxiter is None:
         inner_maxiter = {"bicgstab2": min(maxiter, 600),
                          "gmres": min(maxiter, 1200)}.get(inner_algorithm, maxiter)
@@ -1199,13 +1176,9 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
             inner = {}
             rhs = r_hat.to(narrow_vec)
             del r_hat
-            kw = dict(shift=shift, extra_diag=extra_diag, tol=pass_tol, maxiter=inner_maxiter,
-                      preconditioner=preconditioner, stats=inner, grid=grid)
-            if inner_algorithm != "bicgstab":
-                d, _ = solve_shifted_chunked(coeffs, rhs, topology, max_restarts=0,
-                                             algorithm=inner_algorithm, **kw)
-            else:
-                d, _ = solve_shifted(coeffs, rhs, topology, **kw)
+            d, _ = _solve(sys_, rhs, tol=pass_tol, maxiter=inner_maxiter,
+                          algorithm=inner_algorithm, early_stop=chunked, max_restarts=0,
+                          max_diverge_restarts=2 if chunked else 0, stats=inner)
             del rhs
             x = x + s_safe * d.to(wide)
             entry.update(inner_tol=pass_tol, inner_iters=inner["iters"],
@@ -1335,16 +1308,11 @@ def solve_shifted_chunked_multi(coeffs: StencilCoeffs, bs: torch.Tensor,
       on the shard's own columns, and each reduction one all-reduce of
       the (B,) partial sums. Returns the rank's shard of xs and the whole
       field's residuals, the same on every rank."""
-    if algorithm not in MULTI_ALGORITHMS:
-        raise ValueError(f"unknown algorithm {algorithm!r}")
-    if bs.ndim != 4 or bs.shape[0] < 1:
-        raise ValueError(f"bs must be (B, nz, ny, nx) with B >= 1; got {tuple(bs.shape)}")
-    return solve_shifted_chunked(coeffs, bs, topology, shift=shift, extra_diag=extra_diag,
-                                 tol=tol, maxiter=maxiter, chunk=chunk, transpose=transpose,
-                                 preconditioner=preconditioner, verbose=verbose,
-                                 early_stop=early_stop, max_restarts=max_restarts,
-                                 algorithm=algorithm, stats=stats, fused=False,
-                                 max_diverge_restarts=max_diverge_restarts, grid=grid)
+    _check(algorithm, bs, batch=True)
+    sys_ = _system(coeffs, bs.dtype, topology, shift, extra_diag, transpose, preconditioner,
+                   grid)
+    return _solve(sys_, bs, tol, maxiter, algorithm, early_stop, max_restarts,
+                  max_diverge_restarts, stats, chunk, verbose=verbose)
 
 
 @traced
@@ -1357,11 +1325,11 @@ def solve_shifted_multi(coeffs: StencilCoeffs, bs: torch.Tensor, topology: GridT
     BiCGStab over all members, the engine without stall stops or
     restarts (`solve_shifted_chunked_multi` documents it, `grid`
     included). Returns (xs, (B,) relative residuals)."""
-    return solve_shifted_chunked_multi(coeffs, bs, topology, shift=shift,
-                                       extra_diag=extra_diag, tol=tol, maxiter=maxiter,
-                                       transpose=transpose, preconditioner=preconditioner,
-                                       early_stop=False, max_restarts=0, algorithm="bicgstab",
-                                       stats=stats, max_diverge_restarts=0, grid=grid)
+    _check("bicgstab", bs, batch=True)
+    sys_ = _system(coeffs, bs.dtype, topology, shift, extra_diag, transpose, preconditioner,
+                   grid)
+    return _solve(sys_, bs, tol, maxiter, "bicgstab", early_stop=False, max_restarts=0,
+                  max_diverge_restarts=0, stats=stats)
 
 
 @traced

@@ -291,18 +291,17 @@ def test_ir_survives_diverging_inner_solve_and_retries_the_revert(T, topo, wet, 
     iterate, and that reverted pass keeps its one retry (it starts no
     better than the pass before it, which would otherwise stop the loop);
     the refinement still converges."""
-    name = "solve_shifted" if inner == "bicgstab" else "solve_shifted_chunked"
-    real = getattr(S, name)
+    real = S._solve
     calls = {"n": 0}
 
-    def sabotaged(coeffs, b, topology, **kw):
+    def sabotaged(sys_, b, **kw):
         calls["n"] += 1
-        x, res = real(coeffs, b, topology, **kw)
+        x, res = real(sys_, b, **kw)
         if calls["n"] == 2:  # the second inner pass returns garbage
             return torch.where(b != 0, 1e6, 0.0).to(b.dtype), 1e6
         return x, res
 
-    monkeypatch.setattr(S, name, sabotaged)
+    monkeypatch.setattr(S, "_solve", sabotaged)
     stats = {}
     x, rel = P.solve_shifted_ir(T.to(torch.float32), wet.float(), topo,
                                 extra_diag=_surf(wet, torch.float32), tol=1e-9,
@@ -360,14 +359,14 @@ def test_ir_stats_per_pass(T, topo, wet, inner):
 def test_ir_dynamic_pass_tolerance(T, topo, wet, monkeypatch):
     """Each pass asks its inner solve for max(inner_tol, 0.5 tol / rel), at
     most 0.9, and records it."""
-    real = S.solve_shifted_chunked
+    real = S._solve
     seen = []
 
-    def recording(coeffs, b, topology, **kw):
+    def recording(sys_, b, **kw):
         seen.append(kw.get("tol"))
-        return real(coeffs, b, topology, **kw)
+        return real(sys_, b, **kw)
 
-    monkeypatch.setattr(S, "solve_shifted_chunked", recording)
+    monkeypatch.setattr(S, "_solve", recording)
     stats = {}
     tol = 1e-9
     _, rel = P.solve_shifted_ir(T.to(torch.float32), wet.float(), topo,

@@ -64,6 +64,9 @@ class _EagerGraph:
 
 
 def _eager_capture(sys_, sets):
+    # A real graph holds no Python object: the stand-in holds the system
+    # without its loops, so the loop it lands in does not hold itself.
+    sys_ = sys_._replace(loops={})
     return [(_EagerGraph(sys_, sets[i], sets[1 - i]), {}) for i in (0, 1)]
 
 
@@ -151,16 +154,16 @@ def _age_extra(wet):
 
 
 def test_a_refinement_captures_once_and_frees_its_loop(case, monkeypatch, graphed_here):
-    """The passes of a refined solve share one system and the graphed loop
-    the first pass captured on it, and give the eager passes' bits; the
-    loop's state sets and the shared system go when the solve returns. Two
+    """The passes of a refined solve share its one system and the graphed
+    loop the first pass captured on it, and give the eager passes' bits;
+    the loop's state sets go with the system when the solve returns. Two
     plain solves capture one loop each."""
     T, topo, wet = case
     b = _b(wet, dtype=torch.float32)
-    systems, sets = [], []
+    systems, sets = [], []  # each capture's system, by its Thomas factor
 
     def capture(sys_, state_sets):
-        systems.append(sys_)
+        systems.append(sys_.factor)  # the system itself would hold its loop
         sets.extend(weakref.ref(t) for st in state_sets for t in st)
         return _eager_capture(sys_, state_sets)
 
@@ -170,7 +173,6 @@ def test_a_refinement_captures_once_and_frees_its_loop(case, monkeypatch, graphe
     x, rel = P.solve_shifted_ir(T.to(torch.float32), b, topo, stats=stats, **kw)
     assert len(stats["passes"]) > 1 and len(systems) == 1
     assert sets and all(ref() is None for ref in sets)
-    assert S._passes.systems is None and S._passes.loops is None
     for _ in range(2):
         P.solve_shifted_chunked(T.to(torch.float32), b, topo, extra_diag=kw["extra_diag"],
                                 tol=1e-6)
@@ -180,20 +182,32 @@ def test_a_refinement_captures_once_and_frees_its_loop(case, monkeypatch, graphe
     assert torch.equal(x, xe) and rel == rel_e
 
 
-def test_passes_share_one_system(case):
-    """Inside `_shared` the same arguments give one system, other tensors
-    another; outside, every call makes its own."""
+@pytest.mark.parametrize("inner_algorithm", ["bicgstab", "bicgstab2"])
+def test_a_refinement_builds_one_system(case, monkeypatch, inner_algorithm):
+    """A refined solve of several passes builds one system and makes one
+    Thomas factor (one K2 factor launch on the card), which every pass and
+    its K3 steps use."""
+    from otmb_tpu_torch.ops import krylov
+
     T, topo, wet = case
-    T32, extra = T.to(torch.float32), _age_extra(wet)
-    with S._shared():
-        one = S._system(T32, torch.float32, topo, extra_diag=extra)
-        assert S._system(T32, torch.float32, topo, extra_diag=extra) is one
-        assert S._system(T32, torch.float32, topo, extra_diag=extra.clone()) is not one
-        assert S._system(T32, torch.float32, topo, shift=1.0, extra_diag=extra) is not one
-        with S._shared():  # nested: the outer scope serves
-            assert S._system(T32, torch.float32, topo, extra_diag=extra) is one
-    assert S._passes.systems is None
-    assert S._system(T32, torch.float32, topo, extra_diag=extra) is not one
+    counts = {"system": 0, "factor": 0}
+
+    def counted(fn, what):
+        def wrapped(*args, **kwargs):
+            counts[what] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(S, "_system", counted(S._system, "system"))
+    factor = counted(S.tridiag_factor, "factor")
+    monkeypatch.setattr(S, "tridiag_factor", factor)
+    monkeypatch.setattr(krylov, "tridiag_factor", factor)
+    stats = {}
+    _, rel = P.solve_shifted_ir(T.to(torch.float32), _b(wet, dtype=torch.float32), topo,
+                                extra_diag=_age_extra(wet), tol=1e-9, stats=stats,
+                                inner_algorithm=inner_algorithm)
+    assert rel <= 1e-9 and len(stats["passes"]) >= 2
+    assert counts == {"system": 1, "factor": 1}
 
 
 def test_best_iterate_outlives_two_replays(case, monkeypatch, graphed_here):

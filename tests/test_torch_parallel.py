@@ -26,6 +26,7 @@ import pytest
 import torch
 
 import otmb_tpu_torch as P
+from otmb_tpu_torch.models import solvers as S
 from otmb_tpu_torch.models.redi import _COEF_FIELDS
 from otmb_tpu_torch.models.solvers import _jitter_rhat
 from otmb_tpu_torch.parallel import (
@@ -43,7 +44,7 @@ from otmb_tpu_torch.parallel import (
     stencil_apply_halo_multi,
     transpose_coeffs_halo,
 )
-from otmb_tpu_torch.parallel.mesh import ProcessGrid, _factor2d
+from otmb_tpu_torch.parallel.mesh import ProcessGrid, _factor2d, all_reduce_sum
 from otmb_tpu_torch.utils.convert import (
     coeffs_from_numpy,
     gridmetrics_from_numpy,
@@ -128,6 +129,26 @@ def _port_objects(data):
 # The ranks.
 
 
+def _builds(grid, fn):
+    """fn() on this rank, with its `_system` and `tridiag_factor` calls
+    counted: (fn's result, [systems, factors] summed over the ranks)."""
+    counts = [0, 0]
+    real = S._system, S.tridiag_factor
+
+    def counted(i):
+        def wrapped(*args, **kwargs):
+            counts[i] += 1
+            return real[i](*args, **kwargs)
+        return wrapped
+
+    S._system, S.tridiag_factor = counted(0), counted(1)
+    try:
+        out = fn()
+    finally:
+        S._system, S.tridiag_factor = real
+    return out, all_reduce_sum(torch.tensor(counts), grid).tolist()
+
+
 def _rank_case(grid, data):
     """The port's sharded path on this rank for one case; gathered results."""
     gm, T, R = _port_objects(data)
@@ -160,11 +181,17 @@ def _rank_case(grid, data):
         out["solve", alg, tr] = (g(x), res, stats["stop"], stats["iters"])
     wet = torch.from_numpy(data["wet"])
     T32 = T.to(torch.float32)
-    age, res = P.ideal_age(sh(T32), sh(wet), topo, tol=1e-9, refine=True, grid=grid)
+    stats = {}
+    (age, res), out["builds", "age"] = _builds(grid, lambda: P.ideal_age(
+        sh(T32), sh(wet), topo, tol=1e-9, refine=True, grid=grid, stats=stats))
     out["age"] = (g(age), res)
-    seq, res = P.sequestration_time(sh(T32), sh(wet), topo, tol=1e-9, refine=True, grid=grid,
-                                    algorithm="bicgstab2")
+    out["passes", "age"] = len(stats["passes"])
+    stats = {}
+    (seq, res), out["builds", "seq"] = _builds(grid, lambda: P.sequestration_time(
+        sh(T32), sh(wet), topo, tol=1e-9, refine=True, grid=grid, algorithm="bicgstab2",
+        stats=stats))
     out["seq"] = (g(seq), res)
+    out["passes", "seq"] = len(stats["passes"])
     out["roundtrip"] = all(torch.equal(gather_field(shard_field(x, grid), grid), x)
                            for x in (chi, chis, wet, gm.lon, gm.lon_vertices, T.east))
     return out
@@ -478,6 +505,18 @@ def test_refined_sequestration(port, cases, kind):
     assert res < 1e-9
     ref, _ = sequestration_time(jx["T"], jx["idx"].wet3d, jx["gm"].topology, tol=1e-11)
     _close(seq[wet], np.asarray(ref)[wet], 1e-3, 1.0, "JAX f64")
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("solve", ["age", "seq"])
+def test_a_sharded_refinement_builds_one_system(port, kind, solve):
+    """A refined solve on a process grid builds one system and one Thomas
+    factor on each rank, which its passes share, and its f64 defects use
+    the same shard field."""
+    shape, out = port
+    ranks = shape[0] * shape[1]
+    assert out[kind]["passes", solve] >= 2
+    assert out[kind]["builds", solve] == [ranks, ranks]
 
 
 def test_shard_and_gather_are_inverses(port):

@@ -64,8 +64,29 @@ def test_a_request_is_one_tree(age):
             assert parent.start_ns <= s.start_ns <= s.end_ns <= parent.end_ns
     count = collections.Counter(s.name for s in spans)
     assert count["solve_shifted_ir"] == 1 and count["ir.pass"] >= 2
-    assert count["solve_shifted"] == count["solve_shifted_chunked"] == count["engine"]
+    # a pass opens `engine` itself, no public solve of its own
+    assert count["solve_shifted"] == count["solve_shifted_chunked"] == 0
+    solved = [s.id for s in spans if s.name == "ir.pass" and "inner_iters" in s.attrs]
+    assert sorted(s.parent for s in spans if s.name == "engine") == sorted(solved)
     assert count["engine.steps"] >= count["engine"] and count["engine.read"] > count["engine"]
+
+
+@pytest.mark.parametrize("name", ["solve_shifted", "solve_shifted_chunked", "solve_shifted_multi",
+                                  "solve_shifted_chunked_multi"])
+def test_a_public_solve_is_one_span_over_one_engine(setup, name):
+    """Each public solve opens its own span once, and `engine` once inside
+    it: none reaches the engine through another public solve."""
+    gm, idx, T, _ = setup
+    b = idx.wet3d.to(T.diag.dtype)
+    tracing.clear()
+    getattr(P, name)(T, torch.stack([b, 2 * b]) if "multi" in name else b, gm.topology,
+                     shift=1e-3, tol=1e-6)
+    spans = tracing.spans()
+    roots = [s for s in spans if s.parent is None]
+    assert [r.name for r in roots] == [name]
+    engines = [s for s in spans if s.name == "engine"]
+    assert len(engines) == 1 and engines[0].parent == roots[0].id
+    assert not any(s.name.startswith("solve_shifted") for s in spans if s is not roots[0])
 
 
 def test_steps_count_the_engine_iterations(age):
