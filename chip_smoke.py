@@ -77,14 +77,13 @@ use, the coarsening's C++ labelling core with g++), then:
      transportmatrix and assemble_T (K4, held against it) -> the Redi
      operator R from the f32 density -> 200 T + R steps, chi <- chi - dt T
      chi + dt R chi, with the f32 R and its bf16 copy: euler_propagate_multi(
-     ..., redi=R) on 8 tracers (K5 + K6's accumulating entry a step, counts
-     reset just before: K5 = K6 multi = steps) and euler_propagate(...,
-     redi=R) on each of them (K1 + K6's accumulating entry: K1 = K6 = steps
-     a tracer), each member equal to its single run and the batch equal to
-     the plain composition stencil._plain + dt redi_apply, bit for bit, with
-     the tracer-mass drift, every batched accumulating launch counted under
-     the member group of 8 (`redi_kernel.batch_groups`), and the bf16 R
-     against the exact apply;
+     ..., redi=R) on 8 tracers (one launch of K6's step mode a step, counts
+     reset just before: K6 multi = steps, K5 = 0) and euler_propagate(...,
+     redi=R) on each of them (K6 = steps a tracer, K1 = 0), each member
+     equal to its single run and the batch equal to the plain composition
+     stencil._plain + dt redi_apply, bit for bit, with the tracer-mass
+     drift, every batched step launch counted under the member group of 8
+     (`redi_kernel.batch_groups`), and the bf16 R against the exact apply;
  15. holds K6 against its plain version in (f64, f64), (f32, f32) and
      (bf16, f32) at 1 degree on both topologies, K6 on a batch of 4 and 8
      against K6 member by member and against plain, and R's invariants
@@ -92,9 +91,13 @@ use, the coarsening's C++ labelling core with g++), then:
      0.25 degrees and 720x540x75, K6 and the batch of 2 in f32;
  16. times K6 and its plain version at 1 and 0.25 degrees, the bf16 K6, K6
      on a batch of B = 1, 2, 4, 8 beside B launches of K6 (with each
-     batch's member group, blocks an SM and chunks of levels), K6's
-     accumulating entry on 8 tracers beside its plain version and a whole
-     T + R step of 8 tracers (K5 + the accumulating entry), holds K6 on one
+     batch's member group, blocks an SM and chunks of levels), the T + R
+     step of 8 tracers alone (K6's step mode) beside its plain version, K5's
+     Euler step plus plain K6 on the batch (two passes) and
+     the step's 0.247 ms bound, and a whole T + R step of 8 tracers through
+     euler_propagate_multi; logs ptxas's registers and spills of the step
+     mode's instantiations at G = 8 (0 spill bytes required in f32); holds
+     K6 on one
      tracer (f32, bf16 coefficients) to K6_SINGLE_MS + 2 % and K9's device
      time to K9_DEVICE_MS + 2 %, and the library
      calls of K1 and K5 (a CSR matrix of T times one vector and times 8);
@@ -182,6 +185,7 @@ kernels with their launch counts, errors and times.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -686,17 +690,36 @@ def reset_launches():
                     for name, prefixes in _build.KERNELS.items()}
 
 
-def reset_acc():
-    """Start counting the calls of K6's accumulating entries here; returns a
+def reset_step():
+    """Start counting the calls of K6's step-mode entries here; returns a
     reader of them since, under "K6" (one tracer) and "K6 multi" (a batch),
     as `_build.KERNELS` counts K6's."""
     from otmb_tpu_torch import _build
     from otmb_tpu_torch.models import redi_kernel
 
-    names = tuple(f"{entry}_acc" for entry in redi_kernel._ENTRY.values())
+    names = tuple(redi_kernel._STEP_ENTRY.values())
     prefixes = {"K6": names, "K6 multi": tuple(f"multi:{n}" for n in names)}
     start = {k: _build.calls(p) for k, p in prefixes.items()}
     return lambda: {k: _build.calls(p) - start[k] for k, p in prefixes.items()}
+
+
+def step_registers() -> dict:
+    """ptxas's lines for the step mode of K6 in f32 at G = 8 (the four
+    (T's legs, R's coefficients) pairs), from the library's build log:
+    {mangled name: "registers ...; stack and spills"}."""
+    from otmb_tpu_torch import _build
+
+    # <C, float, false, 8, Leg> with Leg not void (a repeated type mangles as S<n>_)
+    want = re.compile(r"redi_kernelI(f|13__nv_bfloat16)fLb0ELi8E(?!vE)")
+    out, name, spill = {}, None, ""
+    for line in _build.library_path().with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and want.search(name) and "spill" in line:
+            spill = line.strip()
+        elif name and want.search(name) and "Used" in line:
+            out[name] = f"{line.split(':', 1)[1].strip()}; {spill}"
+    return out
 
 
 def surface_mask(wet: torch.Tensor, dtype) -> torch.Tensor:
@@ -1636,8 +1659,8 @@ def tracer_mass(chi: torch.Tensor, v: torch.Tensor) -> float:
 def phase_density(P, card):
     """The 1-degree density path through the public API, counts reset just
     before and read just after. Returns the f64 grid, indices, the f64 R,
-    the f32 T and R of the path, the launches, and those of K6's
-    accumulating entry among K6's."""
+    the f32 T and R of the path, the launches, and those of K6's step mode
+    among K6's."""
     read = reset_launches()
     t0 = time.perf_counter()
     ds = P.synthetic_dataset(nx=NX, ny=NY, nz=NZ, topology="tripolar", seed=SEED)
@@ -1679,8 +1702,8 @@ def phase_density(P, card):
     del so, ct, s_i, s_j, phi, ops, T_ref, umo, vmo, rho, rho_w
 
     # 200 f32 T + R steps, chi <- chi - dt T chi + dt R chi, through the
-    # public propagations with the f32 R and its bf16 copy: K5 (or K1) and
-    # K6's accumulating entry a step, held to the plain composition
+    # public propagations with the f32 R and its bf16 copy: one launch of
+    # K6's step mode a step, held to the plain composition
     from otmb_tpu_torch.models import redi_kernel
     from otmb_tpu_torch.ops import stencil
 
@@ -1695,35 +1718,35 @@ def phase_density(P, card):
         np.where(wet_np[None], 1.0 + 0.1 * rng.standard_normal((BATCH,) + wet_np.shape), 0.0),
         dtype=torch.float32, device=wet.device)
     t_only = P.euler_propagate_multi(T32, chis0, dt, DENSITY_STEPS, topo)
-    acc = {"K6": 0, "K6 multi": 0}
+    steps_k6 = {"K6": 0, "K6 multi": 0}
     for rname, Rx in (("f32", R32), ("bf16", Rb)):
-        counts, acc_counts = reset_launches(), reset_acc()
+        counts, step_counts = reset_launches(), reset_step()
         redi_kernel.batch_groups.clear()
         t0 = time.perf_counter()
         chis = P.euler_propagate_multi(T32, chis0, dt, DENSITY_STEPS, topo, redi=Rx)
         torch.cuda.synchronize()
         t_multi = time.perf_counter() - t0
-        n, n_acc, groups = counts(), acc_counts(), dict(redi_kernel.batch_groups)
-        require(n["K5"] == n["K6 multi"] == n_acc["K6 multi"] == DENSITY_STEPS
-                and n["K1"] == n["K6"] == 0,
+        n, n_step, groups = counts(), step_counts(), dict(redi_kernel.batch_groups)
+        require(n["K6 multi"] == n_step["K6 multi"] == DENSITY_STEPS
+                and n["K5"] == n["K1"] == n["K6"] == 0,
                 f"euler_propagate_multi(redi={rname} R), {DENSITY_STEPS} steps: launches {n}, "
-                f"accumulating entries {n_acc}")
+                f"step-mode entries {n_step}")
         require(groups == {BATCH: DENSITY_STEPS}, f"euler_propagate_multi(redi={rname} R): "
                 f"batched K6 launches by member group {groups}, expected all "
                 f"{DENSITY_STEPS} in groups of {BATCH}")
-        counts, acc_counts = reset_launches(), reset_acc()
+        counts, step_counts = reset_launches(), reset_step()
         t0 = time.perf_counter()
         singles = [P.euler_propagate(T32, chis0[m], dt, DENSITY_STEPS, topo, redi=Rx)
                    for m in range(BATCH)]
         torch.cuda.synchronize()
         t_single = (time.perf_counter() - t0) / BATCH
-        n1, n1_acc = counts(), acc_counts()
-        require(n1["K1"] == n1["K6"] == n1_acc["K6"] == BATCH * DENSITY_STEPS
-                and n1["K5"] == n1["K6 multi"] == 0,
+        n1, n1_step = counts(), step_counts()
+        require(n1["K6"] == n1_step["K6"] == BATCH * DENSITY_STEPS
+                and n1["K1"] == n1["K5"] == n1["K6 multi"] == 0,
                 f"euler_propagate(redi={rname} R) on {BATCH} tracers, {DENSITY_STEPS} steps: "
-                f"launches {n1}, accumulating entries {n1_acc}")
-        for key in acc:
-            acc[key] += n_acc[key] + n1_acc[key]
+                f"launches {n1}, step-mode entries {n1_step}")
+        for key in steps_k6:
+            steps_k6[key] += n_step[key] + n1_step[key]
         for m in range(BATCH):
             require(torch.equal(chis[m], singles[m]), f"T + R ({rname} R): batched member {m} "
                     f"differs from its euler_propagate run")
@@ -1743,11 +1766,11 @@ def phase_density(P, card):
             require(drift < TOL_MASS_F32, f"T + R mass drift {drift:.3e} >= {TOL_MASS_F32}")
         log(f"[density] {DENSITY_STEPS} T + R steps with the {rname} R at dt = 0.25 / (max|diag "
             f"T| {rate_t:.4e} + redi_max_rate(R) {rate_r:.4e}) = {dt:.6g} s: "
-            f"euler_propagate_multi on {BATCH} f32 tracers {t_multi:.3f} s wall (K5 "
-            f"{n['K5']}, K6's accumulating entry on the batch {n_acc['K6 multi']}, by "
-            f"member group {groups}), "
-            f"euler_propagate {t_single:.3f} s a tracer (K1 {n1['K1']}, accumulating entry "
-            f"{n1_acc['K6']} for {BATCH}); every member equal to its single run and the batch "
+            f"euler_propagate_multi on {BATCH} f32 tracers {t_multi:.3f} s wall (K6's step "
+            f"mode on the batch {n_step['K6 multi']}, K5 {n['K5']}, by member group "
+            f"{groups}), euler_propagate {t_single:.3f} s a tracer (K6's step mode "
+            f"{n1_step['K6']} for {BATCH}, K1 {n1['K1']}); every member equal to its single "
+            f"run and the batch "
             f"to stencil._plain + dt redi_apply bit for bit; worst relative tracer-mass drift "
             f"{drift:.3e}" + (f" (bound {TOL_MASS_F32})" if rname == "f32" else "")
             + f"; max |with R - without R| {moved:.3e}")
@@ -1768,10 +1791,10 @@ def phase_density(P, card):
     del Rb, got, exact, chis0
 
     launches = read()
-    log(f"[launches] density path: {launches}; of K6's, its accumulating entry's: {acc}")
-    for name in ("K1", "K4", "K5", "K6", "K6 multi"):
+    log(f"[launches] density path: {launches}; of K6's, its step mode's: {steps_k6}")
+    for name in ("K4", "K5", "K6", "K6 multi"):
         require(launches[name] > 0, f"{name} was not launched on the density path")
-    return gm, idx, R, T32, R32, launches, acc
+    return gm, idx, R, T32, R32, launches, steps_k6
 
 
 def phase_k6_checks(P, device, cases):
@@ -1823,11 +1846,21 @@ def phase_k6_checks(P, device, cases):
 def phase_k6_times(P, card, R32, wet, T32):
     """CUDA-event times at the density path's shape, f32: K6 and its plain
     version, the bf16 K6 and its plain version, K6 on a batch of B = 1, 2,
-    4, 8 beside B launches of K6, K6's accumulating entry on B = 8 beside
-    its plain version (out + dt redi_apply), and a T + R step of 8 tracers
-    (`euler_propagate_multi(..., redi=R)`: K5 and the accumulating entry)
-    beside T's step alone."""
+    4, 8 beside B launches of K6, the T + R step of 8 tracers alone (K6's
+    step mode) beside its plain version (stencil._plain + dt redi_apply)
+    and beside K5's Euler step plus plain K6 on the batch (two passes) and
+    its bound, a T + R step of 8 tracers through
+    `euler_propagate_multi(..., redi=R)` beside T's step alone; and
+    ptxas's registers and spills of the step mode at G = 8."""
     from otmb_tpu_torch.models import redi_kernel
+    from otmb_tpu_torch.ops import stencil
+
+    regs = step_registers()
+    for name, line in regs.items():
+        log(f"[K6] ptxas, step mode at G = 8, {name}: {line}")
+    require(len(regs) == 4, f"ptxas lines of the step mode's f32 G = 8 instantiations: {regs}")
+    for name, line in regs.items():
+        require("0 bytes spill stores, 0 bytes spill loads" in line, f"{name} spills: {line}")
 
     size = "x".join(map(str, R32.topology.shape3d[::-1]))
     gen = torch.Generator(device=wet.device).manual_seed(SEED + 10)
@@ -1848,8 +1881,8 @@ def phase_k6_times(P, card, R32, wet, T32):
     for nb in (1, 2, 4, BATCH):
         xs = torch.where(wet, torch.randn((nb,) + tuple(wet.shape), generator=gen,
                                           device=wet.device), 0.0)
-        plans = {kind: redi_kernel.plan(R32, xs, True, acc=acc)
-                 for kind, acc in (("K6", False), ("accumulating", True))}
+        plans = {kind: redi_kernel.plan(R32, xs, True, legs=legs)
+                 for kind, legs in (("K6", None), ("step mode", torch.float32))}
         log(f"[K6] B = {nb} at {size} f32: " + "; ".join(
             f"{kind} member group {p['group']}, {p['per_sm']} blocks an SM, {p['chunks']} "
             f"chunks of levels" for kind, p in plans.items()))
@@ -1867,20 +1900,28 @@ def phase_k6_times(P, card, R32, wet, T32):
         del xs
     xs = torch.where(wet, torch.randn((BATCH,) + tuple(wet.shape), generator=gen,
                                       device=wet.device), 0.0)
-    out, topo = torch.zeros_like(xs), R32.topology
+    out, topo = torch.empty_like(xs), R32.topology
     dt = 0.25 / (float(T32.diag.abs().max()) + P.redi_max_rate(R32))
-    times["K6 acc"] = time_pair(lambda: redi_kernel.accumulate(R32, xs, out, dt, True),
-                                lambda: out.add_(dt * P.redi_apply(R32, xs)), 50, 3)
+    times["T + R"] = time_pair(
+        lambda: redi_kernel.step(T32, R32, xs, out, dt, True),
+        lambda: stencil._plain(T32, xs, topo, dt) + dt * P.redi_apply(R32, xs), 50, 3)
+    times["K5"] = cuda_ms(lambda: P.euler_step_multi(T32, xs, dt, topo), 50)
+    two = times["K5"] + times[BATCH]["K6 batch"]
+    bound_ms = ((2 * 4 * BATCH + 7 * 4 + 15 * 4 + 1) * xs[0].numel()
+                + 2 * 4 * xs[0, 0].numel()) / PEAK_BYTES * 1e3
     steps = 10
     step = time_set({"T + R": lambda: P.euler_propagate_multi(T32, xs, dt, steps, topo, redi=R32),
                      "T": lambda: P.euler_propagate_multi(T32, xs, dt, steps, topo)},
                     {"T + R": 5, "T": 5})
     times["T + R step"], times["T step"] = step["T + R"] / steps, step["T"] / steps
-    log(f"[time] K6's accumulating entry (out += dt R chi) at {size} f32, B = {BATCH}: kernel "
-        f"{times['K6 acc'][0]:.4f} ms, plain {times['K6 acc'][1]:.4f} ms per call; a T + R step "
-        f"of {BATCH} tracers (euler_propagate_multi(..., redi=R), K5 + the accumulating entry) "
-        f"{times['T + R step']:.4f} ms, T's step alone (K5) {times['T step']:.4f} ms (CUDA "
-        f"events, {steps} steps a call; card {card})")
+    log(f"[time] the T + R step alone (K6's step mode) at {size} f32, B = {BATCH}: kernel "
+        f"{times['T + R'][0]:.4f} ms, plain {times['T + R'][1]:.4f} ms per call; K5's Euler "
+        f"step {times['K5']:.4f} ms + K6 on the batch {times[BATCH]['K6 batch']:.4f} ms = "
+        f"{two:.4f} ms (two passes, plain K6); bound {bound_ms:.4f} ms (153 bytes a "
+        f"cell at 3.35 TB/s), {100 * bound_ms / times['T + R'][0]:.1f} % of it; a T + R step "
+        f"of {BATCH} tracers (euler_propagate_multi(..., redi=R)) {times['T + R step']:.4f} ms, "
+        f"T's step alone (K5) {times['T step']:.4f} ms (CUDA events, {steps} steps a call; "
+        f"card {card})")
     del Rb, x, xs, out
     return times
 
@@ -2988,7 +3029,7 @@ def main() -> int:
     ds, gm32, idx, T32, launches, mean_age = phase_main_path(P, device, card)
     phase_bf16_age(P, gm32, idx, T32, mean_age)
     # the density path; its f64 grid is also the tripolar grid of the checks
-    gm64, _, R64, dT32, dR32, dlaunches, dacc = phase_density(P, card)
+    gm64, _, R64, dT32, dR32, dlaunches, dstep = phase_density(P, card)
 
     # kernel checks at the main path's shapes, on both topologies
     bnx, bny, bnz = BIPOLAR_SHAPE
@@ -3088,9 +3129,9 @@ def main() -> int:
                 k6_times["K6 bf16"][0]),
                *((f"K6 batch B = {nb}", f"{one} f32", redi_bytes(cells, plane, 4, nb, 4),
                   k6_times[nb]["K6 batch"]) for nb in (1, 2, 4, BATCH)),
-               (f"K6 accumulate B = {BATCH} (K6's bytes and out's read)", f"{one} f32",
-                redi_bytes(cells, plane, 4, BATCH, 4) + BATCH * cells * 4,
-                k6_times["K6 acc"][0]),
+               (f"K6 step mode B = {BATCH} (T's 7 legs, R's fields, each member read and "
+                f"written once)", f"{one} f32", redi_bytes(cells, plane, 4, BATCH, 4)
+                + 7 * cells * 4, k6_times["T + R"][0]),
                (f"T + R step B = {BATCH} (T's 7 legs, R's fields, each member read and "
                 f"written once)", f"{one} f32",
                 redi_bytes(cells, plane, 4, BATCH, 4) + 7 * cells * 4, k6_times["T + R step"]),
@@ -3137,7 +3178,7 @@ def main() -> int:
             f"K9 device {k9_dev:.4f} ms > {K9_DEVICE_MS} ms + 2 %")
     log(f"[launches] K2 (factor and solve) {launches['K2']} on the 1-degree main path, "
         f"{batched['K2']} on the batched path, {qbatched['K2']} in the 0.25-degree batched "
-        f"solve; K6's accumulating entry {dacc['K6']} and on a batch {dacc['K6 multi']} on "
+        f"solve; K6's step mode {dstep['K6']} and on a batch {dstep['K6 multi']} on "
         f"the density path's T + R steps; K6 {k6_launches['K6']} and K6 batch "
         f"{k6_launches['K6 multi']} in the K6 checks; K9 {s_launches('K9')} on the "
         f"{SHARD_GRIDS[0]} sharded path")
@@ -3172,23 +3213,24 @@ def main() -> int:
               "otmb_tpu/ops/stencil_pallas.py:747", batched["K5"] + qbatched["K5"],
               max(k5_worst, k5_err), k5_times[BATCH]["K5"], k5_times[BATCH]["plain"],
               (7 + 2 * BATCH) * cells * 4, 15 * BATCH * cells, library["K5"]),
-        # K6's launches: the density path's, its accumulating entry's apart,
-        # and the K6 checks'
+        # K6's launches: the density path's, its step mode's apart, and the
+        # K6 checks'
         entry("K6 redi_apply_fused", "redi.cu", "otmb_tpu/models/redi_pallas.py:46",
-              dlaunches["K6"] - dacc["K6"] + k6_launches["K6"], k6_worst, *k6_times["K6"],
+              dlaunches["K6"] - dstep["K6"] + k6_launches["K6"], k6_worst, *k6_times["K6"],
               redi_bytes(cells, plane, 4, 1, 4), REDI_FLOPS * cells, None),
         entry("K6 redi_apply_fused_multi", "redi.cu", "otmb_tpu/models/redi_pallas.py:424",
-              dlaunches["K6 multi"] - dacc["K6 multi"] + k6_launches["K6 multi"], k6_worst,
+              dlaunches["K6 multi"] - dstep["K6 multi"] + k6_launches["K6 multi"], k6_worst,
               k6_times[BATCH]["K6 batch"], k6_times[BATCH]["plain"],
               redi_bytes(cells, plane, 4, BATCH, 4), REDI_FLOPS * BATCH * cells, None),
-        # K6's accumulating entry, out += dt R chi, in each T + R step of
+        # K6's step mode, out = chi - dt T chi + dt R chi, each T + R step of
         # euler_propagate(_multi)(..., redi=R): launches of both forms on the
         # density path (held there to the plain composition bit for bit, so
-        # its error is 0); ms and bound on B = 8, K6's bytes and out's read
-        entry("K6 accumulate (euler_propagate*(redi=))", "redi.cu",
-              "otmb_tpu/models/redi_pallas.py:424", dacc["K6"] + dacc["K6 multi"], 0.0,
-              *k6_times["K6 acc"], redi_bytes(cells, plane, 4, BATCH, 4) + BATCH * cells * 4,
-              (REDI_FLOPS + 2) * BATCH * cells, None),
+        # its error is 0); ms and bound on B = 8, K6's bytes and T's legs;
+        # T's sum and the two roundings add 17 operations a member
+        entry("K6 step mode (euler_propagate*(redi=))", "redi.cu",
+              "otmb_tpu/models/redi_pallas.py:424", dstep["K6"] + dstep["K6 multi"], 0.0,
+              *k6_times["T + R"], redi_bytes(cells, plane, 4, BATCH, 4) + 7 * cells * 4,
+              (REDI_FLOPS + 17) * BATCH * cells, None),
         entry("K10 dma_peak_probe", "probe.cu", "otmb_tpu/utils/profiling.py:214", k10_launches,
               k10_err, *k10_times, k10_bytes, 6 * k10_bytes // 32, None),
         # the sharded kernels: launches summed over the (2, 2) grid's four

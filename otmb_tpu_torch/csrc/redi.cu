@@ -1,13 +1,17 @@
 // K6: the Redi isoneutral-diffusion operator, out = R chi, for one tracer
 // (nz, ny, nx) or a batch (B, nz, ny, nx) that shares one read of the
-// coefficients; and K9, K6 on one shard of a process grid (kShard, at the
-// end). Replaces the Pallas kernels of otmb_tpu/models/redi_pallas.py
-// (_redi_kernel, _redi_kernel_blocked, _redi_kernel_multi).
+// coefficients; its step mode, the whole explicit T + R step out = chi -
+// dt T chi + dt R chi in one walk; and K9, K6 on one shard of a process grid
+// (kShard, at the end). Replaces the Pallas kernels of
+// otmb_tpu/models/redi_pallas.py (_redi_kernel, _redi_kernel_blocked,
+// _redi_kernel_multi).
 //
 // Bound on the H100: device-memory bandwidth. Per cell it must read the 15
 // coefficient fields, chi and the wet mask and write out: in f32, 68 bytes
 // and one, against ~111 flops; bf16 coefficients take 38 + 1; each further
-// member 8 bytes (12 in the accumulating entries, which also read out).
+// member 8 bytes. The step mode reads T's 7 legs besides (28 bytes in f32):
+// 153 bytes a cell for 8 f32 tracers, where K5 and then K6 adding into K5's
+// output moved 249.
 //
 // Design: k-marching tiles. A block of 256 threads owns kTJ x kTI = 8 x 32
 // columns of a group of G members, G = 1, 2, 4 or 8 fixed at compile time
@@ -18,31 +22,40 @@
 // parity: the only values other threads read. A thread stages, masks and
 // takes dcz at its own column and, below kRing, at one ring position, so
 // one barrier a step makes them visible. What only its thread reads stays in
-// registers: dcx, dcy and the top flux carried to the next level, and the
-// outputs a step adds to. The west face is lane tx - 1's east face, passed
-// by shuffle (a warp is a row of the tile); the south face, the north face
-// of the row below, is taken again by this row. The steps are branch-free:
-// missing neighbours, levels and members are computed and 0 selected, so
-// the loads of a step issue together.
+// registers: dcx, dcy and the top flux carried to the next level. The west
+// face is lane tx - 1's east face, passed by shuffle (a warp is a row of the
+// tile); the south face, the north face of the row below, is taken again by
+// this row. The steps are branch-free: missing neighbours, levels and
+// members are computed and 0 selected, so the loads of a step issue
+// together.
 //
 // What bounds it is latency. At G = 8 (f32; G = 2 in f64) a thread needs
 // 128 registers, so two blocks (16 warps) share an SM; there the step's
 // coefficients are staged in shared memory a step ahead (kBundle, `staged`)
 // and the 456 tiles of the 1-degree grid fill 264 slots in two chunks of
 // levels (pick_chunks). On an H100 80GB HBM3 at 700 W (scripts/k6_probe.py)
-// the accumulating entry at B = 8 takes 0.488 ms against a 0.254 ms byte
-// bound; its 1,339 instructions a warp and step would issue in about
-// 0.26 ms. The design before this one (a runtime member count, carries in
-// shared memory, two barriers a step) took 0.820 ms there. One tracer
-// (G = 1, four blocks an SM) takes 0.149 ms (0.246 before) and K9 on a
-// 150 x 180 x 50 shard 0.066 ms (0.074), each tile's walk split into chunks
-// where the tiles leave SMs idle.
+// the step mode at B = 8 takes 0.503 ms against the T + R step's 0.247 ms
+// byte bound (K5, 0.197 ms, and then K6 adding dt R chi into its output,
+// 0.483 ms, took 0.680 ms); its 1,657 instructions a warp and step (plain
+// K6 1,261) issue at about the rate plain K6's do, so what bounds it is
+// still latency and issue, not bytes. One tracer (G = 1, four blocks an
+// SM) takes 0.149 ms and K9 on a 150 x 180 x 50 shard 0.066 ms, each
+// tile's walk split into chunks where the tiles leave SMs idle.
 //
-// The accumulating entries (otmb_redi_*_acc) add alpha R chi into `out`
-// instead of writing R chi: the Redi half of an explicit T + R step, after
-// K5 has written chi - dt T chi there (ops/stencil.py, `redi=`). Each output
-// cell is read and written by the one thread that computes it, as
-// out + alpha * (R chi), two roundings as in the plain composition.
+// The step mode (Leg, T's leg type; the entries otmb_redi_<types>_step_<legs>,
+// ops/stencil.py's propagations with `redi=`) writes chi - dt T chi + dt R
+// chi. T's 7-point sum is taken on the levels the walk already holds (the
+// column's levels k - 1, k and k + 1, and level k's four neighbours through
+// the same locate rule as K5's) in K5's order (diag, east, west, north,
+// south, top, bottom), then rounded as K5 writes chi - dt * sum and as the
+// Redi half adds dt * div: the two-launch step's bits, in one launch and
+// one pass over the batch. T reads chi as stored and R reads it masked, so
+// in the step mode chi stays in shared memory as stored (0 where nothing is
+// read), beside it each position's wet bit by level buffer, and R selects 0
+// where the bit is clear: one AND with a mask of the bit (keep), as
+// selects on 14 wet flags a step took 1,838 instructions a warp and step to
+// K6's 1,261 and spent about 200 of them on predicates. T's legs are loaded
+// a step ahead into registers, as K5 loads them.
 //
 // Semantics are those of models/redi.py:redi_apply, the plain version: chi
 // is masked by wet; i is periodic; a missing neighbour (j-1 at the south
@@ -190,10 +203,18 @@ __device__ __forceinline__ bool next_level(int f) {
   return (f >= kAt && f <= kGt) || (f >= kCxe && f <= kCys);
 }
 
+template <typename Leg>
+constexpr size_t kLegBytes = sizeof(Leg);  // T's leg in the step mode
+template <>
+constexpr size_t kLegBytes<void> = 0;
+
 // Blocks an SM the register budget is set for: four for one or two f32
-// members, three for four, two for eight (128 registers) and for f64.
-template <typename V, int G>
-constexpr int kMinBlocks = sizeof(V) == 4 ? (G <= 2 ? 4 : G == 4 ? 3 : 2) : 2;
+// members (three in the step mode, which spilled at 64 registers: one
+// tracer's T + R step 0.2373 -> 0.2344 ms at 1 degree, scripts/k6_probe.py),
+// three for four, two for eight (128 registers) and for f64.
+template <typename V, int G, typename Leg = void>
+constexpr int kMinBlocks =
+    sizeof(V) == 4 ? (G <= 2 ? (kLegBytes<Leg> ? 3 : 4) : G == 4 ? 3 : 2) : 2;
 
 // Where registers hold a block to two an SM and its step carries several
 // members, the step's coefficients are staged (kBundle), if two blocks
@@ -203,15 +224,52 @@ constexpr int kMinBlocks = sizeof(V) == 4 ? (G <= 2 ? 4 : G == 4 ? 3 : 2) : 2;
 // accumulating entry at B = 8, the others plain; scripts/k6_probe.py):
 // f32 G = 8 0.550 -> 0.516 ms, f64 G = 2 0.385 -> 0.347 ms; but f32 G = 1
 // 0.160 -> 0.202, f32 G = 4 0.296 -> 0.309 and f64 G = 1 0.311 -> 0.330 ms.
-template <typename C, typename V, int G>
-constexpr bool staged =
-    sizeof(C) >= 4 && G >= 2 && kMinBlocks<V, G> == 2 &&
-    2 * (6 * G * kPos * sizeof(V) + 2 * kBundle * sizeof(C) + 1024) <= 228 * 1024;
+// The step mode (Leg, the type of T's legs, not void) adds each position's
+// wet bits (kWetBytes) to the walk's shared memory: f32 G = 8 takes 2 x
+// 99,360 bytes of the SM's 233,472 (the 1 KB each block reserves
+// included). T's legs come through registers, a step ahead, as K5 loads
+// them: staged with the coefficients (7 x 256 x 4 bytes by the step's
+// parity, two blocks still fitting) the step took 0.578 ms at B = 8 and 1
+// degree, from registers 0.504 ms (scripts/k6_probe.py, an H100 80GB HBM3
+// at 700 W).
+template <typename Leg>
+struct StepLegs {  // T's legs in K5's order: diag, east, west, north, south, top, bottom
+  const Leg* p[7];
+};
+template <>
+struct StepLegs<void> {};
+constexpr int kWetBytes = (kPos + 15) / 16 * 16;
+template <typename V, int G, typename Leg>
+constexpr size_t kWalkBytes = 6 * G * kPos * sizeof(V) + (kLegBytes<Leg> ? kWetBytes : 0);
 
-// G members at compile time (the last group of a batch may hold fewer, nm).
-template <typename C, typename V, bool kShard, int G, bool kAcc>
-__global__ void __launch_bounds__(kThreads, (kMinBlocks<V, G>))
-redi_kernel(Reader<C, V, kShard> R, V* __restrict__ out, int nmembers, int nchunks, V alpha) {
+template <typename C, typename V, int G, typename Leg = void>
+constexpr bool staged =
+    sizeof(C) >= 4 && G >= 2 && kMinBlocks<V, G, Leg> == 2 &&
+    2 * (kWalkBytes<V, G, Leg> + 2 * kBundle * sizeof(C) + 1024) <= 228 * 1024;
+template <typename C, typename V, int G, typename Leg>
+constexpr size_t kBlockBytes =
+    kWalkBytes<V, G, Leg> + (staged<C, V, G, Leg> ? 2 * kBundle * sizeof(C) : 0);
+
+// The step mode's wet bits, as R reads them: a mask of all ones where bit b
+// of `bits` is set, else 0, and a value through it (itself, or +0), so
+// that R's select is one AND and takes no predicate register.
+__device__ __forceinline__ unsigned keep_mask(unsigned bits, int b) {
+  return 0u - ((bits >> b) & 1u);
+}
+__device__ __forceinline__ float keep(unsigned m, float v) {
+  return __uint_as_float(__float_as_uint(v) & m);
+}
+__device__ __forceinline__ double keep(unsigned m, double v) {
+  const long long m64 = static_cast<int>(m);  // 0 or all ones
+  return __longlong_as_double(__double_as_longlong(v) & m64);
+}
+
+// G members at compile time (the last group of a batch may hold fewer, nm);
+// the step mode with Leg, T's leg type (void: out = R chi).
+template <typename C, typename V, bool kShard, int G, typename Leg>
+__global__ void __launch_bounds__(kThreads, (kMinBlocks<V, G, Leg>))
+redi_kernel(Reader<C, V, kShard> R, V* __restrict__ out, int nmembers, int nchunks, V dt,
+            StepLegs<Leg> T) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nz = R.nz, t = threadIdx.x, tx = t % kTI, ty = t / kTI;
   // a batch's groups of one tile are neighbours in the grid, so they run
@@ -226,11 +284,16 @@ redi_kernel(Reader<C, V, kShard> R, V* __restrict__ out, int nmembers, int nchun
   if (k_lo >= nz) return;
   const long long member = static_cast<long long>(R.plane) * nz;
   // shared: chi [4][G][kPos]; dcz [2][G][kPos] by the parity of the level;
-  // the staged coefficients [2][kBundle] by the step's parity
-  constexpr bool kStaged = staged<C, V, G>;
+  // the staged coefficients [2][kBundle] by the step's parity; in the step
+  // mode the wet bits [kPos], bit b for level buffer b
+  constexpr bool kStep = kLegBytes<Leg> > 0;
+  constexpr bool kStaged = staged<C, V, G, Leg>;
+  using LS = std::conditional_t<kStep, Leg, unsigned char>;  // T's leg as stored
   V* const chi_s = reinterpret_cast<V*>(smem_raw);
   V* const dcz_s = chi_s + 4 * G * kPos;
   C* const coef_s = reinterpret_cast<C*>(dcz_s + 2 * G * kPos);
+  unsigned char* const wet_s =
+      reinterpret_cast<unsigned char*>(coef_s + (kStaged ? 2 * kBundle : 0));
 
   // this thread's column; its two positions, which it stages, masks and
   // takes dcz at: its own, read live or not (a dead column can be a live
@@ -266,9 +329,9 @@ redi_kernel(Reader<C, V, kShard> R, V* __restrict__ out, int nmembers, int nchun
   auto stage_coef = [&](int k) {
     if constexpr (kStaged) {
       C* const b = coef_s + (k & 1) * kBundle;
-      auto put = [&](C* dst, const Loc& L, int f, int slot, int lev) {
-        if (R.has(L, lev)) {
-          cp_async(dst, R.coef_at(L, f, slot, lev));
+      auto put = [&](C* dst, const Loc& at, int f, int slot, int lev) {
+        if (R.has(at, lev)) {
+          cp_async(dst, R.coef_at(at, f, slot, lev));
         } else {
           *dst = C(0);
         }
@@ -310,6 +373,23 @@ redi_kernel(Reader<C, V, kShard> R, V* __restrict__ out, int nmembers, int nchun
     c.an_s = widen(ty > 0 ? b[kAn * kThreads + t - kTI] : b[kSouthAt + tx]);
     c.sn_s = widen(ty > 0 ? b[kSn * kThreads + t - kTI] : b[kSouthAt + kTI + tx]);
   };
+  // the step mode: T's legs at the column, loaded a step ahead into
+  // registers as K5 loads them, widened where used
+  struct Legs {
+    LS v[7];
+  };
+  auto legs_at = [&](int k) {
+    Legs l{};
+    if constexpr (kStep) {
+      if (live && k < k_hi) {
+#pragma unroll
+        for (int q = 0; q < 7; ++q) l.v[q] = T.p[q][k * R.plane + lc.h];
+      }
+    }
+    return l;
+  };
+  Legs next{};
+  if constexpr (kStep) next = legs_at(k_lo);
   auto buf = [](int k) { return (k + 4) & 3; };  // level k's chi buffer (k >= -1)
   auto x = [&](int k, int m, int p) -> V& { return chi_s[(buf(k) * G + m) * kPos + p]; };
   auto stage = [&](int k) {  // level k's chi at this thread's positions, as read
@@ -324,8 +404,23 @@ redi_kernel(Reader<C, V, kShard> R, V* __restrict__ out, int nmembers, int nchun
     }
     cp_async_commit();
   };
-  auto mask = [&](int k, const bool* wet_k) {  // zero dry chi once landed, at the same positions
-    const bool own = !wet_k[0], rim = ring && !wet_k[1];
+  // Once level k has landed at this thread's positions: zero dry chi there;
+  // in the step mode, where T reads chi as stored, zero only where nothing
+  // was staged and record the positions' wet bits for level k's buffer
+  // instead (R reads 0 where clear; set where the value is 0 anyway).
+  unsigned own_bits = 0, rim_bits = 0;  // the step mode's wet bits, by buffer
+  auto mask = [&](int k, const bool* wet_k) {
+    bool own = !wet_k[0], rim = ring && !wet_k[1];
+    if constexpr (kStep) {
+      own = !R.has(lo, k), rim = ring && !R.has(lr, k);
+      const unsigned bit = 1u << buf(k);
+      own_bits = wet_k[0] || own ? own_bits | bit : own_bits & ~bit;
+      wet_s[pc] = static_cast<unsigned char>(own_bits);
+      if (ring) {
+        rim_bits = wet_k[1] || rim ? rim_bits | bit : rim_bits & ~bit;
+        wet_s[pr] = static_cast<unsigned char>(rim_bits);
+      }
+    }
 #pragma unroll 1
     for (int m = 0; m < nm && (own || rim); ++m) {
       if (own) x(k, m, pc) = V(0);
@@ -345,6 +440,8 @@ redi_kernel(Reader<C, V, kShard> R, V* __restrict__ out, int nmembers, int nchun
   // unrolled and branch-free: a group's missing members (m >= nm) compute on
   // whatever their buffers hold and store nothing; where a face or level is
   // missing its value is computed and 0 selected, as the plain version reads.
+  // The step mode adds T's sum on the same levels (its top value read before
+  // the barrier, whose far side stages level k + 3 into that buffer).
   const V zero = V(0), half = V(0.5);
   V dcx[G], dcy[G], ft[G];
 #pragma unroll
@@ -353,6 +450,15 @@ redi_kernel(Reader<C, V, kShard> R, V* __restrict__ out, int nmembers, int nchun
   // keeps G * member below 2^32)
   V* const out_g = out + m0 * member;
   const unsigned member32 = static_cast<unsigned>(member);
+  // R's view of a value read from chi_s: itself, or in the step mode through
+  // its position's mask for its level (keep)
+  auto r_of = [&](unsigned m, V v) -> V {
+    if constexpr (kStep) {
+      return keep(m, v);
+    } else {
+      return v;
+    }
+  };
   auto step = [&](int k, bool first, bool fluxes) {
     Level<V> cur;
     if constexpr (kStaged) {
@@ -362,34 +468,39 @@ redi_kernel(Reader<C, V, kShard> R, V* __restrict__ out, int nmembers, int nchun
     }
     const bool wet2[2] = {R.wet_at(lo, k + 2), R.wet_at(lr, k + 2)};
     const unsigned cell = static_cast<unsigned>(k * R.plane + lc.h);
-    // the accumulating entries read each member's output cell as the step
-    // starts, so the load's latency hides behind the step's work
-    V prior[kAcc ? G : 1];
-    if constexpr (kAcc) {
-#pragma unroll
-      for (int m = 0; m < G; ++m)
-        if (fluxes && live && m < nm) prior[m] = out_g[m * member32 + cell];
-    }
     const V* const xu = chi_s + buf(k - 1) * G * kPos;
     const V* const x0 = chi_s + buf(k) * G * kPos;
     const V* const x1 = chi_s + buf(k + 1) * G * kPos;
     V* const dz = dcz_s + (k & 1) * G * kPos;
+    V xt[kLegBytes<Leg> > 0 ? G : 1];  // T's top values: the column's level k - 1 as stored
+    // the step mode's masks of this thread's positions at levels k - 1, k, k + 1
+    const int bu = buf(k - 1), b0 = buf(k), b1 = buf(k + 1);
+    unsigned mou = 0, mo0 = 0, mo1 = 0, mru = 0, mr0 = 0, mr1 = 0;
+    if constexpr (kStep) {
+      mou = keep_mask(own_bits, bu), mo0 = keep_mask(own_bits, b0);
+      mo1 = keep_mask(own_bits, b1), mru = keep_mask(rim_bits, bu);
+      mr0 = keep_mask(rim_bits, b0), mr1 = keep_mask(rim_bits, b1);
+    }
     if (fluxes) {  // dcz at level k on this thread's positions
 #pragma unroll
       for (int m = 0; m < G; ++m) {
         const int o = m * kPos;
-        const V xo = x0[o + pc];
-        const V d_o = cur.czu[0] * (xu[o + pc] - xo) + cur.czd[0] * (xo - x1[o + pc]);
+        const V xo = r_of(mo0, x0[o + pc]), xuo = xu[o + pc];
+        if constexpr (kStep) xt[m] = xuo;
+        const V d_o =
+            cur.czu[0] * (r_of(mou, xuo) - xo) + cur.czd[0] * (xo - r_of(mo1, x1[o + pc]));
         dz[o + pc] = lo.side < 0 ? zero : d_o;
         if (ring) {
-          const V xr = x0[o + pr];
-          const V d_r = cur.czu[1] * (xu[o + pr] - xr) + cur.czd[1] * (xr - x1[o + pr]);
+          const V xr = r_of(mr0, x0[o + pr]);
+          const V d_r = cur.czu[1] * (r_of(mru, xu[o + pr]) - xr) +
+                        cur.czd[1] * (xr - r_of(mr1, x1[o + pr]));
           dz[o + pr] = lr.side < 0 ? zero : d_r;
         }
       }
     } else if (first) {
       cp_async_wait<2>();  // its coefficients and level k_s + 1
       mask(k_s + 1, wet1);
+      mo1 = kStep ? keep_mask(own_bits, b1) : 0u;  // level k_s + 1's bit, just set
     }
     __syncthreads();
     if constexpr (kStaged) {
@@ -402,29 +513,49 @@ redi_kernel(Reader<C, V, kShard> R, V* __restrict__ out, int nmembers, int nchun
     } else {
       cp_async_commit();
     }
+    // the step mode: the neighbours' masks at levels k and k + 1, and T's
+    // legs at level k
+    unsigned me0 = 0, mw0 = 0, mn0 = 0, ms0 = 0, me1 = 0, mw1 = 0, mn1 = 0, ms1 = 0;
+    V leg[7];
+    if constexpr (kStep) {
+      const unsigned we = wet_s[pe], ww = wet_s[pw], wn = wet_s[pn], ws = wet_s[ps];
+      me0 = keep_mask(we, b0), mw0 = keep_mask(ww, b0), mn0 = keep_mask(wn, b0);
+      ms0 = keep_mask(ws, b0), me1 = keep_mask(we, b1), mw1 = keep_mask(ww, b1);
+      mn1 = keep_mask(wn, b1), ms1 = keep_mask(ws, b1);
+      if (fluxes) {
+        const Legs l = next;
+        next = legs_at(k + 1);  // in flight across this step
+#pragma unroll
+        for (int q = 0; q < 7; ++q) leg[q] = static_cast<V>(widen(l.v[q]));
+      }
+    }
     const bool below = k + 1 < nz;
 #pragma unroll
     for (int m = 0; m < G; ++m) {
       const int o = m * kPos;
-      const V xc = x0[o + pc];
+      const V xc = r_of(mo0, x0[o + pc]);
       // the east and north faces of this cell; its west face is lane tx - 1's
       // east face (lane 0 takes it here), its south face is taken here
       V fe = zero, fw = zero, fn = zero, fs = zero;
       if (fluxes) {
         const V* const d = dz + o;
-        fe = cur.ae * (ide * (x0[o + pe] - xc) + cur.se * (half * (d[pc] + d[pe])));
-        fn = cur.an * (idn * (x0[o + pn] - xc) + cur.sn * (half * (d[pc] + d[pn])));
-        const V f_s = cur.an_s * (idn_s * (xc - x0[o + ps]) + cur.sn_s * (half * (d[ps] + d[pc])));
-        const V f_w = cur.ae_w * (ide_w * (xc - x0[o + pw]) + cur.se_w * (half * (d[pw] + d[pc])));
+        fe = cur.ae * (ide * (r_of(me0, x0[o + pe]) - xc) + cur.se * (half * (d[pc] + d[pe])));
+        fn = cur.an * (idn * (r_of(mn0, x0[o + pn]) - xc) + cur.sn * (half * (d[pc] + d[pn])));
+        const V f_s = cur.an_s * (idn_s * (xc - r_of(ms0, x0[o + ps])) +
+                                  cur.sn_s * (half * (d[ps] + d[pc])));
+        const V f_w = cur.ae_w * (ide_w * (xc - r_of(mw0, x0[o + pw])) +
+                                  cur.se_w * (half * (d[pw] + d[pc])));
         const V f_up = __shfl_up_sync(0xffffffffu, fe, 1);
         fs = has_s ? f_s : zero;
         fw = tx == 0 ? f_w : f_up;
       }
       // dcx, dcy and the top face flux of level k + 1, from the carried
       // dcx, dcy of level k (0 above the surface); none below the floor
-      const V xb = x1[o + pc];
-      const V dcx_b = cur.cxe * (x1[o + pe] - xb) + cur.cxw * (xb - x1[o + pw]);
-      const V dcy_b = cur.cyn * (x1[o + pn] - xb) + cur.cys * (xb - x1[o + ps]);
+      const V xb = r_of(mo1, x1[o + pc]);
+      const V dcx_b =
+          cur.cxe * (r_of(me1, x1[o + pe]) - xb) + cur.cxw * (xb - r_of(mw1, x1[o + pw]));
+      const V dcy_b =
+          cur.cyn * (r_of(mn1, x1[o + pn]) - xb) + cur.cys * (xb - r_of(ms1, x1[o + ps]));
       const V f_b = cur.at * ((cur.sti * (half * (dcx_b + dcx[m])) +
                                cur.stj * (half * (dcy_b + dcy[m]))) +
                               cur.gt * (xc - xb));
@@ -434,8 +565,19 @@ redi_kernel(Reader<C, V, kShard> R, V* __restrict__ out, int nmembers, int nchun
       if (fluxes) {
         const V div = cur.invv * (((((fe - fw) + fn) - fs) + ft[m]) - ft_b);
         V* const o_m = out_g + (m * member32 + cell);
-        if constexpr (kAcc) {
-          if (live && m < nm) *o_m = prior[m] + alpha * div;
+        if constexpr (kStep) {
+          // T's 7-point sum on chi as stored, in K5's order, then K5's
+          // rounding of chi - dt T chi and the rounding of + dt R chi
+          const V xs = x0[o + pc];
+          V acc = leg[0] * xs;
+          acc = acc + leg[1] * x0[o + pe];
+          acc = acc + leg[2] * x0[o + pw];
+          acc = acc + leg[3] * x0[o + pn];
+          acc = acc + leg[4] * x0[o + ps];
+          acc = acc + leg[5] * xt[m];
+          acc = acc + leg[6] * x1[o + pc];
+          const V moved = xs - dt * acc;
+          if (live && m < nm) *o_m = moved + dt * div;
         } else {
           if (live && m < nm) *o_m = div;
         }
@@ -465,21 +607,21 @@ struct RediPlan {
   size_t bytes;
 };
 
-template <typename C, typename V, bool kShard, int G, bool kAcc>
+template <typename C, typename V, bool kShard, int G, typename Leg>
 cudaError_t plan_group(int nmembers, int nz, int ny, int nx, RediPlan* p) {
   p->group = G;
-  p->bytes = 6 * G * kPos * sizeof(V) + (staged<C, V, G> ? 2 * kBundle * sizeof(C) : 0);
+  p->bytes = kBlockBytes<C, V, G, Leg>;
   p->grid = dim3((nx + kTI - 1) / kTI * ((nmembers + G - 1) / G), (ny + kTJ - 1) / kTJ);
   long long slots = 0;
   const cudaError_t err =
-      block_slots(redi_kernel<C, V, kShard, G, kAcc>, kThreads, p->bytes, &slots, &p->per_sm);
+      block_slots(redi_kernel<C, V, kShard, G, Leg>, kThreads, p->bytes, &slots, &p->per_sm);
   if (err != cudaSuccess) return err;
   // a staged walk alone on its SM runs faster than beside another; the
   // others stay bound by their loads' latency (measured: f32 G = 8 in two
   // chunks 0.512 -> 0.488 ms; f32 G = 4 0.290 -> 0.302 ms, f64 G = 4 0.537
   // -> 0.552 ms)
   p->nchunks = pick_chunks(static_cast<long long>(p->grid.x) * p->grid.y * p->grid.z, slots, nz,
-                           staged<C, V, G> ? p->per_sm : 1);
+                           staged<C, V, G, Leg> ? p->per_sm : 1);
   return cudaSuccess;
 }
 
@@ -500,21 +642,22 @@ int with_group(int nmembers, long long cells, F&& f) {
   return f(std::integral_constant<int, 1>{});
 }
 
-template <typename C, typename V, bool kAcc>
+template <typename C, typename V, typename Leg>
 int plan_redi(int nmembers, int nz, int ny, int nx, int* out) {
   RediPlan p{};
   const int err = with_group<V, false>(nmembers, static_cast<long long>(nz) * ny * nx, [&](auto g) {
-    return static_cast<int>(plan_group<C, V, false, decltype(g)::value, kAcc>(nmembers, nz, ny,
-                                                                              nx, &p));
+    return static_cast<int>(
+        plan_group<C, V, false, decltype(g)::value, Leg>(nmembers, nz, ny, nx, &p));
   });
   out[0] = p.group, out[1] = p.per_sm, out[2] = p.nchunks;
   return err;
 }
 
-template <typename C, typename V, bool kShard, bool kAcc = false>
+// K6, K9 (kShard) or, with Leg, the step mode: out = chi - dt T chi + dt R chi.
+template <typename C, typename V, bool kShard, typename Leg = void>
 int launch_redi(const void* const* fields, const void* wet, const void* chi, void* out,
                 int nmembers, int nz, int ny, int nx, int north, RediHalo<C, V> h, void* stream,
-                double alpha = 0.0) {
+                double dt = 0.0, StepLegs<Leg> legs = {}) {
   Reader<C, V, kShard> R{{}, static_cast<const unsigned char*>(wet), static_cast<const V*>(chi),
                          h, ny * nx, nz, ny, nx, north};
   for (int n = 0; n < kRediFields; ++n) R.f[n] = static_cast<const C*>(fields[n]);
@@ -522,16 +665,15 @@ int launch_redi(const void* const* fields, const void* wet, const void* chi, voi
   return with_group<V, kShard>(nmembers, static_cast<long long>(nz) * ny * nx, [&](auto g) {
     constexpr int G = decltype(g)::value;
     RediPlan p{};
-    const cudaError_t err = plan_group<C, V, kShard, G, kAcc>(nmembers, nz, ny, nx, &p);
+    const cudaError_t err = plan_group<C, V, kShard, G, Leg>(nmembers, nz, ny, nx, &p);
     if (err != cudaSuccess) return static_cast<int>(err);
-    redi_kernel<C, V, kShard, G, kAcc>
+    redi_kernel<C, V, kShard, G, Leg>
         <<<dim3(p.grid.x, p.grid.y, p.nchunks), kThreads, p.bytes,
            static_cast<cudaStream_t>(stream)>>>(R, static_cast<V*>(out), nmembers, p.nchunks,
-                                                static_cast<V>(alpha));
+                                                static_cast<V>(dt), legs);
     return static_cast<int>(cudaGetLastError());
   });
 }
-
 // K9: K6 on one shard, one tracer (kShard), its edge neighbours in `lines`
 // (RediHalo's order). Replaces otmb_tpu/parallel/redi_halo.py's
 // _redi_kernel_shard, which receives derived lines. K6 derives everything
@@ -559,17 +701,8 @@ int launch_redi_halo(const void* const* fields, const void* wet, const void* chi
     return otmb::launch_redi<C, V, false>(fields, wet, chi, out, nmembers, nz, ny, nx,         \
                                           tripolar, {}, stream);                               \
   }                                                                                            \
-  OTMB_EXPORT int otmb_redi_##SUFFIX##_acc(const void* const* fields, const void* wet,         \
-                                          const void* chi, void* out, int nmembers, int nz,    \
-                                          int ny, int nx, int tripolar, double alpha,          \
-                                          void* stream) {                                      \
-    return otmb::launch_redi<C, V, false, true>(fields, wet, chi, out, nmembers, nz, ny, nx,   \
-                                                tripolar, {}, stream, alpha);                  \
-  }                                                                                            \
-  OTMB_EXPORT int otmb_redi_plan_##SUFFIX(int nmembers, int nz, int ny, int nx, int acc,     \
-                                          int* plan) {                                         \
-    return acc ? otmb::plan_redi<C, V, true>(nmembers, nz, ny, nx, plan)                       \
-               : otmb::plan_redi<C, V, false>(nmembers, nz, ny, nx, plan);                     \
+  OTMB_EXPORT int otmb_redi_plan_##SUFFIX(int nmembers, int nz, int ny, int nx, int* plan) {   \
+    return otmb::plan_redi<C, V, void>(nmembers, nz, ny, nx, plan);                            \
   }                                                                                            \
   OTMB_EXPORT int otmb_redi_halo_##SUFFIX(const void* const* fields, const void* wet,          \
                                           const void* chi, void* out, const void* const* lines, \
@@ -579,6 +712,29 @@ int launch_redi_halo(const void* const* fields, const void* wet, const void* chi
                                         n_edge, stream);                                       \
   }
 
+// The step mode's entries, one a (T's legs, R's coefficients, values) type
+// triple that the propagations take: named after K6's entry, so that
+// _build.KERNELS counts them as K6's. `legs`: T's 7 legs in K5's order.
+#define OTMB_REDI_STEP_ENTRIES(SUFFIX, C, V, LSUFFIX, L)                                        \
+  OTMB_EXPORT int otmb_redi_##SUFFIX##_step_##LSUFFIX(                                         \
+      const void* const* fields, const void* wet, const void* const* legs, const void* chi,    \
+      void* out, int nmembers, int nz, int ny, int nx, int tripolar, double dt, void* stream) { \
+    otmb::StepLegs<L> T;                                                                       \
+    for (int q = 0; q < 7; ++q) T.p[q] = static_cast<const L*>(legs[q]);                       \
+    return otmb::launch_redi<C, V, false, L>(fields, wet, chi, out, nmembers, nz, ny, nx,      \
+                                             tripolar, {}, stream, dt, T);                     \
+  }                                                                                            \
+  OTMB_EXPORT int otmb_redi_plan_##SUFFIX##_step_##LSUFFIX(int nmembers, int nz, int ny,       \
+                                                          int nx, int* plan) {                 \
+    return otmb::plan_redi<C, V, L>(nmembers, nz, ny, nx, plan);                               \
+  }
+
 OTMB_REDI_ENTRIES(f32_f32, float, float)
 OTMB_REDI_ENTRIES(bf16_f32, __nv_bfloat16, float)
 OTMB_REDI_ENTRIES(f64_f64, double, double)
+OTMB_REDI_STEP_ENTRIES(f32_f32, float, float, f32, float)
+OTMB_REDI_STEP_ENTRIES(f32_f32, float, float, bf16, __nv_bfloat16)
+OTMB_REDI_STEP_ENTRIES(bf16_f32, __nv_bfloat16, float, f32, float)
+OTMB_REDI_STEP_ENTRIES(bf16_f32, __nv_bfloat16, float, bf16, __nv_bfloat16)
+OTMB_REDI_STEP_ENTRIES(f64_f64, double, double, f32, float)
+OTMB_REDI_STEP_ENTRIES(f64_f64, double, double, f64, double)

@@ -22,7 +22,8 @@ chi-independent coefficient fields; `redi_apply` is then a branch-free
 kernel K6 (`models/redi_kernel.py`). The propagations compose it with the
 7-point operator, dchi/dt = -T chi + R chi, as
 `euler_propagate_multi(T, chis, dt, nsteps, topo, redi=R)` (and
-`euler_propagate`): two launches a step on the card (README, quick start).
+`euler_propagate`): one launch of K6's step mode a step on the card (README,
+quick start).
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""K6: the Redi isoneutral-diffusion kernel, for one tracer and a batch.
+"""K6: the Redi isoneutral-diffusion kernel, for one tracer and a batch,
+and the explicit T + R step in one walk.
 
 Replaces `otmb_tpu/models/redi_pallas.py` (`redi_apply_pallas`,
 `redi_apply_pallas_multi`) with one CUDA kernel, `csrc/redi.cu`: a block
@@ -24,10 +25,11 @@ masked by the operator's wet mask inside the kernel.
 A CUDA tensor always goes to the kernel, for every B >= 1, and a failure
 raises. A CPU tensor takes the plain version.
 
-`validate` and `accumulate` (K6's accumulating entry, out += alpha R chi)
-are what `ops.stencil`'s propagations call with `redi=R`: the argument
-checks, and the Redi half of each T + R step added into K5's (or K1's)
-output.
+`validate`, `step_entry` and `step` are what `ops.stencil`'s propagations
+call with `redi=R`: the argument checks, the step entry of a (T's legs, R's
+coefficients, values) type triple, and one T + R step, chi - dt T chi + dt
+R chi, in one launch of K6's step mode (T's 7-point sum inside K6's walk,
+the two-launch step's bits).
 """
 
 from __future__ import annotations
@@ -46,12 +48,19 @@ _ENTRY = {
     (torch.float64, torch.float64): "otmb_redi_f64_f64",
 }
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_ACC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_double, ctypes.c_void_p]
-_PLAN_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_PLAN_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_SHORT = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float64: "f64"}
+#: The step mode's entries by (T's legs, R's coefficients, values): every
+#: triple that `ops.stencil` and `validate` take together.
+_STEP_ENTRY = {(legs, coef, value): f"{entry}_step_{_SHORT[legs]}"
+               for (coef, value), entry in _ENTRY.items()
+               for legs in ((torch.float32, torch.bfloat16) if value == torch.float32
+                            else (torch.float32, torch.float64))}
+_STEP_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_double, ctypes.c_void_p]
 _PLANES = ("inv_de", "inv_dn")
 
 #: Batched launches on the card (`redi_apply_fused_multi` and the batched
-#: accumulating entry) by the member group G the launch took.
+#: T + R step) by the member group G the launch took.
 batch_groups: dict[int, int] = {}
 _plans: dict[tuple, dict[str, int]] = {}
 
@@ -107,26 +116,40 @@ def _args(op: RediOperator, chi: torch.Tensor, out: torch.Tensor, batched: bool)
             int(op.topology.is_tripolar))
 
 
-def plan(op: RediOperator, chi: torch.Tensor, batched: bool, acc: bool = False) -> dict[str, int]:
-    """How K6 launches on `chi`'s card for this operator and batch (the
-    accumulating entry with `acc`): the member group G its kernel was built
-    for ("group"), the blocks an SM holds ("per_sm") and the chunks of
-    levels each tile's walk is split into ("chunks"). The kernel's own rule,
-    asked once per shape."""
+def step_entry(legs: torch.dtype, coef: torch.dtype, value: torch.dtype) -> str:
+    """The step mode's entry for T's legs, R's coefficients and the values
+    in these types; raise TypeError where it has none."""
+    key = (legs, coef, value)
+    if key not in _STEP_ENTRY:
+        raise TypeError(f"redi: no T + R step for (T's legs, R's coefficients, values) = {key}; "
+                        f"supported: {sorted(map(str, _STEP_ENTRY))}")
+    return _STEP_ENTRY[key]
+
+
+def plan(op: RediOperator, chi: torch.Tensor, batched: bool,
+         legs: torch.dtype | None = None) -> dict[str, int]:
+    """How K6 launches on `chi`'s card for this operator and batch (its step
+    mode with T's legs in `legs`, or out = R chi without): the member group
+    G its kernel was built for ("group"), the blocks an SM holds ("per_sm")
+    and the chunks of levels each tile's walk is split into ("chunks"). The
+    kernel's own rule, asked once per shape."""
     nz, ny, nx = op.topology.shape3d
     b = chi.shape[0] if batched else 1
-    key = (op.ae.dtype, chi.dtype, b, nz, ny, nx, acc, chi.device.index)
+    key = (op.ae.dtype, chi.dtype, b, nz, ny, nx, legs, chi.device.index)
     if key not in _plans:
+        entry = (_ENTRY[(op.ae.dtype, chi.dtype)] if legs is None
+                 else step_entry(legs, op.ae.dtype, chi.dtype))
         got = (ctypes.c_int * 3)()
-        _build.query("otmb_redi_plan_" + _ENTRY[(op.ae.dtype, chi.dtype)][len("otmb_redi_"):],
-                     _PLAN_ARGTYPES, chi.device, b, nz, ny, nx, int(acc), ctypes.addressof(got))
+        _build.query("otmb_redi_plan_" + entry[len("otmb_redi_"):], _PLAN_ARGTYPES, chi.device,
+                     b, nz, ny, nx, ctypes.addressof(got))
         _plans[key] = dict(zip(("group", "per_sm", "chunks"), got))
     return _plans[key]
 
 
-def _tally(op: RediOperator, chi: torch.Tensor, batched: bool, acc: bool) -> None:
+def _tally(op: RediOperator, chi: torch.Tensor, batched: bool,
+           legs: torch.dtype | None = None) -> None:
     if batched:
-        g = plan(op, chi, batched, acc)["group"]
+        g = plan(op, chi, batched, legs)["group"]
         batch_groups[g] = batch_groups.get(g, 0) + 1
 
 
@@ -137,19 +160,26 @@ def _run(op: RediOperator, chi: torch.Tensor, batched: bool) -> torch.Tensor:
     out = torch.empty_like(chi)
     _build.launch(_ENTRY[(op.ae.dtype, chi.dtype)], _ARGTYPES, chi.device,
                   *_args(op, chi, out, batched), batch=batched)
-    _tally(op, chi, batched, acc=False)
+    _tally(op, chi, batched)
     return out
 
 
-def accumulate(op: RediOperator, chi: torch.Tensor, out: torch.Tensor, alpha: float,
-               batched: bool) -> None:
-    """out += alpha * R chi on the card in one launch of K6's accumulating
-    entry (named after K6's, with "_acc", so `_build.KERNELS`' K6 and K6
-    multi count it). `validate(op, chi, batched)` is the caller's, and
-    `out` a CUDA tensor like chi that is not chi."""
-    _build.launch(_ENTRY[(op.ae.dtype, chi.dtype)] + "_acc", _ACC_ARGTYPES, chi.device,
-                  *_args(op, chi, out, batched), float(alpha), batch=batched)
-    _tally(op, chi, batched, acc=True)
+def step(legs, op: RediOperator, chi: torch.Tensor, out: torch.Tensor, dt: float,
+         batched: bool) -> None:
+    """out = chi - dt T chi + dt R chi on the card in one launch of K6's
+    step mode, T given by its seven legs in K5's order (diag, east, west,
+    north, south, top, bottom; a `StencilCoeffs`): K5's (K1's) rounding of
+    chi - dt T chi, then + dt R chi rounded, as the two launches gave it.
+    Counted under K6 or, for a batch, K6 multi. The arguments are the
+    caller's to check (`ops.stencil._validate`, `validate`, `step_entry`);
+    `out` is a CUDA tensor like chi that is not chi."""
+    legs = tuple(legs)
+    table = (ctypes.c_void_p * 7)(*(leg.data_ptr() for leg in legs))
+    fields, wet, x, y, *sizes = _args(op, chi, out, batched)
+    _build.launch(step_entry(legs[0].dtype, op.ae.dtype, chi.dtype), _STEP_ARGTYPES,
+                  chi.device, fields, wet, ctypes.cast(table, ctypes.c_void_p), x, y, *sizes,
+                  float(dt), batch=batched)
+    _tally(op, chi, batched, legs[0].dtype)
 
 
 def redi_apply_fused(op: RediOperator, chi: torch.Tensor) -> torch.Tensor:

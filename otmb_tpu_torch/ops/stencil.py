@@ -22,11 +22,13 @@ which broadcasts over a batch. `dt` is a run-time argument of the kernels.
 The propagations take the Redi operator R (`models.redi.build_redi_operator`)
 as `redi=`: each step is then chi <- chi - dt T chi + dt R chi (neutral
 physics: T from the GM-augmented transports, R the isoneutral diffusion).
-On the card a step is two launches, K1 or K5 into the step's buffer and
-K6's accumulating entry adding dt R chi into it; on the CPU, the plain
-versions composed. For that this module depends on `models.redi` and
-`models.redi_kernel` (their public `RediOperator`, `redi_apply`,
-`validate` and `accumulate`), which import nothing of `ops.stencil`.
+On the card a step is one launch, for one tracer and for a batch: K6's
+step mode, which takes T's 7-point sum inside its walk and rounds as K1 or
+K5 and then the Redi half did (the two-launch step's bits); on the CPU,
+the plain versions composed. `redi=None` stays K1/K5. For that this module
+depends on `models.redi` and `models.redi_kernel` (their public
+`RediOperator`, `redi_apply`, `validate`, `step_entry` and `step`), which
+import nothing of `ops.stencil`.
 """
 
 from __future__ import annotations
@@ -120,6 +122,7 @@ def _propagate(coeffs, chi, dt, nsteps, topology, batched, redi=None):
     _validate(coeffs, chi, topology, batched)
     if redi is not None:
         redi_kernel.validate(redi, chi, batched, topology)
+        redi_kernel.step_entry(coeffs.diag.dtype, redi.ae.dtype, chi.dtype)
     if not chi.is_cuda:
         for _ in range(int(nsteps)):
             nxt = _plain(coeffs, chi, topology, dt)
@@ -127,9 +130,11 @@ def _propagate(coeffs, chi, dt, nsteps, topology, batched, redi=None):
         return chi
     buffers = [torch.empty_like(chi), torch.empty_like(chi) if nsteps > 1 else None]
     for step in range(int(nsteps)):
-        out = _launch(coeffs, chi, topology, dt, buffers[step % 2])
-        if redi is not None:
-            redi_kernel.accumulate(redi, chi, out, dt, batched)
+        out = buffers[step % 2]
+        if redi is None:
+            _launch(coeffs, chi, topology, dt, out)
+        else:
+            redi_kernel.step(coeffs, redi, chi, out, dt, batched)
         chi = out
     return chi
 
@@ -138,8 +143,7 @@ def euler_propagate(coeffs: StencilCoeffs, chi: torch.Tensor, dt: float, nsteps:
                     topology: GridTopology, redi: RediOperator | None = None):
     """nsteps of chi - dt * T @ chi; on the card, one launch per step into
     two alternating buffers. With `redi` (a RediOperator on T's grid), each
-    step is chi - dt * T @ chi + dt * R chi: K1, then K6 adding dt R chi
-    into the step's buffer."""
+    step is chi - dt * T @ chi + dt * R chi, one launch of K6's step mode."""
     with span("euler_propagate", redi=redi is not None, steps=int(nsteps)):
         return _propagate(coeffs, chi, dt, nsteps, topology, False, redi)
 
@@ -161,7 +165,8 @@ def euler_propagate_multi(coeffs: StencilCoeffs, chis: torch.Tensor, dt: float, 
                           topology: GridTopology, redi: RediOperator | None = None):
     """nsteps of the batched Euler step (`euler_propagate_pallas_multi`); on
     the card, one K5 launch per step into two alternating buffers. With
-    `redi`, each step adds dt * R chis[b] to every member: K5, then one K6
-    launch for the batch that reads R's coefficients once."""
+    `redi`, each step adds dt * R chis[b] to every member: one launch of
+    K6's step mode a step, which reads T's legs and R's coefficients once
+    for the batch."""
     with span("euler_propagate_multi", redi=redi is not None, steps=int(nsteps)):
         return _propagate(coeffs, chis, dt, nsteps, topology, True, redi)

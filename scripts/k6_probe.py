@@ -1,8 +1,8 @@
 """K6 and K9 on checkouts of the repository: time per call and device time
 at the 1-degree shapes the density path gives them, the batches held to
-their one-tracer runs and the accumulating entry to its plain composition
-bit for bit, each batched launch's plan, and the registers and spills
-ptxas gave each instantiation of the Redi kernel.
+their one-tracer runs and the T + R step to its plain composition bit for
+bit, each batched launch's plan, and the registers and spills ptxas gave
+each instantiation of the Redi kernel.
 
     python3 scripts/k6_probe.py [--order 0,1,1,0] [--quick] [ROOT ...]
 
@@ -12,13 +12,18 @@ copy of the repository with `csrc/redi.cu` edited measures a variant of the
 kernel beside the original in one call; `--order` lists the roots by index
 (the default runs each once). Cases, on the Redi operator of chip_smoke's
 hydrography at 360x300x50 (f32 unless said): K6 on one tracer (f32, bf16
-coefficients, f64), K6 on a batch of B = 2, 4, 8 (f64 at B = 2 and 4), the
-accumulating entry at B = 8 (f32 and bf16 coefficients), a T + R step of 8
-tracers (`euler_propagate_multi(..., redi=R)`, K5 + the accumulating entry)
-and K9 on rank 0's 150x180x50 shard of a (2, 2) grid. "ms" is CUDA events
-over back-to-back calls (median of 5), "device" the Redi kernels' time per
-call under `torch.profiler` (`scripts/ab_redesign.py`'s helpers). One JSON
-line a run, and the card's name and power limit.
+coefficients, f64), K6 on a batch of B = 2, 4, 8 (f64 at B = 2 and 4), K5's
+Euler step at B = 8, the T + R step of 8 tracers alone (K6's step mode,
+`redi_kernel.step`, f32 and bf16 R; a checkout that has no step mode times
+K6's accumulating entry instead), the whole T + R step through
+`euler_propagate_multi(..., redi=R)` (and of 2 tracers) and of one tracer
+through `euler_propagate`, and K9 on rank 0's 150x180x50 shard of a (2, 2) grid.
+"ms" is CUDA events over back-to-back calls (median of 5), "device" each
+case's kernels' time per call under `torch.profiler`
+(`scripts/ab_redesign.py`'s helpers); "bound_ms" is the T + R step's
+compulsory bytes at B = 8 (T's 7 legs, R's 15 fields and 2 planes, the wet
+byte, each tracer read and written once) over 3.35 TB/s. One JSON line a
+run, and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -42,7 +47,8 @@ def _ab():
 
 
 def registers(log: Path) -> dict:
-    """ptxas's register and spill lines for each redi_kernel."""
+    """ptxas's register and spill lines for each redi_kernel, by its
+    demangled name where c++filt is found."""
     out, name, spill = {}, None, ""
     for line in log.read_text().splitlines():
         if "Compiling entry function" in line:
@@ -51,6 +57,12 @@ def registers(log: Path) -> dict:
             spill = line.strip()
         elif name and "redi_kernel" in name and "Used" in line:
             out[name] = f"{line.split(':', 1)[1].strip()}; {spill}"
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(out), capture_output=True,
+                               text=True, check=True).stdout.split("\n")
+        out = {n.split("(")[0]: v for n, v in zip(names, out.values())}
+    except (OSError, subprocess.CalledProcessError):
+        pass
     return out
 
 
@@ -95,25 +107,49 @@ def run_one(root: Path) -> dict:
         for nb in (2, 4):
             b64 = xs[:nb].double()
             timed(f"K6 f64 batch B={nb}", lambda: P.redi_apply_fused_multi(R64, b64), 20)
-    acc = torch.zeros_like(xs)
+    fused = hasattr(redi_kernel, "step")
+    out["mode"] = "one launch" if fused else "two launches"
+    y = torch.empty_like(xs)
     for name, op in (("f32", R),) if QUICK else (("f32", R), ("bf16", Rb)):
-        timed(f"K6 acc B=8 {name}", lambda: redi_kernel.accumulate(op, xs, acc, dt, True), 50)
-        y = xs.clone()
-        redi_kernel.accumulate(op, xs, y, dt, True)
-        out["equal"][f"acc {name}"] = bool(torch.equal(y, xs + dt * P.redi_apply(op, xs)))
+        want = stencil._plain(T, xs, topo, dt) + dt * P.redi_apply(op, xs)
+        if fused:
+            timed(f"T + R alone B=8 {name}", lambda: redi_kernel.step(T, op, xs, y, dt, True), 50)
+            redi_kernel.step(T, op, xs, y, dt, True)
+        else:
+            acc = torch.zeros_like(xs)
+            timed(f"K6 acc B=8 {name}", lambda: redi_kernel.accumulate(op, xs, acc, dt, True),
+                  50)
+            y = stencil._plain(T, xs, topo, dt)
+            redi_kernel.accumulate(op, xs, y, dt, True)
+        out["equal"][f"T + R {name}"] = bool(torch.equal(y, want))
+    ab._timed(out, "K5 B=8", lambda: P.euler_step_multi(T, xs, dt, topo), 50, "stencil_multi")
     steps = 10
     out["ms"]["T + R step B=8"] = S.cuda_ms(
         lambda: P.euler_propagate_multi(T, xs, dt, steps, topo, redi=R), 5) / steps
+    out["device"]["T + R step B=8"] = {
+        k: v / steps for k, v in ab._device(
+            lambda: P.euler_propagate_multi(T, xs, dt, steps, topo, redi=R), 5).items()}
+    out["ms"]["T + R step B=1"] = S.cuda_ms(
+        lambda: P.euler_propagate(T, x, dt, steps, topo, redi=R), 5) / steps
+    out["device"]["T + R step B=1"] = {
+        k: v / steps for k, v in ab._device(
+            lambda: P.euler_propagate(T, x, dt, steps, topo, redi=R), 5).items()}
+    x2 = xs[:2].contiguous()
+    out["ms"]["T + R step B=2"] = S.cuda_ms(
+        lambda: P.euler_propagate_multi(T, x2, dt, steps, topo, redi=R), 5) / steps
     got = P.euler_propagate_multi(T, xs, dt, 2, topo, redi=R)
     want = xs
     for _ in range(2):
         want = stencil._plain(T, want, topo, dt) + dt * P.redi_apply(R, want)
-    out["equal"]["T + R"] = bool(torch.equal(got, want))
+    out["equal"]["T + R propagation"] = bool(torch.equal(got, want))
+    cells, plane = ab.NX * ab.NY * ab.NZ, ab.NX * ab.NY
+    out["bound_ms"] = ((2 * 4 * 8 + 7 * 4 + 15 * 4 + 1) * cells + 2 * 4 * plane) / 3.35e9
     k9, shard = ab._k9_rank0(R, torch.where(wet, x, torch.nan), topo, device)
     timed(f"K9 {shard[0]}x{shard[1]}x{ab.NZ}", k9, 50)
-    if hasattr(redi_kernel, "plan"):
-        for nb in (1, 2, 4, 8):
-            out["plan"][f"B={nb}"] = redi_kernel.plan(R, xs[:nb], True, acc=True)
+    for nb in (1, 2, 4, 8):
+        b = xs[:nb].contiguous()
+        out["plan"][f"B={nb}"] = (redi_kernel.plan(R, b, True, legs=torch.float32) if fused
+                                  else redi_kernel.plan(R, b, True, acc=True))
     out["registers"] = registers(_build.library_path().with_suffix(".log"))
     return out
 

@@ -595,10 +595,10 @@ def _k6_group(nmembers: int, vtype: torch.dtype) -> int:
     return min(1 << (nmembers - 1).bit_length(), 4 if vtype == torch.float64 else 8)
 
 
-def _k6_batch_equals(op, xs, alpha):
-    """K6 on the batch `xs` (one launch, under its group) and its
-    accumulating entry on it, each against the plain version and member by
-    member against one-tracer launches, bit for bit."""
+def _k6_batch_equals(op, xs):
+    """K6 on the batch `xs` (one launch, under its group) against the plain
+    version and member by member against one-tracer launches, bit for
+    bit."""
     from otmb_tpu_torch.models import redi_kernel
 
     nb, group = xs.shape[0], _k6_group(xs.shape[0], xs.dtype)
@@ -609,34 +609,24 @@ def _k6_batch_equals(op, xs, alpha):
     assert redi_kernel.plan(op, xs, True)["group"] == group
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, P.redi_apply(op, xs), rtol=0, atol=0)
-    rng = np.random.default_rng(nb)
-    out0 = torch.as_tensor(rng.standard_normal(tuple(xs.shape)), device=xs.device).to(xs.dtype)
-    acc = out0.clone()
-    redi_kernel.accumulate(op, xs, acc, alpha, True)
-    assert _build.calls(K6_MULTI) == n6 + 2 and tally() == g6 + 2
-    assert redi_kernel.plan(op, xs, True, acc=True)["group"] == group
-    torch.testing.assert_close(acc, out0 + alpha * P.redi_apply(op, xs), rtol=0, atol=0)
     for m in range(nb):
         torch.testing.assert_close(got[m], P.redi_apply_fused(op, xs[m]), rtol=0, atol=0)
-        one = out0[m].clone()
-        redi_kernel.accumulate(op, xs[m], one, alpha, False)
-        torch.testing.assert_close(acc[m], one, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("nmembers", [1, 3, 5, 8, 9, 16])
 @pytest.mark.parametrize("types", list(REDI_TYPES))
 def test_k6_multi_equals_k6_per_member(case, types, nmembers):
-    """K6 and its accumulating entry on a batch (full and ragged member
-    groups, and more than one group) equal one-tracer launches member by
-    member and the plain version, bit for bit; each batched launch is
-    counted under the member group it took."""
+    """K6 on a batch (full and ragged member groups, and more than one
+    group) equals one-tracer launches member by member and the plain
+    version, bit for bit; each batched launch is counted under the member
+    group it took."""
     _, _, idx, _, chi = case
     ctype, vtype = REDI_TYPES[types]
     op = _redi(case).to(ctype)
     rng = np.random.default_rng(9)
     xs = torch.where(idx.wet3d, torch.as_tensor(rng.standard_normal((nmembers,) + chi.shape),
                                                 device=chi.device), torch.nan).to(vtype)
-    _k6_batch_equals(op, xs, 0.25 / P.redi_max_rate(op.to(torch.float64)))
+    _k6_batch_equals(op, xs)
 
 
 def _random_redi(kind, nz, ny, nx, device, seed):
@@ -660,9 +650,9 @@ def test_k6_cut_shapes_equal_plain(device, kind, types, dims):
     """K6 on shapes that cut its 32 x 8 tile on every side (ny = 1, nz of 1
     and 2, i wrapping inside one tile) and its walk into uneven chunks of
     levels (nz = 13), one tracer and B = 1, 3, 4, 5, 8, 9 and 16 (full,
-    ragged and several member groups), with the accumulating entry: bit for
-    bit against the plain version and member by member against one-tracer
-    launches, NaN on land masked."""
+    ragged and several member groups): bit for bit against the plain
+    version and member by member against one-tracer launches, NaN on land
+    masked."""
     ctype, vtype = REDI_TYPES[types]
     nz, ny, nx = dims
     op = _random_redi(kind, nz, ny, nx, device, seed=nz + ny + nx).to(ctype)
@@ -672,7 +662,7 @@ def test_k6_cut_shapes_equal_plain(device, kind, types, dims):
                             device=device).to(vtype)
         x = torch.where(op.wet, x, torch.nan)
         if nb:
-            _k6_batch_equals(op, x, 0.375)
+            _k6_batch_equals(op, x)
             continue
         got = P.redi_apply_fused(op, x)
         assert bool(torch.isfinite(got).all())
@@ -705,8 +695,91 @@ def test_k6_wrapper_raises_on_card(case):
 
 
 # ----------------------------------------------------------------------------
-# T + R steps: euler_propagate(_multi)(..., redi=R), K1 or K5 then K6's
-# accumulating entry a step.
+# T + R steps: euler_propagate(_multi)(..., redi=R), one launch of K6's step
+# mode a step (T's 7-point sum inside K6's walk).
+
+#: (T's legs, R's coefficients, values): every triple the step takes.
+STEP_TYPES = {"f32,f32,f32": (torch.float32, torch.float32, torch.float32),
+              "f32,bf16,f32": (torch.float32, torch.bfloat16, torch.float32),
+              "bf16,f32,f32": (torch.bfloat16, torch.float32, torch.float32),
+              "bf16,bf16,f32": (torch.bfloat16, torch.bfloat16, torch.float32),
+              "f32,f64,f64": (torch.float32, torch.float64, torch.float64),
+              "f64,f64,f64": (torch.float64, torch.float64, torch.float64)}
+
+
+def _step_batches(vtype: torch.dtype) -> tuple[int, ...]:
+    """The batches a step test takes: one tracer (0), then full and ragged
+    member groups."""
+    return (0, 1, 3, 5, 8) if vtype == torch.float32 else (0, 1, 3, 4)
+
+
+def _step_equals(legs, op, xs, dt: float, topo, batched: bool) -> None:
+    """One T + R step of `xs` on the card against the plain step
+    stencil._plain(T, chi, dt) + dt redi_apply(R, chi), bit for bit; one K6
+    (one tracer) or K6 multi (a batch) call and no K5 or K1 call; for a
+    batch, each member against its single run and the launch under its
+    member group."""
+    from otmb_tpu_torch.models import redi_kernel
+
+    before = {name: _build.calls(prefixes) for name, prefixes in
+              (("K1", K1), ("K5", K5), ("K6", K6), ("K6 multi", K6_MULTI))}
+    go = P.euler_propagate_multi if batched else P.euler_propagate
+    got = go(legs, xs, dt, 1, topo, redi=op)
+    calls = {name: _build.calls(prefixes) - before[name] for name, prefixes in
+             (("K1", K1), ("K5", K5), ("K6", K6), ("K6 multi", K6_MULTI))}
+    assert calls == {"K1": 0, "K5": 0, "K6": 0 if batched else 1,
+                     "K6 multi": 1 if batched else 0}, calls
+    torch.testing.assert_close(got, stencil._plain(legs, xs, topo, dt)
+                               + dt * P.redi_apply(op, xs), rtol=0, atol=0)
+    if batched:
+        plan = redi_kernel.plan(op, xs, True, legs=legs.diag.dtype)
+        assert plan["group"] == _k6_group(xs.shape[0], xs.dtype), plan
+        assert plan["group"] < 8 or plan["per_sm"] == 2, plan
+        for m in range(xs.shape[0]):
+            torch.testing.assert_close(got[m], P.euler_propagate(legs, xs[m], dt, 1, topo,
+                                                                 redi=op), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("types", list(STEP_TYPES))
+def test_t_plus_r_step_equals_the_plain_step(case, types):
+    """K6's step mode on the case's T and R, in every type triple, on both
+    topologies: one tracer and B = 1, 3, 5, 8 (f32) or 1, 3, 4 (f64), with a
+    finite nonzero chi on land, which T reads as stored and R as 0."""
+    _, gm, idx, T, _ = case
+    ltype, ctype, vtype = STEP_TYPES[types]
+    legs, op, topo = T.to(ltype), _redi(case).to(ctype), gm.topology
+    dt = _tr_dt(T, _redi(case))
+    rng = np.random.default_rng(17)
+    for nb in _step_batches(vtype):
+        xs = torch.as_tensor(1.0 + rng.standard_normal(((nb,) if nb else ()) + tuple(gm.shape)),
+                             device=gm.v3d.device).to(vtype)
+        assert bool((xs[..., ~idx.wet3d] != 0).all())
+        _step_equals(legs, op, xs, dt, topo, batched=nb > 0)
+
+
+@pytest.mark.parametrize("kind", ["tripolar", "bipolar"])
+@pytest.mark.parametrize("types", list(STEP_TYPES))
+@pytest.mark.parametrize("dims", [(1, 1, 33), (2, 9, 45), (1, 17, 70), (3, 11, 5), (13, 9, 45)])
+def test_t_plus_r_step_cut_shapes_equal_the_plain_step(device, kind, types, dims):
+    """K6's step mode on shapes that cut its 32 x 8 tile on every side and
+    its walk into uneven chunks, with random T legs (nonzero towards dry
+    cells) and a random R and wet mask, chi random on every cell: bit for
+    bit against the plain step, one tracer and B = 1, 3, 5, 8 (f32) or 1,
+    3, 4 (f64)."""
+    from otmb_tpu_torch.grid.topology import GridTopology
+
+    ltype, ctype, vtype = STEP_TYPES[types]
+    nz, ny, nx = dims
+    topo = GridTopology(kind=kind, nx=nx, ny=ny, nz=nz)
+    op = _random_redi(kind, nz, ny, nx, device, seed=nz + ny + nx + 1).to(ctype)
+    rng = np.random.default_rng(nz * ny + nx)
+    legs = StencilCoeffs(*(torch.as_tensor(rng.standard_normal((nz, ny, nx)),
+                                           device=device).to(ltype)
+                           for _ in StencilCoeffs._fields))
+    for nb in _step_batches(vtype):
+        xs = torch.as_tensor(rng.standard_normal(((nb,) if nb else ()) + dims),
+                             device=device).to(vtype)
+        _step_equals(legs, op, xs, 0.125, topo, batched=nb > 0)
 
 
 @pytest.fixture(scope="module")
@@ -733,8 +806,11 @@ def test_t_plus_r_steps_equal_the_eager_path_at_1_degree(one_degree, one_degree_
                                                          nmembers):
     """Three T + R steps at 1 degree on the card (one tracer, B = 1 and 8)
     against the eager composition of the plain versions on the same card,
-    (chi - dt T chi) + dt R chi: K5/K1 and K6 each equal their plain version
-    bit for bit, and the accumulating entry adds in the same two roundings."""
+    (chi - dt T chi) + dt R chi: K6's step mode rounds as K5/K1 and then
+    the Redi half do, bit for bit. In f32 at B = 8 the launch takes a member
+    group of 8, two blocks an SM (T's legs staged with R's coefficients)."""
+    from otmb_tpu_torch.models import redi_kernel
+
     gm, wet, T = one_degree
     c, R, topo = T.to(dtype), one_degree_redi.to(dtype), gm.topology
     dt = _tr_dt(T, one_degree_redi)
@@ -750,13 +826,17 @@ def test_t_plus_r_steps_equal_the_eager_path_at_1_degree(one_degree, one_degree_
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     without = go(c, x0, dt, 3, topo)
     assert float((got - without).abs().max()) > 0  # R moved the tracers
+    if nmembers == 8 and dtype == torch.float32:
+        plan = redi_kernel.plan(R, x0, True, legs=dtype)
+        assert (plan["group"], plan["per_sm"]) == (8, 2), plan
 
 
 @pytest.mark.parametrize("redi", [False, True])
 def test_t_plus_r_step_is_two_launch_path_calls(case, redi):
-    """A step issues one K5 call and, with redi=R, one of K6's accumulating
-    entry (under "K6 multi"), and the device runs those two kernels a step
-    and no elementwise kernel; without R, one K5 call a step as before."""
+    """Without R, a step issues one K5 call as before; with redi=R, where
+    the earlier design issued two launch-path calls a step (K5, then K6
+    adding R chi), it issues one, K6's step mode (under "K6 multi"), and
+    the device runs that one kernel a step and no elementwise kernel."""
     _, gm, idx, T, chi = case
     topo, c = gm.topology, T.to(torch.float32)
     R = _redi(case).to(torch.float32) if redi else None
@@ -766,13 +846,12 @@ def test_t_plus_r_step_is_two_launch_path_calls(case, redi):
     n0, k5, k6 = _build.calls(), _build.calls(K5), _build.calls(K6_MULTI)
     _, events, tries = _cuda_events(
         lambda: P.euler_propagate_multi(c, xs, dt, steps, topo, redi=R))
-    calls = 2 if redi else 1
-    assert _build.calls() - n0 == tries * calls * steps
-    assert _build.calls(K5) - k5 == tries * steps
+    assert _build.calls() - n0 == tries * steps
+    assert _build.calls(K5) - k5 == (0 if redi else tries * steps)
     assert _build.calls(K6_MULTI) - k6 == (tries * steps if redi else 0)
     kernels = sorted({e.name.split("(")[0] for e in events})
-    assert len(events) == calls * steps, kernels
-    assert all("stencil_multi_kernel" in k or "redi_kernel" in k for k in kernels), kernels
+    assert len(events) == steps, kernels
+    assert all(("redi_kernel" if redi else "stencil_multi_kernel") in k for k in kernels), kernels
 
 
 def test_t_plus_r_arguments_are_checked_on_card(case):

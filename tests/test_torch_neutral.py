@@ -12,7 +12,9 @@ On the conftest grids (18x14x6, both topologies), f64, with a seeded
 hydrography (`otmb_bench/hydrography.py`) and the dataset's flow."""
 
 import dataclasses
+import re
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -219,6 +221,51 @@ def test_redi_arguments_are_checked(neutral, t_and_r, case, error, match):
         go, chi = P.euler_propagate_multi, x[None, 1:]
     with pytest.raises(error, match=match):
         go(T, chi, dt, 1, n.topo, redi=redi)
+
+
+def test_every_type_triple_the_checks_take_has_a_step_entry():
+    """Every (T's legs, R's coefficients, values) triple that
+    `stencil._validate` and `redi_kernel.validate` take together names an
+    entry of K6's step mode that csrc/redi.cu defines, one entry a triple."""
+    from otmb_tpu_torch.models import redi_kernel
+    from otmb_tpu_torch.ops import stencil
+
+    src = (Path(P.__file__).parent / "csrc" / "redi.cu").read_text()
+    defined = {f"otmb_redi_{types}_step_{legs}" for types, legs in re.findall(
+        r"^OTMB_REDI_STEP_ENTRIES\((\w+), [\w ]+, [\w ]+, (\w+), ", src, re.M)}
+    triples = [(legs, coef, value) for legs, value in stencil._ENTRY
+               for coef, v in redi_kernel._ENTRY if v == value]
+    names = [redi_kernel.step_entry(*triple) for triple in triples]
+    assert len(triples) == 6 and sorted(names) == sorted(defined)
+
+
+@pytest.mark.parametrize("members", [0, 3])
+def test_a_triple_without_a_step_entry_raises_before_any_step(neutral, t_and_r, monkeypatch,
+                                                              members):
+    """Where K6's step mode has no entry for the triple, the propagation
+    raises TypeError before it steps or launches anything."""
+    from otmb_tpu_torch import _build
+    from otmb_tpu_torch.models import redi_kernel
+    from otmb_tpu_torch.ops import stencil
+
+    n = neutral
+    T, _, R, _, dt = t_and_r
+    monkeypatch.delitem(redi_kernel._STEP_ENTRY, (torch.float64,) * 3)
+
+    def stepped(*args, **kwargs):
+        raise AssertionError("stepped before the check")
+
+    monkeypatch.setattr(stencil, "_plain", stepped)
+    monkeypatch.setattr(stencil, "redi_apply", stepped)
+    x = torch.where(n.wet, 1.0, 0.0).double()
+    chi = torch.stack([x] * members) if members else x
+    go = P.euler_propagate_multi if members else P.euler_propagate
+    calls = _build.calls()
+    with pytest.raises(TypeError, match=r"no T \+ R step"):
+        go(T, chi, dt, 1, n.topo, redi=R)
+    assert _build.calls() == calls
+    with pytest.raises(TypeError, match=r"no T \+ R step"):
+        redi_kernel.step_entry(torch.float16, torch.float32, torch.float32)
 
 
 @pytest.mark.parametrize("given", ["both", "neither"])
