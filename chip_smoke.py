@@ -84,6 +84,15 @@ use, the coarsening's C++ labelling core with g++), then:
      stencil._plain + dt redi_apply, bit for bit, with the tracer-mass
      drift, every batched step launch counted under the member group of 8
      (`redi_kernel.batch_groups`), and the bf16 R against the exact apply;
+     then K6's matvec mode, T chi - R chi, alone on the age's own operators
+     in f32 (the inner solves') and f64 (the defect's): one K6 run and no
+     K1 a call, equal to stencil._plain - redi_apply bit for bit, timed
+     beside its bound (97 B a cell in f32, 193 in f64); then the refined
+     ideal age of T - R (tol 1e-8, f32 T and R, the cell
+     esm1deg.redi-age's request): K1 = 0 inside the solve, K6's f32
+     matvec mode twice an inner iteration and once a pass, its f64 one once
+     a defect, and the largest cell's |(T - R + M) a - 1| in f64 under the
+     cell's limit;
  15. holds K6 against its plain version in (f64, f64), (f32, f32) and
      (bf16, f32) at 1 degree on both topologies, K6 on a batch of 4 and 8
      against K6 member by member and against plain, and R's invariants
@@ -709,8 +718,9 @@ def step_registers() -> dict:
     {mangled name: "registers ...; stack and spills"}."""
     from otmb_tpu_torch import _build
 
-    # <C, float, false, 8, Leg> with Leg not void (a repeated type mangles as S<n>_)
-    want = re.compile(r"redi_kernelI(f|13__nv_bfloat16)fLb0ELi8E(?!vE)")
+    # <C, float, false, 8, Leg, kApply> with Leg not void (it mangles as v; a
+    # repeated type mangles as S<n>_)
+    want = re.compile(r"redi_kernelI(f|13__nv_bfloat16)fLb0ELi8E(?!v)")
     out, name, spill = {}, None, ""
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
@@ -1659,8 +1669,8 @@ def tracer_mass(chi: torch.Tensor, v: torch.Tensor) -> float:
 def phase_density(P, card):
     """The 1-degree density path through the public API, counts reset just
     before and read just after. Returns the f64 grid, indices, the f64 R,
-    the f32 T and R of the path, the launches, and those of K6's step mode
-    among K6's."""
+    the f32 T and R of the path, the launches, those of K6's step mode
+    among K6's, and K6's matvec mode's times and runs (`phase_redi_age`)."""
     read = reset_launches()
     t0 = time.perf_counter()
     ds = P.synthetic_dataset(nx=NX, ny=NY, nz=NZ, topology="tripolar", seed=SEED)
@@ -1789,12 +1799,125 @@ def phase_density(P, card):
         f"(max abs {err:.1e}); against the exact f64 apply max rel {rel_exact:.3e} (bound "
         f"{TOL_REDI_BF16})")
     del Rb, got, exact, chis0
+    matvec = phase_redi_age(P, card, T, R, T32, R32, gm, wet, topo)
 
     launches = read()
-    log(f"[launches] density path: {launches}; of K6's, its step mode's: {steps_k6}")
+    log(f"[launches] density path: {launches}; of K6's, its step mode's: {steps_k6}, its "
+        f"matvec mode's {matvec['runs']}")
     for name in ("K4", "K5", "K6", "K6 multi"):
         require(launches[name] > 0, f"{name} was not launched on the density path")
-    return gm, idx, R, T32, R32, launches, steps_k6
+    return gm, idx, R, T32, R32, launches, steps_k6, matvec
+
+
+REDI_AGE_CELL = Path(__file__).resolve().parent / "otmb_bench" / "workloads" / \
+    "esm1deg.redi-age.json"
+
+
+def phase_redi_age(P, card, T, R, T32, R32, gm, wet, topo) -> dict:
+    """K6's matvec mode alone on the age's own operators, then the refined
+    ideal age of T - R at 1 degree (f32 inner solves, f64 defects).
+
+    The matvec mode, f32 on the inner solves' system (T with the surface
+    restoring in its diagonal, R in f32) and f64 on the defect's copies of
+    them (as `_wide_apply` makes them): one K6 run and no K1 a call, equal
+    to the plain composition stencil._plain - redi_apply bit for bit (and
+    the defect's apply to it in f64), timed (CUDA events and
+    torch.profiler) beside its bound. The age, counts reset just before: no
+    K1; K6's f32 matvec mode twice an inner iteration and once for each
+    pass's final residual, its f64 mode once a defect (the `ir.defect`
+    spans); the largest cell's residual |(T - R + M) a - 1| in f64 (T and R
+    of the f64 density path) under the limit of the cell that times this
+    request. Returns the matvec mode's times by type and its runs here."""
+    from otmb_tpu_torch import _build
+    from otmb_tpu_torch.models import redi_kernel
+    from otmb_tpu_torch.models import solvers as S
+    from otmb_tpu_torch.ops import stencil
+    from otmb_tpu_torch.utils import tracing
+
+    f32, f64 = redi_kernel.APPLY_ENTRIES
+    limit = json.loads(REDI_AGE_CELL.read_text())["limits"]["redi_age_residual"]
+    runs0 = _build.calls(redi_kernel.APPLY_ENTRIES)
+    size = "x".join(map(str, topo.shape3d[::-1]))
+    cells, plane = wet.numel(), wet[0].numel()
+    surf32 = surface_mask(wet, torch.float32)
+    sys32 = S._system(T32, torch.float32, topo, extra_diag=surf32, redi=R32)
+    legs64 = sys32.coeffs.to(torch.float64)
+    legs64 = legs64._replace(diag=0.0 + surf32.double() + legs64.diag)
+    operators = {"f32": (sys32.a, sys32.redi, f32),
+                 "f64": (legs64, sys32.redi.to(torch.float64), f64)}
+    gen = torch.Generator(device=wet.device).manual_seed(SEED + 11)
+    x64 = 1.0 + torch.randn(wet.shape, generator=gen, device=wet.device, dtype=torch.float64)
+    times = {}
+    for tag, (legs, op, name) in operators.items():
+        x = x64.to(legs.diag.dtype)
+        counts, ran = reset_launches(), _build.calls(name)
+        got = S._matvec(legs, op, x, topo)
+        n, ran = counts(), _build.calls(name) - ran
+        require(n["K1"] == 0 and n["K6"] == ran == 1, f"T - R matvec {tag}: launches {n}, "
+                f"{name} {ran}; want one K6 run of it and no K1")
+        plain = lambda: stencil._plain(legs, x, topo, None) - P.redi_apply(op, x)
+        want = plain()
+        require(torch.equal(got, want), f"T - R matvec {tag} at {size}: K6's matvec mode "
+                f"differs from stencil._plain - redi_apply, max abs "
+                f"{float((got - want).abs().max()):.3e}")
+        if tag == "f64":
+            wide = S._wide_apply(sys32, torch.float32, 0.0, surf32)(x)
+            require(torch.equal(wide, got), "the refinement's f64 defect apply differs from "
+                    "K6's f64 matvec mode on the same copies")
+        kernel = lambda: S._matvec(legs, op, x, topo)
+        ms, plain_ms = time_pair(kernel, plain, 50, 3)
+        dev = device_ms(kernel, 20)
+        vb = x.element_size()
+        # K6's bytes (R's 15 fields, 2 planes, the wet mask, chi read and
+        # out written) and T's 7 legs
+        nbytes = redi_bytes(cells, plane, vb, 1, vb) + 7 * cells * vb
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        require(dev >= bound_ms / 1.05, f"T - R matvec {tag}: device {dev:.4f} ms under its "
+                f"bound {bound_ms:.4f} ms: its bytes are counted too high")
+        times[tag] = {"ms": ms, "plain_ms": plain_ms, "device_ms": dev, "bound_ms": bound_ms,
+                      "bytes": nbytes}
+        log(f"[K6] matvec mode {tag} at {size} (T's legs with the surface restoring, R, chi "
+            f"nonzero on land): one K6 run, no K1, equal to stencil._plain - redi_apply bit "
+            f"for bit" + (" and to the refinement's defect apply" if tag == "f64" else "")
+            + f"; {ms:.4f} ms a call (CUDA events), device {dev:.4f} ms (torch.profiler), "
+            f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({nbytes / cells:.0f} B a cell "
+            f"at 3.35 TB/s), {100 * bound_ms / dev:.1f} % of it (card {card})")
+        del x, got, want
+    del sys32, legs64, operators, x64
+    defects0 = sum(s.name == "ir.defect" for s in tracing.spans())
+    counts, m32, m64 = reset_launches(), _build.calls(f32), _build.calls(f64)
+    stats = {}
+    t0 = time.perf_counter()
+    age, res = P.ideal_age(T32, wet, topo, refine=True, tol=1e-8, redi=R32, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n, r32, r64 = counts(), _build.calls(f32) - m32, _build.calls(f64) - m64
+    defects = sum(s.name == "ir.defect" for s in tracing.spans()) - defects0
+    solved = [p for p in stats["passes"] if "inner_iters" in p]
+    iters = sum(p["inner_iters"] for p in solved)
+    log_passes("redi age", stats)
+    require(res <= 1e-8, f"T - R age: relative residual {res:.3e} > 1e-8")
+    require(n["K1"] == 0, f"T - R age: K1 ran inside the solve: {n}")
+    require(r32 == 2 * iters + len(solved) and r64 == defects > 0,
+            f"T - R age: K6's matvec mode f32 {r32} (want 2 x {iters} iterations + "
+            f"{len(solved)} passes), f64 {r64} (want {defects} defects); launches {n}")
+    require(n["K13"] == 5 * iters, f"T - R age: K13 {n['K13']} for {iters} iterations")
+    surf = surface_mask(wet, torch.float64)
+    a = torch.where(wet, age, 0.0)
+    resid = P.apply_stencil(T, a, topo) - P.redi_apply(R, a) + surf * a - wet.double()
+    worst = float(resid.abs().max())
+    require(worst <= limit, f"T - R age: largest cell's |(T - R + M) a - 1| {worst:.3e} > the "
+            f"cell's limit {limit}")
+    without, _ = P.ideal_age(T32, wet, topo, refine=True, tol=1e-8)
+    moved = float(((age - without).abs() / without.abs())[wet].max())
+    log(f"[density] refined age of T - R at tol 1e-8: {wall:.3f} s wall, {iters} inner "
+        f"iterations in {len(solved)} passes, residual {res:.3e}; K6 matvec mode f32 {r32}, "
+        f"f64 {r64} ({defects} defects), K1 {n['K1']}, K2 {n['K2']}, K13 {n['K13']}; mean "
+        f"age {mean_years(age, gm.v3d, wet):.2f} y (without R "
+        f"{mean_years(without, gm.v3d, wet):.2f} y, largest change {moved:.3e}); largest "
+        f"cell's |(T - R + M) a - 1| {worst:.3e} (the cell's limit {limit})")
+    times["runs"] = _build.calls(redi_kernel.APPLY_ENTRIES) - runs0
+    return times
 
 
 def phase_k6_checks(P, device, cases):
@@ -1881,8 +2004,8 @@ def phase_k6_times(P, card, R32, wet, T32):
     for nb in (1, 2, 4, BATCH):
         xs = torch.where(wet, torch.randn((nb,) + tuple(wet.shape), generator=gen,
                                           device=wet.device), 0.0)
-        plans = {kind: redi_kernel.plan(R32, xs, True, legs=legs)
-                 for kind, legs in (("K6", None), ("step mode", torch.float32))}
+        plans = {"K6": redi_kernel.plan(R32, xs, True),
+                 "step mode": redi_kernel.plan(R32, xs, True, "step", torch.float32)}
         log(f"[K6] B = {nb} at {size} f32: " + "; ".join(
             f"{kind} member group {p['group']}, {p['per_sm']} blocks an SM, {p['chunks']} "
             f"chunks of levels" for kind, p in plans.items()))
@@ -3029,7 +3152,7 @@ def main() -> int:
     ds, gm32, idx, T32, launches, mean_age = phase_main_path(P, device, card)
     phase_bf16_age(P, gm32, idx, T32, mean_age)
     # the density path; its f64 grid is also the tripolar grid of the checks
-    gm64, _, R64, dT32, dR32, dlaunches, dstep = phase_density(P, card)
+    gm64, _, R64, dT32, dR32, dlaunches, dstep, dmatvec = phase_density(P, card)
 
     # kernel checks at the main path's shapes, on both topologies
     bnx, bny, bnz = BIPOLAR_SHAPE
@@ -3179,7 +3302,8 @@ def main() -> int:
     log(f"[launches] K2 (factor and solve) {launches['K2']} on the 1-degree main path, "
         f"{batched['K2']} on the batched path, {qbatched['K2']} in the 0.25-degree batched "
         f"solve; K6's step mode {dstep['K6']} and on a batch {dstep['K6 multi']} on "
-        f"the density path's T + R steps; K6 {k6_launches['K6']} and K6 batch "
+        f"the density path's T + R steps, its matvec mode {dmatvec['runs']} in its T - R "
+        f"age and the matvec checks; K6 {k6_launches['K6']} and K6 batch "
         f"{k6_launches['K6 multi']} in the K6 checks; K9 {s_launches('K9')} on the "
         f"{SHARD_GRIDS[0]} sharded path")
 
@@ -3216,7 +3340,8 @@ def main() -> int:
         # K6's launches: the density path's, its step mode's apart, and the
         # K6 checks'
         entry("K6 redi_apply_fused", "redi.cu", "otmb_tpu/models/redi_pallas.py:46",
-              dlaunches["K6"] - dstep["K6"] + k6_launches["K6"], k6_worst, *k6_times["K6"],
+              dlaunches["K6"] - dstep["K6"] - dmatvec["runs"] + k6_launches["K6"], k6_worst,
+              *k6_times["K6"],
               redi_bytes(cells, plane, 4, 1, 4), REDI_FLOPS * cells, None),
         entry("K6 redi_apply_fused_multi", "redi.cu", "otmb_tpu/models/redi_pallas.py:424",
               dlaunches["K6 multi"] - dstep["K6 multi"] + k6_launches["K6 multi"], k6_worst,
@@ -3231,6 +3356,16 @@ def main() -> int:
               "otmb_tpu/models/redi_pallas.py:424", dstep["K6"] + dstep["K6 multi"], 0.0,
               *k6_times["T + R"], redi_bytes(cells, plane, 4, BATCH, 4) + 7 * cells * 4,
               (REDI_FLOPS + 17) * BATCH * cells, None),
+        # K6's matvec mode, out = T chi - R chi, each matvec of a T - R
+        # solve (ideal_age(..., redi=R)): its runs on the density path (the
+        # checks, timings and the refined age; held to the plain
+        # composition bit for bit, so its error is 0); ms and bound in f32
+        # on K6's bytes and T's legs; T's sum and the subtraction add 14
+        # operations
+        entry("K6 matvec mode (ideal_age(redi=))", "redi.cu",
+              "otmb_tpu/models/redi_pallas.py:46", dmatvec["runs"], 0.0,
+              dmatvec["f32"]["ms"], dmatvec["f32"]["plain_ms"], dmatvec["f32"]["bytes"],
+              (REDI_FLOPS + 14) * cells, None),
         entry("K10 dma_peak_probe", "probe.cu", "otmb_tpu/utils/profiling.py:214", k10_launches,
               k10_err, *k10_times, k10_bytes, 6 * k10_bytes // 32, None),
         # the sharded kernels: launches summed over the (2, 2) grid's four

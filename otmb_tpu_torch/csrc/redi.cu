@@ -1,8 +1,9 @@
 // K6: the Redi isoneutral-diffusion operator, out = R chi, for one tracer
 // (nz, ny, nx) or a batch (B, nz, ny, nx) that shares one read of the
 // coefficients; its step mode, the whole explicit T + R step out = chi -
-// dt T chi + dt R chi in one walk; and K9, K6 on one shard of a process grid
-// (kShard, at the end). Replaces the Pallas kernels of
+// dt T chi + dt R chi in one walk; its matvec mode, out = T chi - R chi
+// for one tracer, the steady-state solves' operator; and K9, K6 on one
+// shard of a process grid (kShard, at the end). Replaces the Pallas kernels of
 // otmb_tpu/models/redi_pallas.py (_redi_kernel, _redi_kernel_blocked,
 // _redi_kernel_multi).
 //
@@ -56,6 +57,15 @@
 // selects on 14 wet flags a step took 1,838 instructions a warp and step to
 // K6's 1,261 and spent about 200 of them on predicates. T's legs are loaded
 // a step ahead into registers, as K5 loads them.
+//
+// The matvec mode (kApply, with Leg; one tracer, G = 1; the entries
+// otmb_redi_<types>_apply_<legs>, models/solvers.py's systems with `redi=`)
+// is the step mode's walk with another output: T's 7-point sum as K1 takes
+// it, less R chi, rounded once, acc - div. The step mode cannot give it:
+// with dt = -1 it writes chi + (T - R) chi, and taking chi off again loses
+// (T - R) chi in f32 where chi is an age of 1e9 s and T chi about 10. On an
+// H100 80GB HBM3 at 700 W it takes 0.249 ms at 1 degree in f32 against a
+// 0.157 ms byte bound (97 bytes a cell), and 0.466 ms in f64.
 //
 // Semantics are those of models/redi.py:redi_apply, the plain version: chi
 // is masked by wet; i is periodic; a missing neighbour (j-1 at the south
@@ -265,11 +275,13 @@ __device__ __forceinline__ double keep(unsigned m, double v) {
 }
 
 // G members at compile time (the last group of a batch may hold fewer, nm);
-// the step mode with Leg, T's leg type (void: out = R chi).
-template <typename C, typename V, bool kShard, int G, typename Leg>
+// the step mode with Leg, T's leg type (void: out = R chi), or with kApply
+// the matvec mode.
+template <typename C, typename V, bool kShard, int G, typename Leg, bool kApply = false>
 __global__ void __launch_bounds__(kThreads, (kMinBlocks<V, G, Leg>))
 redi_kernel(Reader<C, V, kShard> R, V* __restrict__ out, int nmembers, int nchunks, V dt,
             StepLegs<Leg> T) {
+  static_assert(!kApply || (kLegBytes<Leg> > 0 && G == 1), "the matvec mode: T's legs, G = 1");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nz = R.nz, t = threadIdx.x, tx = t % kTI, ty = t / kTI;
   // a batch's groups of one tile are neighbours in the grid, so they run
@@ -576,8 +588,12 @@ redi_kernel(Reader<C, V, kShard> R, V* __restrict__ out, int nmembers, int nchun
           acc = acc + leg[4] * x0[o + ps];
           acc = acc + leg[5] * xt[m];
           acc = acc + leg[6] * x1[o + pc];
-          const V moved = xs - dt * acc;
-          if (live && m < nm) *o_m = moved + dt * div;
+          if constexpr (kApply) {
+            if (live && m < nm) *o_m = acc - div;
+          } else {
+            const V moved = xs - dt * acc;
+            if (live && m < nm) *o_m = moved + dt * div;
+          }
         } else {
           if (live && m < nm) *o_m = div;
         }
@@ -607,14 +623,15 @@ struct RediPlan {
   size_t bytes;
 };
 
-template <typename C, typename V, bool kShard, int G, typename Leg>
+template <typename C, typename V, bool kShard, int G, typename Leg, bool kApply>
 cudaError_t plan_group(int nmembers, int nz, int ny, int nx, RediPlan* p) {
   p->group = G;
   p->bytes = kBlockBytes<C, V, G, Leg>;
   p->grid = dim3((nx + kTI - 1) / kTI * ((nmembers + G - 1) / G), (ny + kTJ - 1) / kTJ);
   long long slots = 0;
   const cudaError_t err =
-      block_slots(redi_kernel<C, V, kShard, G, Leg>, kThreads, p->bytes, &slots, &p->per_sm);
+      block_slots(redi_kernel<C, V, kShard, G, Leg, kApply>, kThreads, p->bytes, &slots,
+                  &p->per_sm);
   if (err != cudaSuccess) return err;
   // a staged walk alone on its SM runs faster than beside another; the
   // others stay bound by their loads' latency (measured: f32 G = 8 in two
@@ -628,11 +645,12 @@ cudaError_t plan_group(int nmembers, int nz, int ny, int nx, RediPlan* p) {
 // The member group: the whole batch in one group up to 8 f32 members (4 in
 // f64), rounded up to a power of two; groups of 8 (4) beyond; smaller where
 // G members of nz * ny * nx cells would pass 2^32 (the kernel's offsets
-// within a group). A shard takes one tracer.
-template <typename V, bool kShard, typename F>
+// within a group). A shard and the matvec mode take one tracer (kOne), and
+// build no other group.
+template <typename V, bool kOne, typename F>
 int with_group(int nmembers, long long cells, F&& f) {
   auto fits = [&](int g) { return g * cells < (1LL << 32); };
-  if constexpr (!kShard) {
+  if constexpr (!kOne) {
     if constexpr (sizeof(V) == 4) {
       if (nmembers > 4 && fits(8)) return f(std::integral_constant<int, 8>{});
     }
@@ -642,32 +660,35 @@ int with_group(int nmembers, long long cells, F&& f) {
   return f(std::integral_constant<int, 1>{});
 }
 
-template <typename C, typename V, typename Leg>
+template <typename C, typename V, typename Leg, bool kApply = false>
 int plan_redi(int nmembers, int nz, int ny, int nx, int* out) {
   RediPlan p{};
-  const int err = with_group<V, false>(nmembers, static_cast<long long>(nz) * ny * nx, [&](auto g) {
+  const long long cells = static_cast<long long>(nz) * ny * nx;
+  const int err = with_group<V, kApply>(nmembers, cells, [&](auto g) {
     return static_cast<int>(
-        plan_group<C, V, false, decltype(g)::value, Leg>(nmembers, nz, ny, nx, &p));
+        plan_group<C, V, false, decltype(g)::value, Leg, kApply>(nmembers, nz, ny, nx, &p));
   });
   out[0] = p.group, out[1] = p.per_sm, out[2] = p.nchunks;
   return err;
 }
 
-// K6, K9 (kShard) or, with Leg, the step mode: out = chi - dt T chi + dt R chi.
-template <typename C, typename V, bool kShard, typename Leg = void>
+// K6, K9 (kShard) or, with Leg, the step mode: out = chi - dt T chi + dt R chi;
+// with kApply too, the matvec mode: out = T chi - R chi.
+template <typename C, typename V, bool kShard, typename Leg = void, bool kApply = false>
 int launch_redi(const void* const* fields, const void* wet, const void* chi, void* out,
                 int nmembers, int nz, int ny, int nx, int north, RediHalo<C, V> h, void* stream,
                 double dt = 0.0, StepLegs<Leg> legs = {}) {
   Reader<C, V, kShard> R{{}, static_cast<const unsigned char*>(wet), static_cast<const V*>(chi),
                          h, ny * nx, nz, ny, nx, north};
   for (int n = 0; n < kRediFields; ++n) R.f[n] = static_cast<const C*>(fields[n]);
-  if (static_cast<long long>(nz) * ny * nx >= (1LL << 31)) return cudaErrorInvalidValue;
-  return with_group<V, kShard>(nmembers, static_cast<long long>(nz) * ny * nx, [&](auto g) {
+  const long long cells = static_cast<long long>(nz) * ny * nx;
+  if (cells >= (1LL << 31)) return cudaErrorInvalidValue;
+  return with_group<V, kShard || kApply>(nmembers, cells, [&](auto g) {
     constexpr int G = decltype(g)::value;
     RediPlan p{};
-    const cudaError_t err = plan_group<C, V, kShard, G, Leg>(nmembers, nz, ny, nx, &p);
+    const cudaError_t err = plan_group<C, V, kShard, G, Leg, kApply>(nmembers, nz, ny, nx, &p);
     if (err != cudaSuccess) return static_cast<int>(err);
-    redi_kernel<C, V, kShard, G, Leg>
+    redi_kernel<C, V, kShard, G, Leg, kApply>
         <<<dim3(p.grid.x, p.grid.y, p.nchunks), kThreads, p.bytes,
            static_cast<cudaStream_t>(stream)>>>(R, static_cast<V*>(out), nmembers, p.nchunks,
                                                 static_cast<V>(dt), legs);
@@ -729,6 +750,24 @@ int launch_redi_halo(const void* const* fields, const void* wet, const void* chi
     return otmb::plan_redi<C, V, L>(nmembers, nz, ny, nx, plan);                               \
   }
 
+// The matvec mode's entries, one tracer: out = T chi - R chi, T's 7 legs in
+// K5's order with the system's shift folded into the diagonal. Named after
+// K6's entry, so that _build.KERNELS counts them as K6's: f32 throughout for
+// the inner solves, f64 throughout for the refinement's defects.
+#define OTMB_REDI_APPLY_ENTRIES(SUFFIX, C, V, LSUFFIX, L)                                       \
+  OTMB_EXPORT int otmb_redi_##SUFFIX##_apply_##LSUFFIX(                                        \
+      const void* const* fields, const void* wet, const void* const* legs, const void* chi,    \
+      void* out, int nz, int ny, int nx, int tripolar, void* stream) {                         \
+    otmb::StepLegs<L> T;                                                                       \
+    for (int q = 0; q < 7; ++q) T.p[q] = static_cast<const L*>(legs[q]);                       \
+    return otmb::launch_redi<C, V, false, L, true>(fields, wet, chi, out, 1, nz, ny, nx,       \
+                                                   tripolar, {}, stream, 0.0, T);              \
+  }                                                                                            \
+  OTMB_EXPORT int otmb_redi_plan_##SUFFIX##_apply_##LSUFFIX(int nmembers, int nz, int ny,      \
+                                                           int nx, int* plan) {                \
+    return otmb::plan_redi<C, V, L, true>(nmembers, nz, ny, nx, plan);                         \
+  }
+
 OTMB_REDI_ENTRIES(f32_f32, float, float)
 OTMB_REDI_ENTRIES(bf16_f32, __nv_bfloat16, float)
 OTMB_REDI_ENTRIES(f64_f64, double, double)
@@ -738,3 +777,5 @@ OTMB_REDI_STEP_ENTRIES(bf16_f32, __nv_bfloat16, float, f32, float)
 OTMB_REDI_STEP_ENTRIES(bf16_f32, __nv_bfloat16, float, bf16, __nv_bfloat16)
 OTMB_REDI_STEP_ENTRIES(f64_f64, double, double, f32, float)
 OTMB_REDI_STEP_ENTRIES(f64_f64, double, double, f64, double)
+OTMB_REDI_APPLY_ENTRIES(f32_f32, float, float, f32, float)
+OTMB_REDI_APPLY_ENTRIES(f64_f64, double, double, f64, double)

@@ -216,6 +216,25 @@ def redi_apply(op: RediOperator, chi: torch.Tensor) -> torch.Tensor:
     return op.inv_v * (f_e - nb(f_e, "west") + f_n - nb(f_n, "south") + f_t - nb(f_t, "bottom"))
 
 
+def vertical_legs(op: RediOperator, dtype: torch.dtype | None = None):
+    """R's pure vertical legs: the g_t term of its top-face flux,
+    at g_t (chi_up - chi), as one tridiagonal operator a column,
+
+        (R_v chi)_k = upper_k chi_(k-1) + diag_k chi_k + lower_k chi_(k+1),
+
+    upper = inv_v at g_t of the cell's top face, lower = inv_v at g_t of its
+    bottom face (the top face of the cell below), diag = -(upper + lower);
+    0 where a face touches land or the domain's ends. In `dtype` (the
+    fields' own by default). The steady-state solves' Thomas
+    preconditioner takes them off T's vertical legs (`models.solvers`)."""
+    dtype = dtype or op.at.dtype
+    at, g_t, inv_v = (getattr(op, k).to(dtype) for k in ("at", "g_t", "inv_v"))
+    w = at * g_t
+    upper = inv_v * w
+    lower = inv_v * neighbor_values(w, "bottom", op.topology, fill=0.0)
+    return upper, -(upper + lower), lower
+
+
 def redi_max_rate(op: RediOperator) -> float:
     """A bound on R's infinity norm (1/s), so on its spectral radius:
     max |R chi| <= redi_max_rate(R) * max |chi|. Each face flux is bounded

@@ -1,5 +1,6 @@
 """K6: the Redi isoneutral-diffusion kernel, for one tracer and a batch,
-and the explicit T + R step in one walk.
+the explicit T + R step in one walk, and the steady-state solves' T - R
+matvec in one walk.
 
 Replaces `otmb_tpu/models/redi_pallas.py` (`redi_apply_pallas`,
 `redi_apply_pallas_multi`) with one CUDA kernel, `csrc/redi.cu`: a block
@@ -30,6 +31,13 @@ call with `redi=R`: the argument checks, the step entry of a (T's legs, R's
 coefficients, values) type triple, and one T + R step, chi - dt T chi + dt
 R chi, in one launch of K6's step mode (T's 7-point sum inside K6's walk,
 the two-launch step's bits).
+
+`apply_entry` and `matvec` are what `models.solvers` calls for a system
+with `redi=R`: out = T chi - R chi (T with the system's shift folded into
+its diagonal) in one launch of K6's matvec mode, the step mode's walk
+writing acc - div: the plain composition `apply_stencil(T, chi) -
+redi_apply(R, chi)`, bit for bit. It takes one tracer, in f32 throughout
+(the inner solves) or f64 throughout (the refinement's defects).
 """
 
 from __future__ import annotations
@@ -57,6 +65,12 @@ _STEP_ENTRY = {(legs, coef, value): f"{entry}_step_{_SHORT[legs]}"
                for legs in ((torch.float32, torch.bfloat16) if value == torch.float32
                             else (torch.float32, torch.float64))}
 _STEP_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_double, ctypes.c_void_p]
+#: The matvec mode's entries by (T's legs, R's coefficients, values).
+_APPLY_ENTRY = {(t,) * 3: f"{_ENTRY[(t, t)]}_apply_{_SHORT[t]}"
+                for t in (torch.float32, torch.float64)}
+_APPLY_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+#: The matvec mode's entry names, as `_build.calls` counts their runs.
+APPLY_ENTRIES = tuple(_APPLY_ENTRY.values())
 _PLANES = ("inv_de", "inv_dn")
 
 #: Batched launches on the card (`redi_apply_fused_multi` and the batched
@@ -126,19 +140,36 @@ def step_entry(legs: torch.dtype, coef: torch.dtype, value: torch.dtype) -> str:
     return _STEP_ENTRY[key]
 
 
-def plan(op: RediOperator, chi: torch.Tensor, batched: bool,
+def apply_entry(legs: torch.dtype, coef: torch.dtype, value: torch.dtype) -> str:
+    """The matvec mode's entry for T's legs, R's coefficients and the values
+    in these types; raise TypeError where it has none."""
+    key = (legs, coef, value)
+    if key not in _APPLY_ENTRY:
+        raise TypeError(f"redi: no T - R matvec for (T's legs, R's coefficients, values) = "
+                        f"{key}; supported: {sorted(map(str, _APPLY_ENTRY))}")
+    return _APPLY_ENTRY[key]
+
+
+def plan(op: RediOperator, chi: torch.Tensor, batched: bool, mode: str = "plain",
          legs: torch.dtype | None = None) -> dict[str, int]:
-    """How K6 launches on `chi`'s card for this operator and batch (its step
-    mode with T's legs in `legs`, or out = R chi without): the member group
-    G its kernel was built for ("group"), the blocks an SM holds ("per_sm")
-    and the chunks of levels each tile's walk is split into ("chunks"). The
-    kernel's own rule, asked once per shape."""
+    """How K6 launches on `chi`'s card for this operator and batch: `mode`
+    "plain" (out = R chi), "step" (the step mode, T's legs in `legs`) or
+    "apply" (the matvec mode, one tracer, T's legs in `legs` or chi's
+    dtype). It gives the member group G its kernel was built for
+    ("group"), the blocks an SM holds ("per_sm") and the chunks of levels
+    each tile's walk is split into ("chunks"): the kernel's own rule, asked
+    once per shape."""
+    if mode not in ("plain", "step", "apply"):
+        raise ValueError(f"redi: unknown K6 mode {mode!r}")
+    if mode == "apply" and legs is None:
+        legs = chi.dtype
     nz, ny, nx = op.topology.shape3d
     b = chi.shape[0] if batched else 1
-    key = (op.ae.dtype, chi.dtype, b, nz, ny, nx, legs, chi.device.index)
+    key = (op.ae.dtype, chi.dtype, b, nz, ny, nx, legs, mode, chi.device.index)
     if key not in _plans:
-        entry = (_ENTRY[(op.ae.dtype, chi.dtype)] if legs is None
-                 else step_entry(legs, op.ae.dtype, chi.dtype))
+        entry = (_ENTRY[(op.ae.dtype, chi.dtype)] if mode == "plain"
+                 else step_entry(legs, op.ae.dtype, chi.dtype) if mode == "step"
+                 else apply_entry(legs, op.ae.dtype, chi.dtype))
         got = (ctypes.c_int * 3)()
         _build.query("otmb_redi_plan_" + entry[len("otmb_redi_"):], _PLAN_ARGTYPES, chi.device,
                      b, nz, ny, nx, ctypes.addressof(got))
@@ -146,10 +177,10 @@ def plan(op: RediOperator, chi: torch.Tensor, batched: bool,
     return _plans[key]
 
 
-def _tally(op: RediOperator, chi: torch.Tensor, batched: bool,
+def _tally(op: RediOperator, chi: torch.Tensor, batched: bool, mode: str = "plain",
            legs: torch.dtype | None = None) -> None:
     if batched:
-        g = plan(op, chi, batched, legs)["group"]
+        g = plan(op, chi, batched, mode, legs)["group"]
         batch_groups[g] = batch_groups.get(g, 0) + 1
 
 
@@ -179,7 +210,23 @@ def step(legs, op: RediOperator, chi: torch.Tensor, out: torch.Tensor, dt: float
     _build.launch(step_entry(legs[0].dtype, op.ae.dtype, chi.dtype), _STEP_ARGTYPES,
                   chi.device, fields, wet, ctypes.cast(table, ctypes.c_void_p), x, y, *sizes,
                   float(dt), batch=batched)
-    _tally(op, chi, batched, legs[0].dtype)
+    _tally(op, chi, batched, "step", legs[0].dtype)
+
+
+def matvec(legs, op: RediOperator, chi: torch.Tensor) -> torch.Tensor:
+    """T chi - R chi for one tracer on the card in one launch of K6's matvec
+    mode, T given by its seven legs in K5's order (a `StencilCoeffs`, any
+    shift folded into its diagonal): K1's rounding of T chi, then R chi
+    taken off and rounded once, as the plain composition gives it. Counted
+    under K6. The arguments are the caller's to check (`validate`,
+    `apply_entry`); chi is a CUDA tensor."""
+    legs = tuple(legs)
+    table = (ctypes.c_void_p * 7)(*(leg.data_ptr() for leg in legs))
+    out = torch.empty_like(chi)
+    fields, wet, x, y, _, *sizes = _args(op, chi, out, False)
+    _build.launch(apply_entry(legs[0].dtype, op.ae.dtype, chi.dtype), _APPLY_ARGTYPES,
+                  chi.device, fields, wet, ctypes.cast(table, ctypes.c_void_p), x, y, *sizes)
+    return out
 
 
 def redi_apply_fused(op: RediOperator, chi: torch.Tensor) -> torch.Tensor:

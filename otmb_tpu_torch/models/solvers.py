@@ -35,6 +35,15 @@ when the public call returns (`_capture` says what stays).
 Shards (whose all-reduces cannot be captured), CPU tensors, BiCGStab(2)
 and GMRES issue every entry call eagerly.
 
+With the Redi operator R (`redi=`, `models.redi.build_redi_operator`) a
+field's system is (shift * I + D_extra + T - R) x = b, the neutral
+physics' steady states: on the card each matvec is one launch of K6's
+matvec mode (`models.redi_kernel.matvec`, no K1), the Thomas legs of M are
+T's vertical legs less R's pure vertical ones (`models.redi.vertical_legs`),
+and the refinement's defects apply T - R in f64 through K6's f64 matvec
+mode. The batched solves, the adjoint (T'), shards and K3 do not take R
+yet and say so.
+
 A batch of right-hand sides (B, nz, ny, nx) that share the operator runs
 through the same engine (`solve_shifted_chunked_multi`): the same algebra
 in lockstep, with per-member scalars as (B,) device tensors, the matvec
@@ -71,6 +80,8 @@ from ..ops.stencil import euler_propagate, euler_step, stencil_apply, stencil_ap
 from ..ops.tridiag import tridiag_factor, tridiag_solve_factored
 from ..utils import debugging
 from ..utils.tracing import span, traced
+from . import redi_kernel
+from .redi import RediOperator, redi_apply, vertical_legs
 
 #: Matvec pairs (BiCGStab(1) iterations, half BiCGStab(2) cycles) between
 #: host reads of the residual: the one cadence of every Krylov solve.
@@ -106,13 +117,19 @@ def _guarded(shifted_diag: torch.Tensor) -> torch.Tensor:
     return torch.where(shifted_diag != 0, shifted_diag, 1.0)
 
 
-def _thomas(coeffs: StencilCoeffs, shifted_diag: torch.Tensor):
+def _thomas(coeffs: StencilCoeffs, shifted_diag: torch.Tensor,
+            redi: RediOperator | None = None):
     """The Thomas legs (lower, guarded diagonal, upper) of M = diag(shifted)
-    + T_top + T_bottom, in the shifted diagonal's dtype (bf16 legs widen
+    + T_top + T_bottom, less R's pure vertical legs with `redi`
+    (`vertical_legs`), in the shifted diagonal's dtype (bf16 legs widen
     exactly to f32), and their factor (cp, rden): one K2 factor launch."""
-    diag = _guarded(shifted_diag)
+    dtype = shifted_diag.dtype
     # lower = bottom couples to k+1, upper = top to k-1
-    legs = (coeffs.bottom.to(diag.dtype), diag, coeffs.top.to(diag.dtype))
+    lower, upper = coeffs.bottom.to(dtype), coeffs.top.to(dtype)
+    if redi is not None:
+        r_upper, r_diag, r_lower = vertical_legs(redi, dtype)
+        lower, shifted_diag, upper = lower - r_lower, shifted_diag - r_diag, upper - r_upper
+    legs = (lower, _guarded(shifted_diag), upper)
     return legs, tridiag_factor(*legs)
 
 
@@ -180,8 +197,9 @@ def _whole_field(topology: GridTopology) -> _Field:
 
 
 class _System(NamedTuple):
-    """One shifted system (shift * I + D_extra + A) x = b in the engine's
-    form: `a` is A with shift + extra folded into its diagonal, `M` the
+    """One shifted system (shift * I + D_extra + A - R) x = b in the
+    engine's form: `a` is A with shift + extra folded into its diagonal,
+    `redi` the Redi operator R in the system's types or None, `M` the
     preconditioner, `m_legs` the Thomas legs (lower, guarded diagonal,
     upper) and `factor` their (cp, rden) when M is the tridiagonal one,
     `field` the whole field or a shard, `coeffs` A's own coefficients (T'
@@ -201,21 +219,72 @@ class _System(NamedTuple):
     outside: tuple | None
     coeffs: StencilCoeffs
     loops: dict
+    redi: RediOperator | None = None
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        """(shift * I + D_extra + A) x."""
+        """(shift * I + D_extra + A - R) x: with R, one launch of K6's
+        matvec mode on the card, or in the bf16-narrow mode K1 and K6
+        beside the shift."""
         if self.outside is None:
-            return self.field.apply(self.a, x)
+            if self.redi is None:
+                return self.field.apply(self.a, x)
+            return _matvec(self.a, self.redi, x, self.topology)
         shift, extra = self.outside
-        return shift * x + extra * x + self.field.apply(self.a, x)
+        y = shift * x + extra * x + self.field.apply(self.a, x)
+        return y if self.redi is None else y - redi_kernel.redi_apply_fused(self.redi, x)
 
     def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return self.field.dot(a, b)
 
 
+def _matvec(legs: StencilCoeffs, redi: RediOperator, x: torch.Tensor,
+            topology: GridTopology) -> torch.Tensor:
+    """T x - R x for one field: one launch of K6's matvec mode on the card,
+    the plain versions composed on the CPU (the same bits)."""
+    if x.is_cuda:
+        return redi_kernel.matvec(legs, redi, x)
+    return stencil_apply(legs, x, topology) - redi_apply(redi, x)
+
+
+def _not_yet(what: str, redi) -> None:
+    """A ValueError for `redi=` where `what` does not take it yet."""
+    if redi is not None:
+        raise ValueError(f"{what} with redi= is not yet supported: the Redi operator runs in "
+                         f"the steady-state solves of one field on one device (ideal_age, "
+                         f"solve_shifted, solve_shifted_chunked, solve_shifted_ir)")
+
+
+def _system_redi(redi, t_leg: torch.Tensor, topology: GridTopology, dtype: torch.dtype,
+                 narrow: bool, stand_in: torch.Tensor) -> RediOperator:
+    """`redi` checked against T (`t_leg`, one of its legs as given) and
+    taken to the system's types: a RediOperator on T's grid, in T's dtype,
+    on T's device; in the bf16-narrow mode R stays bf16 (K6's (bf16, f32)
+    kernel), elsewhere it takes `dtype` with T, in which K6's matvec mode
+    must have an entry. `stand_in` is a field of the system's values, for
+    K6's own checks."""
+    if not isinstance(redi, RediOperator):
+        raise TypeError(f"redi: got a {type(redi).__name__}, expected a RediOperator "
+                        f"(build_redi_operator)")
+    topo = redi.topology
+    if topo.kind != topology.kind or topo.shape3d != topology.shape3d:
+        raise ValueError(f"redi: the operator is on a {topo.kind} grid of {topo.shape3d}, T "
+                         f"on a {topology.kind} grid of {topology.shape3d}")
+    if redi.ae.dtype != t_leg.dtype:
+        raise TypeError(f"redi: R's coefficients are {redi.ae.dtype}, T's {t_leg.dtype}: "
+                        f"R's type must match T's")
+    if redi.ae.device != t_leg.device:
+        raise ValueError(f"redi: R is on {redi.ae.device}, T on {t_leg.device}")
+    if not narrow:
+        redi = redi.to(dtype)
+        redi_kernel.apply_entry(dtype, dtype, dtype)
+    redi_kernel.validate(redi, stand_in, False, topology)
+    return redi
+
+
 def _system(coeffs: StencilCoeffs, dtype: torch.dtype, topology: GridTopology, shift=0.0,
             extra_diag: torch.Tensor | None = None, transpose: bool = False,
-            preconditioner: str = "tridiag", grid=None, overlap: bool = True) -> _System:
+            preconditioner: str = "tridiag", grid=None, overlap: bool = True,
+            redi: RediOperator | None = None) -> _System:
     """The engine's system in `dtype`, on the whole field or (`grid`) on
     this rank's shard; each public solve builds one and hands it on. For
     T' the stencil form of T' is built once; its vertical legs are the
@@ -223,7 +292,12 @@ def _system(coeffs: StencilCoeffs, dtype: torch.dtype, topology: GridTopology, s
     factored once. On a shard the Thomas solve needs no neighbours, since k
     is never sharded. bf16 coefficients with f32 vectors (the bf16-narrow
     mode) stay bf16 in A (K1's (bf16, f32) kernel) and are widened to f32
-    in M."""
+    in M. With `redi` (`_system_redi`: one field, no T', no grid, the
+    Thomas M) the system is T - R, and M's legs lose R's pure vertical
+    ones."""
+    if grid is not None or transpose:
+        _not_yet("a process grid (grid=)" if grid is not None else
+                 "the adjoint (transpose=True)", redi)
     if grid is None:
         field = _whole_field(topology)
         coeffs = transpose_coeffs(coeffs, topology) if transpose else coeffs
@@ -232,6 +306,7 @@ def _system(coeffs: StencilCoeffs, dtype: torch.dtype, topology: GridTopology, s
 
         field = halo_field(topology, grid, overlap)
         coeffs = transpose_coeffs_halo(coeffs, topology, grid) if transpose else coeffs
+    t_leg = coeffs.diag
     narrow = coeffs.diag.dtype == torch.bfloat16 and dtype == torch.float32
     if not narrow:
         coeffs = coeffs.to(dtype)
@@ -239,14 +314,17 @@ def _system(coeffs: StencilCoeffs, dtype: torch.dtype, topology: GridTopology, s
     shifted = shift + extra + coeffs.diag.to(dtype)
     a = coeffs if narrow else coeffs._replace(diag=shifted)
     outside = (shift, extra) if narrow else None
+    if redi is not None:
+        redi = _system_redi(redi, t_leg, topology, dtype, narrow, shifted)
     if preconditioner == "tridiag":
-        m_legs, (cp, rden) = _thomas(coeffs, shifted)
+        m_legs, (cp, rden) = _thomas(coeffs, shifted, redi)
         M, factor = (lambda v: tridiag_solve_factored(cp, rden, m_legs[2], v)), (cp, rden)
     elif preconditioner == "jacobi":
+        _not_yet("the jacobi preconditioner", redi)
         M, m_legs, factor = _jacobi_preconditioner(shifted), None, None
     else:
         raise ValueError(f"unknown preconditioner {preconditioner!r}")
-    return _System(a, topology, M, m_legs, field, factor, outside, coeffs, {})
+    return _System(a, topology, M, m_legs, field, factor, outside, coeffs, {}, redi)
 
 
 class _State1(NamedTuple):
@@ -916,18 +994,24 @@ def _solve(sys_: _System, b: torch.Tensor, tol: float, maxiter: int, algorithm: 
     `sys_` for b, under the caller's rules. Returns (x, the relative
     residual: a float for a field, the (B,) float64 host tensor for a
     batch). `fused`, unless the caller says, runs BiCGStab(2) on K3 where
-    K3 can: the Thomas M, the whole field, coefficients of b's dtype and b
-    a single field."""
+    K3 can: the Thomas M, the whole field, coefficients of b's dtype, b a
+    single field and no R."""
     thomas, whole, narrow = sys_.m_legs is not None, sys_.field.whole, sys_.outside is not None
+    redi = sys_.redi is not None
     if fused is None:
-        fused = algorithm == "bicgstab2" and thomas and whole and not narrow and b.ndim == 3
+        fused = (algorithm == "bicgstab2" and thomas and whole and not narrow and b.ndim == 3
+                 and not redi)
+    if fused and redi:
+        raise ValueError("fused=True runs K3, which has no Redi operator: pass redi=None or "
+                         "fused=False")
     if fused and not thomas:
         raise ValueError("fused=True needs the tridiag preconditioner (K3 is its Thomas solve)")
     if fused and narrow:
         raise ValueError("fused=True needs coefficients of b's dtype (K3 has no bf16 entry)")
     if fused and not whole:
         raise ValueError("on a process grid the solve runs unfused (K3 has no halo mode)")
-    with span("engine", algorithm=algorithm, batch=b.shape[0] if b.ndim == 4 else 0):
+    with span("engine", algorithm=algorithm, batch=b.shape[0] if b.ndim == 4 else 0,
+              redi=redi):
         x, res = _engine(sys_, b, tol, maxiter, chunk, algorithm,
                          fused and algorithm == "bicgstab2", early_stop, max_restarts,
                          max_diverge_restarts, stats, verbose)
@@ -942,12 +1026,13 @@ def solve_shifted_chunked(coeffs: StencilCoeffs, b: torch.Tensor, topology: Grid
                           verbose: bool = False, early_stop: bool = True,
                           max_restarts: int = 2, algorithm: str = "bicgstab",
                           stats: dict | None = None, fused: bool | None = None,
-                          max_diverge_restarts: int = 2, grid=None, overlap: bool = True):
-    """Solve (shift * I + D_extra + T) x = b (T' when `transpose`) with the
-    host-driven Krylov engine. Returns (x, relative residual ||Ax - b|| /
-    ||b||, recomputed from x in b's dtype); for a batch b (B, nz, ny, nx),
-    `solve_shifted_chunked_multi`'s lockstep solve, the (B,) residuals as
-    a float64 host tensor.
+                          max_diverge_restarts: int = 2, grid=None, overlap: bool = True,
+                          redi: RediOperator | None = None):
+    """Solve (shift * I + D_extra + T) x = b (T' when `transpose`; T - R
+    with `redi`) with the host-driven Krylov engine. Returns (x, relative
+    residual ||Ax - b|| / ||b||, recomputed from x in b's dtype); for a
+    batch b (B, nz, ny, nx), `solve_shifted_chunked_multi`'s lockstep
+    solve, the (B,) residuals as a float64 host tensor.
 
     - `algorithm`: "bicgstab" (right-preconditioned BiCGStab(1)),
       "bicgstab2" (BiCGStab(l=2), Sleijpen & Fokkema 1993: two BiCG steps
@@ -993,10 +1078,18 @@ def solve_shifted_chunked(coeffs: StencilCoeffs, b: torch.Tensor, topology: Grid
       `parallel.halo_kernel.stencil_apply_halo`), the dots are all-reduced
       (one all-reduce of the (B,) sums for a batch), and the solve runs
       unfused (K3 has no halo mode). Returns the rank's shard of x and the
-      whole field's residual."""
+      whole field's residual.
+    - `redi` (a `RediOperator` on T's grid, in T's dtype, on T's device)
+      solves (shift * I + D_extra + T - R) x = b, R the Redi isoneutral
+      diffusion: on the card each matvec is one launch of K6's matvec mode
+      (f32 or f64; the bf16-narrow mode runs K1 and K6's (bf16, f32)
+      kernel), M's Thomas legs are T's vertical legs less R's pure vertical
+      ones (`models.redi.vertical_legs`), and BiCGStab(2) runs unfused (K3
+      has no R). Not yet with a batch, `transpose` or `grid`: they raise
+      ValueError."""
     _check(algorithm, b)
     sys_ = _system(coeffs, b.dtype, topology, shift, extra_diag, transpose, preconditioner,
-                   grid, overlap)
+                   grid, overlap, redi)
     return _solve(sys_, b, tol, maxiter, algorithm, early_stop, max_restarts,
                   max_diverge_restarts, stats, chunk, fused, verbose)
 
@@ -1006,13 +1099,13 @@ def solve_shifted(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopology
                   shift: float = 0.0, extra_diag: torch.Tensor | None = None,
                   tol: float = 1e-10, maxiter: int = 2000, transpose: bool = False,
                   preconditioner: str = "tridiag", stats: dict | None = None, grid=None,
-                  algorithm: str = "bicgstab"):
+                  algorithm: str = "bicgstab", redi: RediOperator | None = None):
     """Solve (shift * I + D_extra + T) x = b matrix-free with BiCGStab
     (T' instead of T when `transpose`). Returns (x, relative residual
-    ||Ax - b|| / ||b||, recomputed from x in b's dtype). `grid` as in
-    `solve_shifted_chunked`. `algorithm` (the JAX package's `method`):
-    "bicgstab", "bicgstab2" or "gmres" (GMRES(30), `maxiter` Arnoldi
-    steps; `solve_shifted_chunked` documents each).
+    ||Ax - b|| / ||b||, recomputed from x in b's dtype). `grid` and `redi`
+    (T - R) as in `solve_shifted_chunked`. `algorithm` (the JAX package's
+    `method`): "bicgstab", "bicgstab2" or "gmres" (GMRES(30), `maxiter`
+    Arnoldi steps; `solve_shifted_chunked` documents each).
 
     The operator runs in b's dtype. The solve runs until ||r|| <= tol *
     ||b|| (read every `CHUNK` iterations), maxiter, or a recurrence that
@@ -1022,7 +1115,7 @@ def solve_shifted(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopology
     `stats`, if a dict, receives the engine's stats (``iters`` first)."""
     _check(algorithm, b)
     sys_ = _system(coeffs, b.dtype, topology, shift, extra_diag, transpose, preconditioner,
-                   grid)
+                   grid, redi=redi)
     return _solve(sys_, b, tol, maxiter, algorithm, early_stop=False, max_restarts=0,
                   max_diverge_restarts=0, stats=stats)
 
@@ -1039,16 +1132,28 @@ def implicit_euler_step(coeffs: StencilCoeffs, chi: torch.Tensor, dt: float,
                          algorithm=algorithm)
 
 
-def _ir_defect(field: _Field, c_narrow: StencilCoeffs, x: torch.Tensor,
-               b_narrow: torch.Tensor, extra_narrow: torch.Tensor, shift: float,
-               bnorm_safe: float):
-    """One wide defect r = b - A x from the NARROW coefficients (widened
-    inside the K1 or K7 kernel, exactly), and its normalised form: returns
-    (r / s, s, s / ||b||) with s = ||r|| (1 where r == 0)."""
-    with span("ir.defect"):
-        wide = x.dtype
-        r = b_narrow.to(wide) - (shift * x + extra_narrow.to(wide) * x
-                                 + field.apply(c_narrow, x))
+def _wide_apply(sys_: _System, narrow_vec: torch.dtype, shift: float,
+                extra_narrow: torch.Tensor):
+    """The refinement's wide A x (x f64): from the NARROW coefficients,
+    widened inside the K1 or K7 kernel, exactly; with R, T - R in f64
+    throughout, through K6's f64 matvec mode on f64 copies of T's legs (the
+    shift and the extra diagonal folded in) and of R, made here once."""
+    field, wide = sys_.field, torch.float64
+    if sys_.redi is None:
+        c_narrow = sys_.coeffs.to(narrow_vec)
+        return lambda x: shift * x + extra_narrow.to(wide) * x + field.apply(c_narrow, x)
+    legs = sys_.coeffs.to(wide)
+    legs = legs._replace(diag=shift + extra_narrow.to(wide) + legs.diag)
+    redi = sys_.redi.to(wide)
+    return lambda x: _matvec(legs, redi, x, sys_.topology)
+
+
+def _ir_defect(field: _Field, apply_wide, x: torch.Tensor, b_narrow: torch.Tensor,
+               bnorm_safe: float, redi: bool = False):
+    """One wide defect r = b - A x (`_wide_apply`), and its normalised
+    form: returns (r / s, s, s / ||b||) with s = ||r|| (1 where r == 0)."""
+    with span("ir.defect", redi=redi):
+        r = b_narrow.to(x.dtype) - apply_wide(x)
         s = field.norm(r)
         s_safe = s if s != 0 else 1.0
         return r / s_safe, s_safe, s / bnorm_safe
@@ -1061,7 +1166,8 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
                      max_refinements: int = 10, maxiter: int = 2000,
                      inner_maxiter: int | None = None, transpose: bool = False,
                      preconditioner: str = "tridiag", stats: dict | None = None,
-                     inner_algorithm: str = "bicgstab", grid=None):
+                     inner_algorithm: str = "bicgstab", grid=None,
+                     redi: RediOperator | None = None):
     """`solve_shifted` with mixed-precision iterative refinement: inner
     Krylov solves in the coefficients' precision (f32 or f64) and the
     defect b - A x in f64, through the K1 kernel on the narrow
@@ -1076,6 +1182,12 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
     rank's shards, `topology` the global one, every rank calls it, and the
     inner solves and the f64 defects go through the halo exchange and K7
     (`parallel.solve_halo`). Returns the rank's shard of x.
+
+    `redi` (`solve_shifted_chunked` documents it) refines (shift * I +
+    D_extra + T - R) x = b: the inner solves take K6's matvec mode in the
+    coefficients' precision (K1 and K6 beside each other in the bf16-narrow
+    mode), and each defect applies T - R in f64 through K6's f64 matvec
+    mode, on f64 copies of T's legs and of R made once a solve.
 
     `inner_algorithm`: "bicgstab" runs each pass under `solve_shifted`'s
     rules (no stall stop, no restarts); "bicgstab2" under
@@ -1115,8 +1227,8 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
     # f32; the f64 defect reads the coefficients widened to f32 (exactly).
     narrow_vec = torch.float32 if coeffs.diag.dtype == torch.bfloat16 else coeffs.diag.dtype
     sys_ = _system(coeffs, narrow_vec, topology, shift, extra_diag, transpose, preconditioner,
-                   grid)
-    field, c_defect = sys_.field, sys_.coeffs.to(narrow_vec)
+                   grid, redi=redi)
+    field, with_redi = sys_.field, sys_.redi is not None
     # a pass's rules: `solve_shifted`'s for BiCGStab(1), else those of
     # `solve_shifted_chunked` (stall stop, jittered restarts)
     chunked = inner_algorithm != "bicgstab"
@@ -1127,6 +1239,7 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
         inner_maxiter = min(maxiter, inner_maxiter)
 
     extra_n = torch.zeros((), dtype=b.dtype, device=b.device) if extra_diag is None else extra_diag
+    apply_wide = _wide_apply(sys_, narrow_vec, shift, extra_n)
     b_nv = b.to(narrow_vec)
     bn_n = field.norm(b_nv)
     bnorm_safe = bn_n if bn_n != 0 else 1.0
@@ -1140,12 +1253,12 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
     pass_log = [] if stats is None else stats.setdefault("passes", [])
 
     for pass_i in range(max_refinements):
-        with span("ir.pass", **{"pass": pass_i}) as this_pass:
+        with span("ir.pass", redi=with_redi, **{"pass": pass_i}) as this_pass:
             if pass_i == 0:
                 # x == 0, so the defect is b: no wide apply needed.
                 r_hat, s_safe, rel = b_nv / bnorm_safe, bnorm_safe, bn_n / bnorm_safe
             else:
-                r_hat, s_safe, rel = _ir_defect(field, c_defect, x, b, extra_n, shift, bnorm_safe)
+                r_hat, s_safe, rel = _ir_defect(field, apply_wide, x, b, bnorm_safe, with_redi)
             if rel < best_rel:
                 best_rel = rel
                 best_x = x.to(narrow_vec)
@@ -1156,7 +1269,7 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
                 # the last pass made the defect worse by more than the 0.9x
                 # that counts as progress: refine from the best iterate
                 x = best_x.to(wide)
-                r_hat, s_safe, rel = _ir_defect(field, c_defect, x, b, extra_n, shift, bnorm_safe)
+                r_hat, s_safe, rel = _ir_defect(field, apply_wide, x, b, bnorm_safe, with_redi)
                 reverted = True
             entry = {"rel_start": rel, "reverted": reverted}
             pass_log.append(entry)
@@ -1187,13 +1300,13 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
             this_pass.attrs.update(reverted=reverted, inner_iters=inner["iters"])
         entry["wall_s"] = this_pass.seconds
     else:
-        _, _, rel = _ir_defect(field, c_defect, x, b, extra_n, shift, bnorm_safe)
+        _, _, rel = _ir_defect(field, apply_wide, x, b, bnorm_safe, with_redi)
         if rel < best_rel:
             best_rel, best_x = rel, x
     if best_x is not None and best_rel < rel:
         # the f32-rounded recovery point: keep it only if it really is better
         x_cand = best_x.to(wide)
-        _, _, rel_cand = _ir_defect(field, c_defect, x_cand, b, extra_n, shift, bnorm_safe)
+        _, _, rel_cand = _ir_defect(field, apply_wide, x_cand, b, bnorm_safe, with_redi)
         if rel_cand < rel:
             x, rel = x_cand, rel_cand
     if stats is not None:
@@ -1203,9 +1316,10 @@ def solve_shifted_ir(coeffs: StencilCoeffs, b: torch.Tensor, topology: GridTopol
 
 def _steady_state(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: GridTopology,
                   surface_rate: float, tol: float, refine: bool, algorithm: str,
-                  transpose: bool, stats: dict | None, grid=None):
-    """(T + M) x = 1 (T' when `transpose`) on wet cells, M = surface_rate on
-    the surface layer; NaN on land. On a process grid, on the rank's shard."""
+                  transpose: bool, stats: dict | None, grid=None, redi=None):
+    """(T + M) x = 1 (T' when `transpose`, T - R with `redi`) on wet cells,
+    M = surface_rate on the surface layer; NaN on land. On a process grid,
+    on the rank's shard."""
     if algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}")
     wet = wet3d.to(torch.bool)
@@ -1213,7 +1327,7 @@ def _steady_state(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: GridTopo
     surf = torch.zeros_like(ones)
     surf[0] = surface_rate
     surf = torch.where(wet, surf, 0.0)
-    kw = dict(extra_diag=surf, tol=tol, transpose=transpose, stats=stats, grid=grid)
+    kw = dict(extra_diag=surf, tol=tol, transpose=transpose, stats=stats, grid=grid, redi=redi)
     if refine:
         x, res = solve_shifted_ir(coeffs, ones, topology, inner_algorithm=algorithm, **kw)
     elif algorithm == "bicgstab":
@@ -1223,10 +1337,10 @@ def _steady_state(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: GridTopo
     return torch.where(wet, x, float("nan")), res
 
 
-@traced
 def ideal_age(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: GridTopology,
               surface_rate: float = 1.0, tol: float = 1e-8, refine: bool = False,
-              stats: dict | None = None, algorithm: str = "bicgstab", grid=None):
+              stats: dict | None = None, algorithm: str = "bicgstab", grid=None,
+              redi: RediOperator | None = None):
     """Steady-state ideal mean age Gamma (seconds) from
     (T + M) Gamma = 1 on wet cells, M = surface_rate on the surface layer
     (reference test/local_full.jl:155-168). Returns (gamma with NaN on
@@ -1240,20 +1354,32 @@ def ideal_age(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: GridTopology
     `grid` (a `parallel.mesh.ProcessGrid`; the JAX package's `mesh=`) runs
     it on a process grid: `coeffs` and `wet3d` are the rank's shards,
     `topology` the global one, every rank calls it, and it returns the
-    rank's shard of gamma (`parallel.solve_halo`)."""
-    return _steady_state(coeffs, wet3d, topology, surface_rate, tol, refine, algorithm,
-                         False, stats, grid)
+    rank's shard of gamma (`parallel.solve_halo`).
+
+    `redi` (a `RediOperator` on T's grid, in T's dtype and on T's device,
+    such as `build_redi_operator`'s) solves the age with the neutral
+    physics, (T - R + M) Gamma = 1: T from the GM-augmented transports, R
+    the Redi isoneutral diffusion. On the card each matvec is one launch of
+    K6's matvec mode (no K1), M's Thomas legs are T's vertical legs less
+    R's pure vertical ones, and the refinement's f64 defects apply T - R
+    through K6's f64 matvec mode (`solve_shifted_ir`). Not yet with
+    `grid`."""
+    with span("ideal_age", redi=redi is not None):
+        return _steady_state(coeffs, wet3d, topology, surface_rate, tol, refine, algorithm,
+                             False, stats, grid, redi)
 
 
 @traced
 def sequestration_time(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: GridTopology,
                        surface_rate: float = 1.0, tol: float = 1e-8, refine: bool = False,
-                       stats: dict | None = None, algorithm: str = "bicgstab", grid=None):
+                       stats: dict | None = None, algorithm: str = "bicgstab", grid=None,
+                       redi: RediOperator | None = None):
     """Mean sequestration time (seconds), the adjoint of the ideal age: the
     expected time for water at each cell to next reach the surface,
     (T' + M) Gamma_dagger = 1 on wet cells, through the stencil form of
     T' (`transpose_coeffs`). Arguments and returns as `ideal_age`, `grid`
-    included."""
+    included; `redi` (T' - R') raises ValueError: not yet supported."""
+    _not_yet("sequestration_time", redi)
     return _steady_state(coeffs, wet3d, topology, surface_rate, tol, refine, algorithm,
                          True, stats, grid)
 
@@ -1267,7 +1393,7 @@ def solve_shifted_chunked_multi(coeffs: StencilCoeffs, bs: torch.Tensor,
                                 verbose: bool = False, early_stop: bool = True,
                                 max_restarts: int = 2, algorithm: str = "bicgstab",
                                 stats: dict | None = None, max_diverge_restarts: int = 2,
-                                grid=None):
+                                grid=None, redi: RediOperator | None = None):
     """Solve (shift * I + D_extra + T) x_b = b_b (T' when `transpose`) for a
     batch of right-hand sides `bs` (B, nz, ny, nx) in one lockstep Krylov
     loop. Returns (xs, residuals): xs (B, nz, ny, nx) and the (B,) relative
@@ -1307,7 +1433,9 @@ def solve_shifted_chunked_multi(coeffs: StencilCoeffs, bs: torch.Tensor,
       `parallel.halo_kernel.euler_propagate_halo_multi`), M the batched K2
       on the shard's own columns, and each reduction one all-reduce of
       the (B,) partial sums. Returns the rank's shard of xs and the whole
-      field's residuals, the same on every rank."""
+      field's residuals, the same on every rank.
+    - `redi` raises ValueError: a batch with R is not yet supported."""
+    _not_yet("solve_shifted_chunked_multi", redi)
     _check(algorithm, bs, batch=True)
     sys_ = _system(coeffs, bs.dtype, topology, shift, extra_diag, transpose, preconditioner,
                    grid)
@@ -1320,11 +1448,12 @@ def solve_shifted_multi(coeffs: StencilCoeffs, bs: torch.Tensor, topology: GridT
                         shift: float = 0.0, extra_diag: torch.Tensor | None = None,
                         tol: float = 1e-10, maxiter: int = 2000, transpose: bool = False,
                         preconditioner: str = "tridiag", stats: dict | None = None,
-                        grid=None):
+                        grid=None, redi: RediOperator | None = None):
     """`solve_shifted` for a batch `bs` (B, nz, ny, nx): one lockstep
     BiCGStab over all members, the engine without stall stops or
-    restarts (`solve_shifted_chunked_multi` documents it, `grid`
-    included). Returns (xs, (B,) relative residuals)."""
+    restarts (`solve_shifted_chunked_multi` documents it, `grid` and
+    `redi` included). Returns (xs, (B,) relative residuals)."""
+    _not_yet("solve_shifted_multi", redi)
     _check("bicgstab", bs, batch=True)
     sys_ = _system(coeffs, bs.dtype, topology, shift, extra_diag, transpose, preconditioner,
                    grid)
@@ -1336,7 +1465,8 @@ def solve_shifted_multi(coeffs: StencilCoeffs, bs: torch.Tensor, topology: GridT
 def water_mass_fractions(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: GridTopology,
                          region_masks, surface_rate: float = 1.0, tol: float = 1e-8,
                          preconditioner: str = "tridiag", algorithm: str = "bicgstab",
-                         stats: dict | None = None, grid=None):
+                         stats: dict | None = None, grid=None,
+                         redi: RediOperator | None = None):
     """Steady-state surface-origin water-mass fractions, one batched solve
     for all regions. For a partition of the surface into R regions,
     fraction r satisfies the dye steady state
@@ -1370,7 +1500,9 @@ def water_mass_fractions(coeffs: StencilCoeffs, wet3d: torch.Tensor, topology: G
     `region_masks` stays the GLOBAL (R, ny, nx) partition, as the JAX
     function takes it; each rank slices it to its shard by
     `grid.offset`. Every rank calls it and gets its shard of the fractions
-    and the whole field's residuals (`solve_shifted_chunked_multi`)."""
+    and the whole field's residuals (`solve_shifted_chunked_multi`).
+    `redi` raises ValueError: the dyes with R are not yet supported."""
+    _not_yet("water_mass_fractions", redi)
     if algorithm not in MULTI_ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}")
     wet = wet3d.to(torch.bool)

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import subprocess
 import sys
@@ -108,6 +109,8 @@ def run_one(root: Path) -> dict:
             b64 = xs[:nb].double()
             timed(f"K6 f64 batch B={nb}", lambda: P.redi_apply_fused_multi(R64, b64), 20)
     fused = hasattr(redi_kernel, "step")
+    # a checkout with K6's matvec mode names the step mode; before it, legs= did
+    step = {"mode": "step"} if "mode" in inspect.signature(redi_kernel.plan).parameters else {}
     out["mode"] = "one launch" if fused else "two launches"
     y = torch.empty_like(xs)
     for name, op in (("f32", R),) if QUICK else (("f32", R), ("bf16", Rb)):
@@ -148,8 +151,8 @@ def run_one(root: Path) -> dict:
     timed(f"K9 {shard[0]}x{shard[1]}x{ab.NZ}", k9, 50)
     for nb in (1, 2, 4, 8):
         b = xs[:nb].contiguous()
-        out["plan"][f"B={nb}"] = (redi_kernel.plan(R, b, True, legs=torch.float32) if fused
-                                  else redi_kernel.plan(R, b, True, acc=True))
+        out["plan"][f"B={nb}"] = (redi_kernel.plan(R, b, True, legs=torch.float32, **step)
+                                  if fused else redi_kernel.plan(R, b, True, acc=True))
     out["registers"] = registers(_build.library_path().with_suffix(".log"))
     return out
 

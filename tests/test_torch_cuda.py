@@ -732,7 +732,7 @@ def _step_equals(legs, op, xs, dt: float, topo, batched: bool) -> None:
     torch.testing.assert_close(got, stencil._plain(legs, xs, topo, dt)
                                + dt * P.redi_apply(op, xs), rtol=0, atol=0)
     if batched:
-        plan = redi_kernel.plan(op, xs, True, legs=legs.diag.dtype)
+        plan = redi_kernel.plan(op, xs, True, "step", legs.diag.dtype)
         assert plan["group"] == _k6_group(xs.shape[0], xs.dtype), plan
         assert plan["group"] < 8 or plan["per_sm"] == 2, plan
         for m in range(xs.shape[0]):
@@ -827,7 +827,7 @@ def test_t_plus_r_steps_equal_the_eager_path_at_1_degree(one_degree, one_degree_
     without = go(c, x0, dt, 3, topo)
     assert float((got - without).abs().max()) > 0  # R moved the tracers
     if nmembers == 8 and dtype == torch.float32:
-        plan = redi_kernel.plan(R, x0, True, legs=dtype)
+        plan = redi_kernel.plan(R, x0, True, "step", dtype)
         assert (plan["group"], plan["per_sm"]) == (8, 2), plan
 
 
@@ -866,6 +866,146 @@ def test_t_plus_r_arguments_are_checked_on_card(case):
         P.euler_propagate_multi(T, x[None], 1.0, 1, topo,
                                 redi=dataclasses.replace(R, ae=R.ae.transpose(1, 2)
                                                          .contiguous().transpose(1, 2)))
+
+
+# ----------------------------------------------------------------------------
+# T - R matvecs: the steady-state solves with redi=R, one launch of K6's
+# matvec mode a matvec (T's 7-point sum less R chi in one walk).
+
+APPLY_TYPES = {"f32": torch.float32, "f64": torch.float64}
+
+
+def _apply_equals(legs, op, x, topo) -> None:
+    """K6's matvec mode on `x` through the solvers' dispatch against the
+    plain composition apply_stencil(T, x) - redi_apply(R, x), bit for bit:
+    one K6 call, of a matvec-mode entry, and no K1 call; the plan's member
+    group is 1."""
+    from otmb_tpu_torch.models import redi_kernel
+    from otmb_tpu_torch.models import solvers as S
+
+    counted = (("K1", K1), ("K6", K6), ("apply", redi_kernel.APPLY_ENTRIES))
+    before = {name: _build.calls(prefixes) for name, prefixes in counted}
+    got = S._matvec(legs, op, x, topo)
+    calls = {name: _build.calls(prefixes) - before[name] for name, prefixes in counted}
+    assert calls == {"K1": 0, "K6": 1, "apply": 1}, calls
+    torch.testing.assert_close(got, P.apply_stencil(legs, x, topo) - P.redi_apply(op, x),
+                               rtol=0, atol=0)
+    assert redi_kernel.plan(op, x, False, mode="apply")["group"] == 1
+
+
+@pytest.mark.parametrize("dtype", list(APPLY_TYPES))
+def test_t_minus_r_matvec_equals_the_plain_composition(case, dtype):
+    """K6's matvec mode on the case's T (the age's surface restoring and a
+    shift folded into its diagonal) and R, f32 and f64, both topologies,
+    with chi finite and nonzero on land, which T reads as stored and R as
+    0."""
+    _, gm, idx, T, _ = case
+    dt = APPLY_TYPES[dtype]
+    legs = T._replace(diag=T.diag + 1e-7 + _surface(idx.wet3d).double()).to(dt)
+    rng = np.random.default_rng(23)
+    x = torch.as_tensor(1.0 + rng.standard_normal(tuple(gm.shape)), device=gm.v3d.device).to(dt)
+    assert bool((x[~idx.wet3d] != 0).all())
+    _apply_equals(legs, _redi(case).to(dt), x, gm.topology)
+
+
+@pytest.mark.parametrize("kind", ["tripolar", "bipolar"])
+@pytest.mark.parametrize("dtype", list(APPLY_TYPES))
+@pytest.mark.parametrize("dims", [(1, 1, 33), (2, 9, 45), (1, 17, 70), (3, 11, 5), (13, 9, 45)])
+def test_t_minus_r_matvec_cut_shapes_equal_the_plain_composition(device, kind, dtype, dims):
+    """K6's matvec mode on shapes that cut its 32 x 8 tile on every side and
+    its walk into uneven chunks, with random T legs, a random R and wet
+    mask, chi random on every cell: bit for bit against the plain
+    composition."""
+    from otmb_tpu_torch.grid.topology import GridTopology
+
+    dt = APPLY_TYPES[dtype]
+    nz, ny, nx = dims
+    topo = GridTopology(kind=kind, nx=nx, ny=ny, nz=nz)
+    op = _random_redi(kind, nz, ny, nx, device, seed=nz + ny + nx + 2).to(dt)
+    rng = np.random.default_rng(nz * ny + nx + 1)
+    legs = StencilCoeffs(*(torch.as_tensor(rng.standard_normal((nz, ny, nx)), device=device)
+                           .to(dt) for _ in StencilCoeffs._fields))
+    x = torch.as_tensor(rng.standard_normal(dims), device=device).to(dt)
+    _apply_equals(legs, op, x, topo)
+
+
+def test_a_graphed_t_minus_r_solve_runs_only_k6_matvecs(case):
+    """BiCGStab(1) on T - R: no K1 call; each iteration two runs of K6's
+    matvec mode, eager in the first iteration and inside a replay after it,
+    and one more for the final residual; the two captured iterations call
+    it twice each (counted under "capture:", nothing run); two solves give
+    the same bits."""
+    from otmb_tpu_torch.models import redi_kernel
+
+    _, gm, idx, T, _ = case
+    apply = redi_kernel.APPLY_ENTRIES[0]
+    c, R = T.to(torch.float32), _redi(case).to(torch.float32)
+    b = idx.wet3d.to(torch.float32)
+    kw = dict(extra_diag=_surface(idx.wet3d), tol=1e-5, chunk=20, algorithm="bicgstab", redi=R)
+    solves = []
+    for _ in range(2):
+        n1, n6, g0, c0, stats = (_build.calls(K1), _build.calls(apply),
+                                 _build.calls("graph:bicg1"), _build.calls("capture:" + apply),
+                                 {})
+        solves.append(P.solve_shifted_chunked(c, b, gm.topology, stats=stats, **kw))
+        assert _build.calls(K1) == n1
+        assert _build.calls(apply) - n6 == 2 * stats["iters"] + 1
+        assert _build.calls("graph:bicg1") - g0 == stats["iters"] - 1 > 2
+        assert _build.calls("capture:" + apply) - c0 == 2 * 2
+    (x1, r1), (x2, r2) = solves
+    torch.testing.assert_close(x1, x2, rtol=0, atol=0)
+    assert r1 == r2 <= 1e-5
+
+
+def _redi_age_1deg(one_degree, one_degree_redi, stats):
+    gm, wet, T = one_degree
+    return P.ideal_age(T, wet, gm.topology, tol=1e-8, refine=True, stats=stats,
+                       redi=one_degree_redi.to(torch.float32))
+
+
+def test_the_refined_t_minus_r_age_at_1_degree_runs_k6_not_k1(one_degree, one_degree_redi):
+    """The refined age of T - R at 1 degree (f32 inner solves, f64 defects):
+    no K1 call; the f32 matvec mode runs twice an inner iteration and once
+    for each pass's final residual, the f64 one once a defect (its
+    `ir.defect` spans); K2 and K13 as a BiCGStab(1) solve runs them."""
+    from otmb_tpu_torch.models import redi_kernel
+    from otmb_tpu_torch.utils import tracing
+
+    f32, f64 = redi_kernel.APPLY_ENTRIES
+    before = {k: _build.calls(p) for k, p in (("K1", K1), ("K13", K13), ("f32", f32),
+                                              ("f64", f64))}
+    tracing.clear()
+    stats = {}
+    age, res = _redi_age_1deg(one_degree, one_degree_redi, stats)
+    got = {k: _build.calls(p) - before[k] for k, p in (("K1", K1), ("K13", K13), ("f32", f32),
+                                                       ("f64", f64))}
+    solved = [p for p in stats["passes"] if "inner_iters" in p]
+    iters = sum(p["inner_iters"] for p in solved)
+    defects = sum(s.name == "ir.defect" for s in tracing.spans())
+    assert res <= 1e-8 and iters > 0, stats
+    assert got == {"K1": 0, "K13": 5 * iters, "f32": 2 * iters + len(solved),
+                   "f64": defects}, (got, iters, len(solved), defects)
+    gm, wet, _ = one_degree
+    assert bool(torch.isfinite(age[wet]).all()) and float(age[wet].min()) > 0
+
+
+def test_the_graphed_t_minus_r_age_equals_the_eager_one(one_degree, one_degree_redi,
+                                                        monkeypatch):
+    """The graphed loop and the eager one give the refined age of T - R at
+    1 degree the same bits: the age, the residual and the iterations."""
+    from otmb_tpu_torch.models import solvers as S
+
+    runs = []
+    for graphed in (True, False):
+        if not graphed:
+            monkeypatch.setattr(S, "_graphed", lambda sys_, algorithm, b: False)
+        g0, stats = _build.calls("graph:bicg1"), {}
+        x, res = _redi_age_1deg(one_degree, one_degree_redi, stats)
+        runs.append((x, res, _iterations(stats), _build.calls("graph:bicg1") - g0))
+    (xg, rg, ig, replays), (xe, re_, ie, none) = runs
+    assert replays > 0 and none == 0 and ig == ie
+    torch.testing.assert_close(xg, xe, rtol=0, atol=0, equal_nan=True)
+    assert rg == re_
 
 
 # ----------------------------------------------------------------------------
